@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Build and run the PyTorch/CUDA port of RAQO planning on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; there is no CPU path):
+
+1. device  — the card's name and power limit from nvidia-smi;
+2. build   — compile src/repro_torch/kernels/csrc/plan_scan.cu with nvcc;
+3. parity  — each CUDA kernel against its plain torch version on the card:
+             scan_argmin at both launch geometries over every shipped
+             surface x objective, the 10M-row scaled_cluster(100_000, 100)
+             grid and a ragged grid, Q in {1, 8, 65}, an all-OOM case;
+             neighbor_step with 26 starts.  Flat ids equal, costs bit-equal;
+4. main    — RAQO.plan_queries on the §VII-C scale workload (8 random
+             5-relation queries, simulator models, 100K containers x 100 GB)
+             through the scan kernel ("batched") and the neighbor-step kernel
+             ("ensemble", on 1K containers x 100 GB: its host-driven climb
+             takes one launch and one sync per grid step, ~1e5 per request
+             at 100K containers), then the four TPC-H queries (SF 100, the
+             paper's published models, 100K x 100); every plan must equal
+             the plain version's (TorchPlanBackend float32 on the card) and
+             both kernels must have launched;
+5. times   — each kernel at the main path's largest wave shape against its
+             plain version and its bound (bytes or FP32 operations).
+
+The last two lines are the kernels' JSON record and
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+H100_FP32_FLOPS = 67e12        # FP32 outside the tensor cores, H100 SXM
+H100_HBM_BYTES_S = 3.35e12     # HBM3, H100 SXM
+
+# FP32 operations per configuration row of each surface's device function
+# (every add, mul, IEEE division, logf, max, compare counted as one; the
+# strict-< fold adds one) — a lower bound: a division is ~10 instructions
+SURFACE_OPS = {"regression": 18, "regression+oom": 20, "smj": 23, "bhj": 15}
+OBJECTIVE_OPS = {"time": 0, "money": 5, "sla": 5}
+FOLD_OPS = 1
+
+QUERIES = 8                    # random 5-relation queries (seeds 0..7)
+ENSEMBLE_CONTAINERS = 1_000    # the ensemble pass's grid: 1K x 100 GB
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def surface_ops(surface) -> int:
+    kind = surface.kind
+    if kind == "regression" and surface.oom:
+        kind = "regression+oom"
+    return SURFACE_OPS[kind] + OBJECTIVE_OPS[surface.objective] + FOLD_OPS
+
+
+def bound_ms(n_bytes: int, n_ops: int):
+    """Least time the card could take: the larger of the bytes over the
+    memory rate and the FP32 operations over the FP32 peak."""
+    by_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
+    by_ops = n_ops / H100_FP32_FLOPS * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else \
+        (by_bytes, "bytes")
+
+
+def time_ms(fn, reps: int, torch) -> float:
+    fn()                                       # warm
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def plan_signature(jp):
+    """Everything a plan decides: join order, operator impls, resources
+    and the float64-committed costs."""
+    ops = []
+
+    def walk(n):
+        if n.is_leaf:
+            ops.append(tuple(sorted(n.tables)))
+            return
+        ops.append((n.impl, n.resources, n.op_cost, n.total_cost,
+                    n.total_money))
+        walk(n.left)
+        walk(n.right)
+    walk(jp.plan)
+    return tuple(ops), jp.exec_time, jp.money
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.cluster import (ClusterConditions, ResourceDim,
+                                          scaled_cluster)
+    from repro_torch.core.plan_broker import PlanBroker
+    from repro_torch.core.planning_backend import TorchPlanBackend
+    from repro_torch.core.raqo import RAQO
+    from repro_torch.core.schema import (TPCH_QUERIES, random_query,
+                                         random_schema, tpch_schema)
+    from repro_torch.kernels import build, plan_scan as ps
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    # 1. device ------------------------------------------------------------ #
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {kind}", flush=True)
+
+    # 2. build ------------------------------------------------------------- #
+    t0 = time.perf_counter()
+    build.load_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {build.build_seconds} s)", flush=True)
+
+    # 3. kernel against plain, on the card --------------------------------- #
+    rng = np.random.default_rng(0)
+    models = {"paper": cm.paper_models(), "simreg": cm.simulator_models(),
+              "sim": cm.simulator_cost_models()}
+    surfaces = [(f"{src}/{impl}/{obj}", cm.Surface(m[impl], obj))
+                for src, m in models.items() for impl in ("SMJ", "BHJ")
+                for obj in ("time", "money")]
+    surfaces += [(f"{src}/{impl}/sla", cm.Surface(models[src][impl], "sla"))
+                 for src, impl in (("sim", "SMJ"), ("paper", "BHJ"))]
+    grids = {"scaled_100000x100": scaled_cluster(100_000, 100),
+             "ragged": ClusterConditions(dims=(
+                 ResourceDim("num_containers", 1, 29_998, 7),
+                 ResourceDim("container_gb", 1, 64,
+                             values=(1, 2, 3, 5, 8, 13, 21, 34, 55, 64))))}
+    max_err = {"scan_argmin": 0.0, "neighbor_step": 0.0}
+    n_cases = 0
+
+    def params_for(surface, Q):
+        ss = rng.uniform(0.01, 60.0, Q)
+        cols = [ss, ss + rng.uniform(0.0, 200.0, Q)]
+        if surface.objective == "sla":
+            cols.append(rng.uniform(2.0, 40.0, Q))
+        return torch.tensor(np.stack(cols, 1), dtype=torch.float32,
+                            device=dev)
+
+    def same_scan(name, surface, dims, p):
+        nonlocal n_cases
+        rc, rf = ps.scan_argmin_ref(surface, dims, p)
+        Q = p.shape[0]
+        for qb in sorted({1, min(Q, ps.UNROLL_Q)}):
+            kc, kf = ps.scan_argmin(surface, dims, p, qb)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(rc) & torch.isfinite(kc)
+            if fin.any():
+                max_err["scan_argmin"] = max(
+                    max_err["scan_argmin"],
+                    float((rc[fin] - kc[fin]).abs().max()))
+            check(torch.equal(rf, kf) and torch.equal(rc, kc),
+                  f"scan_argmin {name} Q={Q} q_per_block={qb}: kernel "
+                  f"{kc.tolist()[:4]} {kf.tolist()[:4]} vs plain "
+                  f"{rc.tolist()[:4]} {rf.tolist()[:4]}")
+            n_cases += 1
+        return rc, rf
+
+    t0 = time.perf_counter()
+    for gname, cluster in grids.items():
+        dims = ps.grid_dims(cluster, dev)
+        for sname, surface in surfaces:
+            for Q in (1, 8, 65):
+                same_scan(f"{sname} {gname}", surface, dims,
+                          params_for(surface, Q))
+            sizes = [d.size for d in dims]
+            cur = np.stack([rng.integers(0, s, 26) for s in sizes], 1)
+            cur[0], cur[1] = (0, 0), (sizes[0] - 1, sizes[1] - 1)
+            cur = torch.tensor(cur, device=dev)
+            p1 = params_for(surface, 1)
+            ref = ps.neighbor_step_ref(surface, dims, cur, p1)
+            got = ps.neighbor_step(surface, dims, cur, p1)
+            torch.cuda.synchronize()
+            for r, g in zip(ref[:2], got[:2]):
+                fin = torch.isfinite(r) & torch.isfinite(g)
+                if fin.any():
+                    max_err["neighbor_step"] = max(
+                        max_err["neighbor_step"],
+                        float((r[fin] - g[fin]).abs().max()))
+            check(all(torch.equal(r, g) for r, g in zip(ref, got)),
+                  f"neighbor_step {sname} {gname}: kernel {got} vs plain "
+                  f"{ref}")
+            n_cases += 1
+    # all-OOM: the hash side exceeds 70% of every container size
+    oom = cm.Surface(models["sim"]["BHJ"], "time")
+    dims = ps.grid_dims(grids["scaled_100000x100"], dev)
+    p = torch.tensor([[80.0, 300.0]] * 8, dtype=torch.float32, device=dev)
+    rc, rf = same_scan("all-OOM", oom, dims, p)
+    check(bool(torch.isinf(rc).all()) and bool((rf == -1).all()),
+          "all-OOM scan found a feasible configuration")
+    print(f"parity: {n_cases} kernel/plain cases bit-equal in "
+          f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}",
+          flush=True)
+
+    # 4. main path --------------------------------------------------------- #
+    schema = random_schema(10, seed=0)
+    queries = [random_query(schema, 5, seed=q) for q in range(QUERIES)]
+    tpch = tpch_schema(100)
+    big = scaled_cluster(100_000, 100)
+    runs = [
+        ("batched", dict(schema=schema, models=cm.simulator_cost_models(),
+                         cluster=big, resource_planning="batched"),
+         queries),
+        ("ensemble", dict(schema=schema, models=cm.simulator_cost_models(),
+                          cluster=scaled_cluster(ENSEMBLE_CONTAINERS, 100),
+                          resource_planning="ensemble"),
+         queries),
+        ("tpch", dict(schema=tpch, models=cm.paper_models(), cluster=big,
+                      resource_planning="batched"),
+         list(TPCH_QUERIES.values())),
+    ]
+
+    def plan_all(backend):
+        out = {}
+        for name, kw, qs in runs:
+            broker = PlanBroker(backend)
+            t = time.perf_counter()
+            plans = RAQO(backend=backend, broker=broker, **kw
+                         ).plan_queries(qs)
+            torch.cuda.synchronize()
+            out[name] = (plans, time.perf_counter() - t, broker)
+        return out
+
+    cuda_be = ps.CudaPlanBackend()
+    ps.reset_launch_counts()
+    got = plan_all(cuda_be)
+    launches = {"scan_argmin": ps.scan_argmin.launches,
+                "neighbor_step": ps.neighbor_step.launches}
+    plain = plan_all(TorchPlanBackend(device="cuda", dtype=torch.float32))
+    for name, kw, qs in runs:
+        plans, secs, broker = got[name]
+        pplans, psecs, _ = plain[name]
+        check(len(plans) == len(qs) and all(
+            jp.plan is not None and math.isfinite(jp.exec_time)
+            for jp in plans), f"{name}: missing or infinite plan")
+        check([plan_signature(j) for j in plans] ==
+              [plan_signature(j) for j in pplans],
+              f"{name}: kernel plans differ from the plain version's")
+        c = broker.counters_snapshot()
+        print(f"main {name}: {len(qs)} queries on "
+              f"{kw['cluster'].grid_size()} configs, plan_queries "
+              f"{secs:.3f} s (plain {psecs:.3f} s), waves {c['waves']}, "
+              f"requests {c['requests']}, max wave {c['max_wave']}, "
+              f"float64 re-searches {broker.f64_researches}, plans equal "
+              f"to plain", flush=True)
+    print(f"main launches: {launches}", flush=True)
+    check(launches["scan_argmin"] > 0 and launches["neighbor_step"] > 0,
+          f"a kernel of the main path never launched: {launches}")
+
+    # 5. times at the main path's largest wave shape ----------------------- #
+    Q = max(1, cuda_be.max_stack)
+    surface = cm.Surface(models["sim"]["SMJ"], "time")
+    dims = ps.grid_dims(big, dev)
+    p = params_for(surface, Q)
+    rows = big.grid_size()
+    # reads the (Q, P) float32 params, writes (Q,) 64-bit keys
+    scan_bound, scan_by = bound_ms(Q * surface.n_params * 4 + Q * 8,
+                                   rows * Q * surface_ops(surface))
+    rule = cuda_be.q_per_block(Q)
+    geo_ms = {qb: time_ms(lambda qb=qb: ps.scan_argmin(surface, dims, p, qb),
+                          10, torch)
+              for qb in sorted({1, min(Q, ps.UNROLL_Q)})}
+    scan_plain = time_ms(lambda: ps.scan_argmin_ref(surface, dims, p), 2,
+                         torch)
+    for qb, ms in geo_ms.items():
+        print(f"time scan_argmin sim/SMJ/time rows={rows} Q={Q} "
+              f"q_per_block={qb}{' (rule)' if qb == rule else ''}: "
+              f"{ms:.4f} ms; plain {scan_plain:.3f} ms; bound "
+              f"{scan_bound:.4f} ms ({scan_by})", flush=True)
+    S = 26
+    ens_dims = ps.grid_dims(scaled_cluster(ENSEMBLE_CONTAINERS, 100), dev)
+    cur = torch.tensor(np.stack([rng.integers(0, d.size, S)
+                                 for d in ens_dims], 1), device=dev)
+    p1 = params_for(surface, 1)
+    nb_ms = time_ms(lambda: ps.neighbor_step(surface, ens_dims, cur, p1),
+                    200, torch)
+    nb_plain = time_ms(lambda: ps.neighbor_step_ref(surface, ens_dims, cur,
+                                                    p1), 50, torch)
+    # reads (S, 2) int64 indices and the params, writes 2 floats + 1 int
+    # per start; costs S centres and 4 neighbours each
+    nb_bound, nb_by = bound_ms(S * 16 + surface.n_params * 4 + S * 12,
+                               S * 5 * surface_ops(surface))
+    print(f"time neighbor_step sim/SMJ/time S={S}: {nb_ms:.4f} ms; plain "
+          f"{nb_plain:.4f} ms; bound {nb_bound:.7f} ms ({nb_by})",
+          flush=True)
+
+    src = "src/repro_torch/kernels/csrc/plan_scan.cu"
+    kernels = [
+        {"name": "scan_argmin", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/plan_scan.py:231",
+         "launches": launches["scan_argmin"],
+         "max_abs_err": max_err["scan_argmin"], "ms": geo_ms[rule],
+         "plain_ms": scan_plain, "bound_ms": scan_bound,
+         "bound_by": scan_by, "library_ms": None},
+        {"name": "neighbor_step", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/plan_scan.py:290",
+         "launches": launches["neighbor_step"],
+         "max_abs_err": max_err["neighbor_step"], "ms": nb_ms,
+         "plain_ms": nb_plain, "bound_ms": nb_bound,
+         "bound_by": nb_by, "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

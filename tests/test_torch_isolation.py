@@ -1,0 +1,98 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+reference package, and its entry points refuse to drift to the CPU.
+
+On a host without a GPU the default backend (``"cuda"``) must raise
+``RuntimeError`` from every entry point instead of quietly planning on
+the CPU; ``backend="torch"`` is how a caller asks for the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(mod: str) -> bool:
+    root = mod.split(".")[0]
+    return root in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_import_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.core, "
+            "repro_torch.kernels.plan_scan, repro_torch.kernels.build, "
+            "repro_torch.obs; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU refusal cannot be shown")
+
+
+def test_default_backend_raises_without_gpu(no_gpu):
+    from repro_torch.core.planning_backend import get_backend
+    from repro_torch.kernels.plan_scan import CudaPlanBackend
+    for make in (lambda: get_backend(None), lambda: get_backend("cuda"),
+                 lambda: CudaPlanBackend()):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            make()
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    from repro_torch.core.cluster import paper_cluster
+    from repro_torch.core.cost_model import simulator_cost_models
+    from repro_torch.core.plan_broker import PlanBroker
+    from repro_torch.core.plans import OperatorCosting
+    from repro_torch.core.raqo import RAQO
+    from repro_torch.core.schema import random_query, random_schema
+    schema = random_schema(6, seed=0)
+    queries = [random_query(schema, 3, seed=q) for q in range(2)]
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        RAQO(schema, models=simulator_cost_models(),
+             resource_planning="batched").plan_queries(queries)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        PlanBroker()
+    costing = OperatorCosting(models=simulator_cost_models(),
+                              cluster=paper_cluster(),
+                              resource_planning="batched")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        costing.plan_resources("SMJ", 1.0, 10.0)
+    # asking for the CPU explicitly works
+    plans = RAQO(schema, models=simulator_cost_models(),
+                 resource_planning="batched",
+                 backend="torch").plan_queries(queries)
+    assert all(jp.plan is not None for jp in plans)
