@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Build and run the PyTorch/CUDA port of RAQO planning on one GPU.
+"""Build and run the PyTorch/CUDA port on one GPU: RAQO planning and
+model serving through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; there is no CPU path):
 
 1. device  — the card's name and power limit from nvidia-smi;
-2. build   — compile src/repro_torch/kernels/csrc/plan_scan.cu with nvcc;
+2. build   — compile every source in src/repro_torch/kernels/csrc/
+             (plan_scan.cu, flash_attention.cu, mamba_scan.cu) with nvcc,
+             one process per source, all started together;
 3. parity  — each CUDA kernel against its plain torch version on the card:
              scan_argmin at both launch geometries over every shipped
              surface x objective, the 10M-row scaled_cluster(100_000, 100)
@@ -22,13 +25,33 @@ Phases (any failure exits nonzero; there is no CPU path):
              the plain version's (TorchPlanBackend float32 on the card) and
              both kernels must have launched;
 5. times   — each kernel at the main path's largest wave shape against its
-             plain version and its bound (bytes or FP32 operations).
+             plain version and its bound (bytes or FP32 operations);
+6. model kernels against plain, on the card — flash_attention at
+             smollm-360m's heads (H=15, KV=5, hd=64, B=4, S in {16, 100,
+             512}, float32 and bfloat16, plus window+softcap and
+             non-causal cases) within 1e-5 (float32) / 2e-2 (bfloat16) of
+             attention_ref; selective_scan at falcon-mamba-7b's width
+             (D=8192, N=16, B=4, S in {16, 100, 512}, with and without h0)
+             within 1e-4 of selective_scan_ref (allclose, atol = rtol);
+7. serve   — launch.serve.serve for smollm-360m and falcon-mamba-7b at full
+             width and depth, seeded random parameters on the card, 8
+             requests, 4 slots, prompt 256, 32 new tokens: in float32
+             through the kernels and with impl="ref" (every request's
+             tokens equal, first-wave prefill logits within 1e-3), then in
+             the configs' own bfloat16 through the kernels (tok/s, steps,
+             launches; flash_attention must launch on smollm-360m and
+             selective_scan on falcon-mamba-7b);
+8. times   — flash_attention at B=1, S=4096, smollm's heads, bfloat16
+             against attention_ref and torch's scaled_dot_product_attention
+             (timed here only; the port never calls it), selective_scan at
+             B=1, S=4096, D=8192, N=16 against selective_scan_ref.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -39,6 +62,7 @@ from pathlib import Path
 import numpy as np
 
 H100_FP32_FLOPS = 67e12        # FP32 outside the tensor cores, H100 SXM
+H100_BF16_FLOPS = 989e12       # bf16 tensor cores, dense, H100 SXM
 H100_HBM_BYTES_S = 3.35e12     # HBM3, H100 SXM
 
 # FP32 operations per configuration row of each surface's device function
@@ -50,6 +74,14 @@ FOLD_OPS = 1
 
 QUERIES = 8                    # random 5-relation queries (seeds 0..7)
 ENSEMBLE_CONTAINERS = 1_000    # the ensemble pass's grid: 1K x 100 GB
+
+ATTN_HEADS = (15, 5, 64)       # smollm-360m: H, KV, hd
+SCAN_WIDTH = (8192, 16)        # falcon-mamba-7b: d_inner, N
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SCAN_TOL = 1e-4
+LOGIT_TOL = 1e-3               # float32 prefill logits, kernels vs plain
+SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
+             device="cuda")
 
 
 def check(ok: bool, what: str) -> None:
@@ -64,11 +96,12 @@ def surface_ops(surface) -> int:
     return SURFACE_OPS[kind] + OBJECTIVE_OPS[surface.objective] + FOLD_OPS
 
 
-def bound_ms(n_bytes: int, n_ops: int):
+def bound_ms(n_bytes: int, n_ops: int, peak: float = H100_FP32_FLOPS):
     """Least time the card could take: the larger of the bytes over the
-    memory rate and the FP32 operations over the FP32 peak."""
+    memory rate and the operations over their type's peak (FP32 unless
+    ``peak`` says otherwise)."""
     by_bytes = n_bytes / H100_HBM_BYTES_S * 1e3
-    by_ops = n_ops / H100_FP32_FLOPS * 1e3
+    by_ops = n_ops / peak * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else \
         (by_bytes, "bytes")
 
@@ -103,6 +136,205 @@ def plan_signature(jp):
     return tuple(ops), jp.exec_time, jp.money
 
 
+def allclose_err(got, want, tol: float):
+    """(max |got - want|, whether |got - want| <= tol + tol * |want|
+    everywhere), in float32."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = bool(got.isfinite().all()) and bool(
+        (diff <= tol + tol * want.abs()).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def model_kernel_parity(torch, dev):
+    """Phase 6: each model kernel against its plain version on the card;
+    returns {kernel: {dtype: max_abs_err}}."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(0)
+    H, KV, hd = ATTN_HEADS
+    err = {"flash_attention": {}, "selective_scan": {}}
+
+    def note(kernel, dtype, e):
+        err[kernel][dtype] = max(err[kernel].get(dtype, 0.0), e)
+
+    cases = [(S, dt, {}) for S in (16, 100, 512)
+             for dt in ("float32", "bfloat16")]
+    cases += [(512, "bfloat16", dict(window=128, attn_softcap=30.0)),
+              (100, "float32", dict(window=40, attn_softcap=50.0)),
+              (512, "bfloat16", dict(causal=False)),
+              (100, "float32", dict(causal=False))]
+    for S, dt, opts in cases:
+        dtype = getattr(torch, dt)
+        q = torch.randn((4, S, H, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((4, S, KV, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((4, S, KV, hd), generator=g, device=dev).to(dtype)
+        got = fa.flash_attention(q, k, v, **opts)
+        want = ref.attention_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        e, ok = allclose_err(got, want, ATTN_TOL[dt])
+        check(ok and got.dtype == dtype and got.shape == q.shape,
+              f"flash_attention S={S} {dt} {opts}: max_abs_err {e} above "
+              f"{ATTN_TOL[dt]}")
+        note("flash_attention", dt, e)
+    D, N = SCAN_WIDTH
+    for S in (16, 100, 512):
+        for dt in ("float32", "bfloat16"):
+            for with_h0 in (False, True):
+                dtype = getattr(torch, dt)
+                u = torch.randn((4, S, D), generator=g, device=dev).to(dtype)
+                dtv = torch.nn.functional.softplus(
+                    torch.randn((4, S, D), generator=g, device=dev) - 1)
+                A = -torch.exp(torch.randn((D, N), generator=g, device=dev)
+                               * 0.3)
+                Bm = torch.randn((4, S, N), generator=g, device=dev).to(dtype)
+                Cm = torch.randn((4, S, N), generator=g, device=dev).to(dtype)
+                h0 = torch.randn((4, D, N), generator=g, device=dev) \
+                    if with_h0 else None
+                y, h = ms.selective_scan(u, dtv, A, Bm, Cm, h0)
+                yr, hr = ref.selective_scan_ref(u, dtv, A, Bm, Cm, h0)
+                torch.cuda.synchronize()
+                ey, oky = allclose_err(y, yr, SCAN_TOL)
+                eh, okh = allclose_err(h, hr, SCAN_TOL)
+                check(oky and okh, f"selective_scan S={S} {dt} h0={with_h0}: "
+                      f"max_abs_err y {ey} h {eh} above {SCAN_TOL}")
+                note("selective_scan", dt, max(ey, eh))
+    print(f"model parity: {len(cases)} flash_attention and 12 "
+          f"selective_scan cases within tolerance; max_abs_err {err}",
+          flush=True)
+    return err
+
+
+def serve_phase(torch):
+    """Phase 7: both models at full width and depth, float32 kernels
+    against float32 plain, then the configs' own bfloat16 through the
+    kernels (the main path); returns {arch: (result, launches)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    out = {}
+    for arch in ("smollm-360m", "falcon-mamba-7b"):
+        cfg = get_config(arch)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        t = time.perf_counter()
+        got = serve(f32, **SERVE)
+        plain = serve(f32, impl="ref", **SERVE)
+        logits, plogits = got["first_logits"], plain["first_logits"]
+        check(logits.shape == (SERVE["slots"], cfg.vocab_size) and
+              bool(logits.isfinite().all()),
+              f"{arch}: first-wave logits {tuple(logits.shape)} not finite "
+              f"or misshapen")
+        e = float((logits - plogits).abs().max())
+        check(e <= LOGIT_TOL, f"{arch}: float32 prefill logits differ from "
+              f"the plain version's by {e} > {LOGIT_TOL}")
+        check(got["tokens"] == plain["tokens"] and
+              len(got["tokens"]) == SERVE["requests"] and
+              all(len(v) == SERVE["max_new"] for v in got["tokens"].values()),
+              f"{arch}: float32 tokens differ from the plain version's")
+        print(f"serve {arch} float32: {got['served']} requests, tokens equal "
+              f"to plain (impl='ref'); first-wave logits max_abs_err {e}; "
+              f"kernels {got['tok_s']:.2f} tok/s, plain {plain['tok_s']:.2f} "
+              f"tok/s ({time.perf_counter() - t:.1f} s)", flush=True)
+        del got, plain
+        ops.reset_launch_counts()
+        run = serve(cfg, **SERVE)
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "selective_scan": ms.selective_scan.launches}
+        check(run["served"] == SERVE["requests"] and
+              bool(run["first_logits"].isfinite().all()),
+              f"{arch}: bfloat16 serve did not finish all requests")
+        print(f"serve {arch} {cfg.dtype} (main path): {run['served']} "
+              f"requests, {run['steps']} decode steps, {run['tok_s']:.2f} "
+              f"tok/s, {run['seconds']:.3f} s; prefill {run['prefill_waves']}"
+              f" waves {run['prefill_s']:.3f} s; decode "
+              f"{run['decode_s'] / run['steps'] * 1e3:.3f} ms/step; "
+              f"launches {launches}; first tokens "
+              f"{[run['tokens'][r][:4] for r in sorted(run['tokens'])][:2]}",
+              flush=True)
+        out[arch] = (run, launches)
+        torch.cuda.empty_cache()
+    check(out["smollm-360m"][1]["flash_attention"] > 0 and
+          out["falcon-mamba-7b"][1]["selective_scan"] > 0,
+          f"a model kernel never launched on its main path: "
+          f"{ {a: l for a, (_, l) in out.items()} }")
+    return out
+
+
+def model_times(torch, dev, err, served):
+    """Phase 8: each model kernel at a long-prefill shape against its plain
+    version, its bound and (attention) torch's fused call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(1)
+    S = 4096
+    H, KV, hd = ATTN_HEADS
+    bf16 = torch.bfloat16
+    q = torch.randn((1, S, H, hd), generator=g, device=dev).to(bf16)
+    k = torch.randn((1, S, KV, hd), generator=g, device=dev).to(bf16)
+    v = torch.randn((1, S, KV, hd), generator=g, device=dev).to(bf16)
+    e, ok = allclose_err(fa.flash_attention(q, k, v),
+                         ref.attention_ref(q, k, v), ATTN_TOL["bfloat16"])
+    check(ok, f"flash_attention S={S}: max_abs_err {e}")
+    err["flash_attention"]["bfloat16"] = max(
+        err["flash_attention"]["bfloat16"], e)
+    fa_ms = time_ms(lambda: fa.flash_attention(q, k, v), 20, torch)
+    fa_plain = time_ms(lambda: ref.attention_ref(q, k, v), 3, torch)
+    # the yardstick: torch's fused attention, KV heads repeated beforehand
+    G = H // KV
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fa_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20, torch)
+    # unmasked (q, k) pairs x (QK^T + PV) x 2 FLOPs per multiply-add
+    pairs = S * (S + 1) // 2
+    fa_bound, fa_by = bound_ms(2 * (2 * S * H * hd + 2 * S * KV * hd),
+                               4 * hd * pairs * H, H100_BF16_FLOPS)
+    print(f"time flash_attention B=1 S={S} H={H} KV={KV} hd={hd} bf16 "
+          f"causal: {fa_ms:.4f} ms; plain {fa_plain:.3f} ms; "
+          f"scaled_dot_product_attention {fa_lib:.4f} ms; bound "
+          f"{fa_bound:.4f} ms ({fa_by})", flush=True)
+    D, N = SCAN_WIDTH
+    u = torch.randn((1, S, D), generator=g, device=dev).to(bf16)
+    dtv = torch.nn.functional.softplus(
+        torch.randn((1, S, D), generator=g, device=dev) - 1)
+    A = -torch.exp(torch.randn((D, N), generator=g, device=dev) * 0.3)
+    Bm = torch.randn((1, S, N), generator=g, device=dev).to(bf16)
+    Cm = torch.randn((1, S, N), generator=g, device=dev).to(bf16)
+    ss_ms = time_ms(lambda: ms.selective_scan(u, dtv, A, Bm, Cm), 20, torch)
+    ss_plain = time_ms(lambda: ref.selective_scan_ref(u, dtv, A, Bm, Cm), 2,
+                       torch)
+    # reads u (bf16), dt (f32), A, B and C (bf16); writes y and h_last
+    # (f32); per (t, d): dt*u, and per (t, d, n): dt*A, exp, two
+    # multiplies and an add for h, a multiply and an add for y
+    ss_bytes = S * D * (2 + 4 + 4) + D * N * 4 * 2 + 2 * S * N * 2
+    ss_bound, ss_by = bound_ms(ss_bytes, S * D * (7 * N + 1))
+    print(f"time selective_scan B=1 S={S} D={D} N={N} bf16 u/B/C: "
+          f"{ss_ms:.4f} ms; plain {ss_plain:.3f} ms; bound {ss_bound:.4f} ms "
+          f"({ss_by})", flush=True)
+    csrc = "src/repro_torch/kernels/csrc/"
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:26",
+         "launches": served["smollm-360m"][1]["flash_attention"],
+         "max_abs_err": max(err["flash_attention"].values()), "ms": fa_ms,
+         "plain_ms": fa_plain, "bound_ms": fa_bound, "bound_by": fa_by,
+         "library_ms": fa_lib},
+        {"name": "selective_scan", "route": "cuda",
+         "source": csrc + "mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan.py:27",
+         "launches": served["falcon-mamba-7b"][1]["selective_scan"],
+         "max_abs_err": max(err["selective_scan"].values()), "ms": ss_ms,
+         "plain_ms": ss_plain, "bound_ms": ss_bound, "bound_by": ss_by,
+         "library_ms": None},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -121,6 +353,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    # full float32 products everywhere (the parity runs compare float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 1. device ------------------------------------------------------------ #
     smi = subprocess.run(
@@ -133,9 +369,11 @@ def main() -> int:
 
     # 2. build ------------------------------------------------------------- #
     t0 = time.perf_counter()
-    build.load_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.build_seconds} s)", flush=True)
+    libs = build.build_all()
+    for name in libs:
+        build.load_library(name)
+    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(libs)} "
+          f"(nvcc, in parallel: {build.build_seconds} s)", flush=True)
 
     # 3. kernel against plain, on the card --------------------------------- #
     rng = np.random.default_rng(0)
@@ -324,6 +562,15 @@ def main() -> int:
          "plain_ms": nb_plain, "bound_ms": nb_bound,
          "bound_by": nb_by, "library_ms": None},
     ]
+    print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 6-8. the serving slice ----------------------------------------------- #
+    t = time.perf_counter()
+    err = model_kernel_parity(torch, dev)
+    served = serve_phase(torch)
+    kernels += model_times(torch, dev, err, served)
+    print(f"phases 6-8: {time.perf_counter() - t:.1f} s; total "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

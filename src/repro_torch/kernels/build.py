@@ -1,35 +1,47 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``load_library()`` compiles ``csrc/plan_scan.cu`` with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, on first use,
-and loads it with ``ctypes``.  The library lands in ``build/`` beside this
-file (listed in ``.gitignore``), named by a hash of the source and flags,
-so an edited source rebuilds and an unchanged one is reused.  Nothing here
-runs at import: the CPU-only test hosts import every module and have no
-``nvcc``.
+Each source in ``csrc/`` (``SOURCES``) is compiled with ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface, on
+first use, and loaded with ``ctypes``.  The libraries land in ``build/``
+beside this file (listed in ``.gitignore``), each named by a hash of its
+source and flags, so an edited source rebuilds and an unchanged one is
+reused.  ``build_all()`` starts one ``nvcc`` per source at once and waits
+for all of them.  Nothing here runs at import: the CPU-only test hosts
+import every module and have no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCE = CSRC / "plan_scan.cu"
 
-# -fmad=false and IEEE division (nvcc's default, no --use_fast_math): the
-# kernels' float32 arithmetic rounds op for op like the plain torch version
+# source name -> the module whose ``bind(lib)`` declares its C signatures
+SOURCES = {
+    "plan_scan": "repro_torch.kernels.plan_scan",
+    "flash_attention": "repro_torch.kernels.flash_attention",
+    "mamba_scan": "repro_torch.kernels.mamba_scan",
+}
+
+# -fmad=false and IEEE division and expf (nvcc's defaults without
+# --use_fast_math): every float32 operation rounds as written, so the
+# plan-scan kernels equal their plain torch versions bit for bit and the
+# model kernels differ from theirs only in summation order
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-_lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None      # set by the call that compiled
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}     # set by the calls that compiled
 
 
 def nvcc_path() -> str:
@@ -39,38 +51,84 @@ def nvcc_path() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       f"{SOURCE} on a host with the CUDA toolkit")
+                       f"{CSRC} on a host with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    h = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"plan_scan-{h.hexdigest()[:12]}.so"
+def source_path(name: str) -> Path:
+    if name not in SOURCES:
+        raise KeyError(f"unknown kernel source {name!r}; known: "
+                       f"{sorted(SOURCES)}")
+    return CSRC / f"{name}.cu"
 
 
-def build() -> Path:
-    """Compile the kernels unless an up-to-date library exists; returns
-    its path.  Raises with nvcc's output when the build fails."""
-    global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
+def library_path(name: str) -> Path:
+    h = hashlib.sha1(source_path(name).read_bytes() +
+                     " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` each, all started together; returns name -> library path.
+    Raises with nvcc's output when any build fails."""
+    outs = {name: library_path(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
-    return out
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, todo[name])
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        from repro_torch.kernels.plan_scan import bind
-        _lib = bind(ctypes.CDLL(str(build())))
-    return _lib
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name`` (built on first
+    call), with its C signatures declared."""
+    if name not in _libs:
+        path = build_all([name])[name]
+        module = importlib.import_module(SOURCES[name])
+        _libs[name] = module.bind(ctypes.CDLL(str(path)))
+    return _libs[name]
+
+
+# ------------------------------ launch helpers ------------------------------ #
+
+def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors on one device (launch kernel ``name``), False
+    for CPU tensors (take its plain version); anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"{name}: tensors on unsupported devices: "
+                     f"{sorted(str(t.device) for t in tensors)}")
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the C functions take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise on the ``cudaGetLastError()`` a C entry point returned."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -1,0 +1,89 @@
+"""Forward flash attention on Hopper (K7) and its wrapper.
+
+The counterpart of ``repro.kernels.flash_attention``: the hand-written
+CUDA kernel in ``csrc/flash_attention.cu`` replaces the Pallas ``_kernel``
+(one block per (batch, head, 64-row query tile), a loop over 64-row kv
+tiles in shared memory, float32 online softmax; see the source's note for
+what bounds it).  ``flash_attention`` launches it for CUDA tensors and
+takes the plain version, ``ref.attention_ref``, only for CPU tensors.  It
+keeps a plain launch counter, ``flash_attention.launches``, bumped where
+the kernel launches and nowhere else.
+
+Masking is by index (``kpos <= qpos``, ``qpos - kpos < window``), as in
+the Pallas kernel; S and Skv may be ragged (no block-multiple padding).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import (check_launch, load_library, on_cuda,
+                                       stream)
+from repro_torch.kernels.ref import attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernel's instantiations
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID_YZ = 65535                      # CUDA's bound on gridDim.y and .z
+
+
+class _AttnArgs(ctypes.Structure):
+    _fields_ = [("B", ctypes.c_int64), ("S", ctypes.c_int64),
+                ("Skv", ctypes.c_int64), ("H", ctypes.c_int64),
+                ("KV", ctypes.c_int64), ("hd", ctypes.c_int64),
+                ("causal", ctypes.c_int), ("window", ctypes.c_int),
+                ("has_cap", ctypes.c_int), ("cap", ctypes.c_float),
+                ("scale", ctypes.c_float)]
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point's signature (build.load_library)."""
+    vp = ctypes.c_void_p
+    lib.flash_attention.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp]
+    lib.flash_attention.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, Skv, KV, hd) -> (B, S, H, hd) in q's
+    dtype.  CUDA tensors launch the kernel on the current stream without
+    syncing; CPU tensors take ``attention_ref``."""
+    B, S, H, hd = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or \
+            k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window={window} < 1")
+    if not on_cuda("flash_attention", q, k, v):
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             attn_softcap=attn_softcap)
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
+                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if hd not in HEAD_DIMS or H > MAX_GRID_YZ or B > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention kernel: head dim {hd} (takes "
+                         f"{HEAD_DIMS}), H={H}, B={B}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    args = _AttnArgs(B, S, k.shape[1], H, k.shape[2], hd, int(causal),
+                     0 if window is None else int(window),
+                     int(attn_softcap is not None),
+                     0.0 if attn_softcap is None else float(attn_softcap),
+                     hd ** -0.5)
+    lib = load_library("flash_attention")
+    check_launch(lib.flash_attention(
+        ctypes.addressof(args), DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), stream(q.device)), "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

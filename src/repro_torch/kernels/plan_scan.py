@@ -52,6 +52,8 @@ from repro_torch.core.cost_model import OBJECTIVES, SURFACE_KINDS, Surface
 from repro_torch.core.planning_backend import (
     DEFAULT_CHUNK, BatchCostFn, Result, _decode_flat, _many_chunk,
     _neighbor_offsets, grid_arrays, resolve_device, start_indices)
+from repro_torch.kernels.build import (check_launch, load_library, on_cuda,
+                                       stream)
 
 MAX_FLAT = 1 << 32          # the packed argmin key holds a 32-bit flat id
 UNROLL_Q = 64               # requests per block in the decode-once geometry
@@ -221,27 +223,13 @@ def _c_surface(surface: Surface) -> _Surface:
                     surface.n_params, (ctypes.c_float * MAX_CONSTS)(*consts))
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (take the plain version); anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if not on_cuda("plan-scan", *tensors):
         return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        for t in tensors:
-            if not t.is_contiguous():
-                raise ValueError("plan-scan kernels take contiguous tensors")
-        return True
-    raise ValueError(f"tensors on unsupported devices: {kinds}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("plan-scan kernels take contiguous tensors")
+    return True
 
 
 def _decode_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -272,15 +260,14 @@ def scan_argmin(surface: Surface, dims: Sequence[GridDim],
     if not 1 <= q_per_block <= UNROLL_Q or -(-Q // q_per_block) > MAX_GRID_Y:
         raise ValueError(f"q_per_block={q_per_block} for Q={Q} is outside "
                          f"the kernel's launch geometry")
-    from repro_torch.kernels.build import load_library
-    lib = load_library()
+    lib = load_library("plan_scan")
     # all ones: the largest uint64 key, which every feasible row beats
     keys = torch.full((Q,), -1, dtype=torch.int64, device=params.device)
     args = _ScanArgs(_c_dims(tuple(dims)), _c_surface(surface), total, Q,
                      q_per_block)
-    _raise_on(lib.scan_argmin(ctypes.addressof(args), params.data_ptr(),
-                              keys.data_ptr(), _stream(params.device)),
-              "scan_argmin")
+    check_launch(lib.scan_argmin(ctypes.addressof(args), params.data_ptr(),
+                                 keys.data_ptr(), stream(params.device)),
+                 "scan_argmin")
     scan_argmin.launches += 1
     return _decode_keys(keys)
 
@@ -304,17 +291,16 @@ def neighbor_step(surface: Surface, dims: Sequence[GridDim],
     if not _on_cuda(cur, params, *[d.values for d in dims
                                    if d.values is not None]):
         return neighbor_step_ref(surface, dims, cur, params)
-    from repro_torch.kernels.build import load_library
-    lib = load_library()
+    lib = load_library("plan_scan")
     S = cur.shape[0]
     center = torch.empty(S, dtype=torch.float32, device=cur.device)
     best = torch.empty(S, dtype=torch.float32, device=cur.device)
     slot = torch.empty(S, dtype=torch.int32, device=cur.device)
     args = _NeighborArgs(_c_dims(tuple(dims)), _c_surface(surface), S)
-    _raise_on(lib.neighbor_step(
+    check_launch(lib.neighbor_step(
         ctypes.addressof(args), cur.data_ptr(), params.data_ptr(),
         center.data_ptr(), best.data_ptr(), slot.data_ptr(),
-        _stream(cur.device)), "neighbor_step")
+        stream(cur.device)), "neighbor_step")
     neighbor_step.launches += 1
     return center, best, slot
 

@@ -1,0 +1,84 @@
+"""Attention for the port's model stack: single-token decode against a
+cache, and the cache utilities (the port of ``repro.models.attention``).
+
+The reference's blocked jnp ``flash_attention`` (masking by positions, -1
+= invalid slot) was the CPU twin of its Pallas kernel; the port's prefill
+calls ``kernels.ops.flash_attention`` instead, which masks by index like
+the kernel does.  On the serving path prefill positions are always
+``arange(S)``, where the two agree; ``Model.forward`` refuses batches that
+carry their own positions.  Decode stays plain torch (the reference has no
+Pallas kernel for it).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.common import softcap
+
+NEG_INF = -1e30
+
+
+def decode_attention(q, k_cache, v_cache, q_pos, slot_pos, *,
+                     attn_softcap=None, window: Optional[int] = None):
+    """Single-token attention over a cache.
+
+    q: (B, 1, H, hd); caches: (B, S, KV, hd); q_pos: (B,) current position;
+    slot_pos: (B, S) position stored in each slot (-1 = empty).  Works
+    for both full caches (slot i holds position i) and rolling-window caches
+    (slot i holds the latest position = i mod W)."""
+    B, S, KV, hd = k_cache.shape
+    H = q.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    # bf16 operands, float32 products and sums (preferred_element_type)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     k_cache.float()) * (hd ** -0.5)
+    s = softcap(s, attn_softcap)
+    rel = q_pos[:, None] - slot_pos                     # (B, S)
+    mask = (slot_pos >= 0) & (rel >= 0)
+    if window is not None:
+        mask &= rel < window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd",
+                       (p / l).to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ------------------------------ cache utils ------------------------------- #
+
+def write_cache(cache_k, cache_v, slot_pos, k_new, v_new, positions, *,
+                rolling_window: Optional[int] = None):
+    """Scatter new K/V rows into cache slots, in place (the reference
+    returns updated copies; the port writes into the tensors it is given
+    and returns them).
+
+    cache_k/v: (B, S, KV, hd); k_new/v_new: (B, T, KV, hd);
+    positions: (B, T) absolute positions being written.
+    Full cache: slot = position.  Rolling: slot = position % window."""
+    B, S = cache_k.shape[:2]
+    slots = positions % rolling_window if rolling_window else positions
+    b_idx = torch.arange(B, device=cache_k.device)[:, None]
+    valid = positions >= 0
+    slots_c = torch.clamp(slots, 0, S - 1)
+    sel = valid[..., None, None]
+    cache_k[b_idx, slots_c] = torch.where(sel, k_new.to(cache_k.dtype),
+                                          cache_k[b_idx, slots_c])
+    cache_v[b_idx, slots_c] = torch.where(sel, v_new.to(cache_v.dtype),
+                                          cache_v[b_idx, slots_c])
+    slot_pos[b_idx, slots_c] = torch.where(
+        valid, positions.to(slot_pos.dtype), slot_pos[b_idx, slots_c])
+    return cache_k, cache_v, slot_pos
+
+
+def prefill_tail(k, v, positions, window: int):
+    """For rolling caches, keep only the last `window` rows before scatter
+    (deterministic; avoids duplicate-index scatter ordering)."""
+    S = k.shape[1]
+    if S <= window:
+        return k, v, positions
+    return k[:, -window:], v[:, -window:], positions[:, -window:]

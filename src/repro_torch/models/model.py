@@ -1,0 +1,278 @@
+"""The Model API of the dense and ssm families (the port of
+``repro.models.model``).
+
+    model = build_model(cfg, device="cuda", seed=0)
+    hidden, aux, cache = model.forward(batch)              # full sequence
+    logits, cache = model.prefill(batch, cache_len)
+    logits, cache = model.decode_step(cache, inputs, q_pos)
+
+Batches are ``{"tokens": (B, S) integer}``.  Parameters live in the module,
+named by the reference's dict keys (``embed``, ``final_ln``,
+``layers.<i>.attn.wq``, ...), with weights in the reference's ``(in,
+out)`` layout; a Python loop over ``layers`` (an ``nn.ModuleList``) takes
+the place of ``lax.scan``.  ``load_jax_params`` carries the reference's
+parameter tree across.
+
+The cache keeps the reference's layout, layer axis first and batch axis
+second (``CACHE_BATCH_AXIS``): dense ``k``, ``v`` (L, B, S, KV, hd) and
+``slot_pos`` (L, B, S); ssm ``conv`` (L, B, K-1, d_inner) and ``ssm``
+(L, B, d_inner, N) float32; ``pos`` (B,).  ``decode_step`` writes the new
+token's state into the cache tensors in place and returns the same dict.
+
+Prefill attention masks by index (the flash-attention kernel's
+semantics), which equals the reference's position mask for the
+``arange(S)`` positions it builds itself; a batch that carries its own
+``"positions"`` raises.  The moe, hybrid, vlm and audio families and the
+swa / local_global attention schedules raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import IMPLS
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import rms_norm, softcap
+from repro_torch.sharding import init_from_defs
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the batch axis of every cache leaf (merging a prefill wave into the live
+# cache scatters along it)
+CACHE_BATCH_AXIS = {"k": 1, "v": 1, "slot_pos": 1, "conv": 1, "ssm": 1,
+                    "pos": 0}
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for a model; a CUDA device without a GPU raises
+    instead of running anywhere else."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA GPU is available for the model; pass "
+                           "device='cpu' to run it on the CPU")
+    return dev
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this port does not run yet."""
+    if cfg.is_moe or cfg.family not in ("dense", "ssm"):
+        fam = "moe" if cfg.is_moe else cfg.family
+        raise NotImplementedError(
+            f"{cfg.name}: the {fam} family is not ported yet (the port runs "
+            f"the dense and ssm families)")
+    if cfg.family == "dense" and cfg.attention != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: attention={cfg.attention!r} is not ported yet "
+            f"(the port runs full attention)")
+    if cfg.family == "ssm" and cfg.ssm_version != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: ssm_version={cfg.ssm_version} is not ported yet")
+    if not cfg.embed_inputs:
+        raise NotImplementedError(f"{cfg.name}: embedding inputs are not "
+                                  f"ported yet")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: tensors become frozen
+    parameters, dicts sub-trees; indexable by the reference's keys."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def _flatten(tree, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def load_jax_params(tree) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree (array leaves, layer leaves stacked
+    ``(L, ...)`` under ``"layers"``) as a state dict of ``Model``, with
+    the layers unstacked into ``layers.<i>.<path>``; CPU tensors."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in _flatten(tree):
+        arr = np.asarray(leaf)
+        if name.startswith("layers."):
+            path = name[len("layers."):]
+            for i in range(arr.shape[0]):
+                out[f"layers.{i}.{path}"] = torch.from_numpy(
+                    np.array(arr[i]))
+        else:
+            out[name] = torch.from_numpy(np.array(arr))
+    return out
+
+
+def _build_layer_cache(k, v, positions, cache_size, window, dtype):
+    """Scatter prefill K/V into a fresh cache of ``cache_size`` slots."""
+    B, S, KV, hd = k.shape
+    ck = torch.zeros((B, cache_size, KV, hd), dtype=dtype, device=k.device)
+    cv = torch.zeros((B, cache_size, KV, hd), dtype=dtype, device=k.device)
+    sp = torch.full((B, cache_size), -1, dtype=torch.int64, device=k.device)
+    if window:
+        k, v, positions = attn.prefill_tail(k, v, positions, window)
+    return attn.write_cache(ck, cv, sp, k, v, positions,
+                            rolling_window=window)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
+                 impl: str = "cuda"):
+        super().__init__()
+        check_supported(cfg)
+        if impl not in IMPLS:
+            raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+        self.cfg = cfg
+        self.impl = impl
+        self.device = resolve_device(device)
+        self.dtype = DTYPES[cfg.dtype]
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        pdt = DTYPES[cfg.param_dtype]
+        for k, v in init_from_defs(tf.top_defs(cfg), gen, pdt).items():
+            self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+        self.layers = nn.ModuleList(
+            ParamTree(init_from_defs(tf.layer_defs(cfg), gen, pdt))
+            for _ in range(cfg.n_layers))
+
+    def load_jax_params(self, tree) -> "Model":
+        """Copy the reference's parameter tree into this model."""
+        self.load_state_dict(load_jax_params(tree))
+        return self
+
+    # ------------------------------------------------------------------ #
+    def _index(self, x) -> torch.Tensor:
+        """Token ids or positions (numpy or torch) as int64 on the device."""
+        return torch.as_tensor(x, device=self.device).to(torch.int64)
+
+    def _embed(self, batch):
+        cfg = self.cfg
+        x = F.embedding(self._index(batch["tokens"]), self.embed).to(
+            self.dtype)
+        if cfg.scale_embeddings:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
+        return x
+
+    def logits(self, hidden):
+        cfg = self.cfg
+        h = rms_norm(hidden, self.final_ln, cfg.norm_eps)
+        head = self.embed.T if cfg.tie_embeddings else self.head
+        # h.dtype operands, float32 products and sums
+        out = h.float() @ head.to(h.dtype).float()
+        return softcap(out, cfg.final_softcap)
+
+    # ====================== full-sequence forward ====================== #
+    def forward(self, batch, *, build_cache: bool = False,
+                cache_len: Optional[int] = None):
+        """Returns (hidden (B,S,d), aux dict, cache-or-None)."""
+        if "positions" in batch:
+            raise NotImplementedError(
+                "batches with their own positions are not supported: "
+                "prefill attention masks by index (positions arange(S))")
+        cfg = self.cfg
+        x = self._embed(batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        cache_len = cache_len or S
+        cache = None
+        if cfg.family == "ssm":
+            conv, ssm = [], []
+            for p in self.layers:
+                x, conv_st, ssm_st = tf.mamba_block(p, x, cfg, impl=self.impl)
+                if build_cache:
+                    conv.append(conv_st)
+                    ssm.append(ssm_st)
+            if build_cache:
+                cache = {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
+        else:
+            layer_caches = []
+            for p in self.layers:
+                x, kv = tf.dense_block(p, x, cfg, positions, impl=self.impl)
+                if build_cache:
+                    layer_caches.append(_build_layer_cache(
+                        kv[0], kv[1], positions, cache_len, None, self.dtype))
+            if build_cache:
+                ck, cv, sp = zip(*layer_caches)
+                cache = {"k": torch.stack(ck), "v": torch.stack(cv),
+                         "slot_pos": torch.stack(sp)}
+        if build_cache:
+            cache["pos"] = positions[:, -1] + 1
+        return x, {}, cache
+
+    # ============================ prefill ============================== #
+    def prefill(self, batch, cache_len: Optional[int] = None):
+        hidden, _, cache = self.forward(batch, build_cache=True,
+                                        cache_len=cache_len)
+        logits = self.logits(hidden[:, -1:])[:, 0]
+        return logits, cache
+
+    # ============================ decode =============================== #
+    def decode_step(self, cache, inputs, q_pos):
+        """inputs: {"tokens": (B, 1)}; q_pos: (B,) position of the new
+        token.  Returns (logits (B, V) f32, cache), the cache's tensors
+        updated in place."""
+        cfg = self.cfg
+        q_pos = self._index(q_pos)
+        x = self._embed(inputs)
+        if cfg.family == "ssm":
+            for i, p in enumerate(self.layers):
+                x, conv_st, ssm_st = tf.mamba_block(
+                    p, x, cfg, conv_state=cache["conv"][i],
+                    ssm_state=cache["ssm"][i], decode=True, impl=self.impl)
+                cache["conv"][i] = conv_st
+                cache["ssm"][i] = ssm_st
+        else:
+            for i, p in enumerate(self.layers):
+                layer_cache = {k: cache[k][i] for k in ("k", "v", "slot_pos")}
+                x, _ = tf.dense_block_decode(p, x, cfg, layer_cache, q_pos)
+        cache["pos"] = q_pos + 1
+        logits = self.logits(x)[:, 0]
+        return logits, cache
+
+    # ========================= cache allocation ======================== #
+    def init_cache(self, B: int, cache_len: int):
+        """Zero-initialised cache."""
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        L = cfg.n_layers
+        pos = torch.zeros((B,), dtype=torch.int64, device=dev)
+        if cfg.family == "ssm":
+            di, N, Kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv - 1
+            return {"conv": torch.zeros((L, B, Kc, di), dtype=dt, device=dev),
+                    "ssm": torch.zeros((L, B, di, N), dtype=torch.float32,
+                                       device=dev),
+                    "pos": pos}
+        KV, hd = cfg.n_kv_heads, cfg.head_dim
+        return {"k": torch.zeros((L, B, cache_len, KV, hd), dtype=dt,
+                                 device=dev),
+                "v": torch.zeros((L, B, cache_len, KV, hd), dtype=dt,
+                                 device=dev),
+                "slot_pos": torch.full((L, B, cache_len), -1,
+                                       dtype=torch.int64, device=dev),
+                "pos": pos}
+
+
+def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0,
+                impl: str = "cuda") -> Model:
+    """A model of ``cfg`` with parameters drawn by ``init_from_defs`` from
+    a generator seeded with ``seed`` on ``device`` (the GPU unless the
+    caller asks for the CPU; without a GPU that raises)."""
+    return Model(cfg, device=device, seed=seed, impl=impl)

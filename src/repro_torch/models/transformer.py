@@ -1,0 +1,197 @@
+"""Decoder blocks of the dense and ssm families, and their parameter
+definitions (the port of ``repro.models.transformer``).
+
+``model_defs`` gives the reference's parameter tree with its stacked
+``(L, ...)`` layer leaves; the port's ``Model`` holds one module per layer
+and loops over them in Python where the reference runs ``lax.scan``.
+Block functions take ``p`` as anything indexable by the reference's keys
+(a ``ParamTree`` module or a nested dict).  On one device the reference's
+``plan.constrain`` is the identity and its column/row-parallel
+projections are ``x @ w.astype(x.dtype)``, written out here.
+
+Each block runs in two modes: full sequence (prefill, returning the K/V
+or SSM state for the cache) and one-token decode against a cache.  The
+moe, hybrid, vlm and audio blocks wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import activate, rms_norm, rope
+from repro_torch.sharding import ParamDef, stack_defs
+
+
+# =========================== parameter definitions ========================= #
+
+def attn_defs(cfg) -> Dict[str, ParamDef]:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {
+        "wq": ParamDef((d, H * hd), ("embed", "heads")),
+        "wk": ParamDef((d, KV * hd), ("embed", "kv")),
+        "wv": ParamDef((d, KV * hd), ("embed", "kv")),
+        "wo": ParamDef((H * hd, d), ("heads", "embed"), init="scaled"),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = ParamDef((hd,), (None,), init="zeros")
+        out["k_norm"] = ParamDef((hd,), (None,), init="zeros")
+    return out
+
+
+def mlp_defs(cfg) -> Dict[str, ParamDef]:
+    d, f = cfg.d_model, cfg.d_ff
+    out = {"w1": ParamDef((d, f), ("embed", "ff")),
+           "w2": ParamDef((f, d), ("ff", "embed"), init="scaled")}
+    if cfg.activation in ("swiglu", "geglu"):
+        out["w3"] = ParamDef((d, f), ("embed", "ff"))
+    return out
+
+
+def block_defs(cfg) -> Dict[str, Any]:
+    d = cfg.d_model
+    out: Dict[str, Any] = {
+        "ln1": ParamDef((d,), (None,), init="zeros"),
+        "attn": attn_defs(cfg),
+        "ln2": ParamDef((d,), (None,), init="zeros"),
+        "mlp": mlp_defs(cfg),
+    }
+    if cfg.post_norms:
+        out["ln1p"] = ParamDef((d,), (None,), init="zeros")
+        out["ln2p"] = ParamDef((d,), (None,), init="zeros")
+    return out
+
+
+def mamba_defs(cfg) -> Dict[str, Any]:
+    """Mamba1 block parameters (``ssm_version == 1``)."""
+    d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    R = cfg.dt_rank
+    return {
+        "ln": ParamDef((d,), (None,), init="zeros"),
+        "conv_w": ParamDef((di, K), ("inner", None), init="scaled"),
+        "conv_b": ParamDef((di,), ("inner",), init="zeros"),
+        "out_proj": ParamDef((di, d), ("inner", "embed"), init="scaled"),
+        "in_proj": ParamDef((d, 2 * di), ("embed", "inner")),
+        "x_proj": ParamDef((di, R + 2 * N), ("inner", None)),
+        "dt_proj": ParamDef((R, di), (None, "inner")),
+        "dt_bias": ParamDef((di,), ("inner",), init="const", const=-4.0),
+        "A_log": ParamDef((di, N), ("inner", None), init="const", const=0.0),
+        "D": ParamDef((di,), ("inner",), init="ones"),
+    }
+
+
+def layer_defs(cfg) -> Dict[str, Any]:
+    """One layer's parameter definitions for the families this port runs."""
+    return mamba_defs(cfg) if cfg.family == "ssm" else block_defs(cfg)
+
+
+def top_defs(cfg) -> Dict[str, Any]:
+    """The parameters outside the layer stack."""
+    d = cfg.d_model
+    out: Dict[str, Any] = {"final_ln": ParamDef((d,), (None,), init="zeros"),
+                           "embed": ParamDef((cfg.vocab_size, d),
+                                             ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        out["head"] = ParamDef((d, cfg.vocab_size), ("embed", "vocab"),
+                               init="scaled")
+    return out
+
+
+def model_defs(cfg) -> Dict[str, Any]:
+    """Full parameter-definition tree, in the reference's layout (stacked
+    ``(L, ...)`` layer leaves under ``"layers"``)."""
+    out = top_defs(cfg)
+    out["layers"] = stack_defs(layer_defs(cfg), cfg.n_layers)
+    return out
+
+
+# ============================ block forwards =============================== #
+
+def _qkv(p, x, cfg, positions):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, KV, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, KV, hd)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def self_attention_block(p, x, cfg, positions, *, window=None,
+                         impl: str = "cuda"):
+    """Pre-norm attention sub-block (full sequence, positions
+    ``arange(S)``).  Returns (y, (k, v))."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(p["attn"], h, cfg, positions)
+    o = ops.flash_attention(q, k, v, causal=True, window=window,
+                            attn_softcap=cfg.attn_softcap, impl=impl)
+    B, S = x.shape[:2]
+    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
+        p["attn"]["wo"].to(o.dtype)
+    if cfg.post_norms:
+        o = rms_norm(o, p["ln1p"], cfg.norm_eps)
+    return o, (k, v)
+
+
+def mlp_block(p, x, cfg):
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    g = h @ p["mlp"]["w1"].to(h.dtype)
+    u = None
+    if "w3" in p["mlp"]:
+        u = h @ p["mlp"]["w3"].to(h.dtype)
+    a = activate(g, u, cfg.activation)
+    o = a @ p["mlp"]["w2"].to(a.dtype)
+    if cfg.post_norms:
+        o = rms_norm(o, p["ln2p"], cfg.norm_eps)
+    return o
+
+
+def dense_block(p, x, cfg, positions, *, window=None, impl: str = "cuda"):
+    """Full transformer block.  Returns (x_out, kv)."""
+    o, kv = self_attention_block(p, x, cfg, positions, window=window,
+                                 impl=impl)
+    x = x + o
+    return x + mlp_block(p, x, cfg), kv
+
+
+def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
+                decode=False, impl: str = "cuda"):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    y, conv_state, ssm_state = ssm_mod.mamba1_mix(
+        p, h, cfg, conv_state=conv_state, ssm_state=ssm_state,
+        decode=decode, impl=impl)
+    return x + y, conv_state, ssm_state
+
+
+# ============================ decode sub-blocks ============================ #
+
+def attn_block_decode(p, x, cfg, cache, q_pos, *, window=None):
+    """One-token attention block against a cache slice.
+
+    cache: dict(k: (B,S,KV,hd), v, slot_pos: (B,S)), written in place.
+    Returns (y, cache)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    positions = q_pos[:, None]
+    q, k_new, v_new = _qkv(p["attn"], h, cfg, positions)
+    ck, cv, sp = attn.write_cache(cache["k"], cache["v"], cache["slot_pos"],
+                                  k_new, v_new, positions,
+                                  rolling_window=window)
+    o = attn.decode_attention(q, ck, cv, q_pos, sp,
+                              attn_softcap=cfg.attn_softcap, window=window)
+    B = x.shape[0]
+    o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ \
+        p["attn"]["wo"].to(o.dtype)
+    if cfg.post_norms:
+        o = rms_norm(o, p["ln1p"], cfg.norm_eps)
+    return o, {"k": ck, "v": cv, "slot_pos": sp}
+
+
+def dense_block_decode(p, x, cfg, cache, q_pos, *, window=None):
+    o, cache = attn_block_decode(p, x, cfg, cache, q_pos, window=window)
+    x = x + o
+    return x + mlp_block(p, x, cfg), cache

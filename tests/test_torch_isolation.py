@@ -3,7 +3,11 @@ reference package, and its entry points refuse to drift to the CPU.
 
 On a host without a GPU the default backend (``"cuda"``) must raise
 ``RuntimeError`` from every entry point instead of quietly planning on
-the CPU; ``backend="torch"`` is how a caller asks for the CPU.
+the CPU; ``backend="torch"`` is how a caller asks for the CPU.  The same
+holds for serving: ``build_model`` and ``serve`` default to the GPU and
+``device="cpu"`` / ``--device cpu`` asks for the CPU.  The port computes
+attention and the selective scan in its own kernels, never through a
+library's fused call.
 """
 import ast
 import os
@@ -47,7 +51,13 @@ def test_no_jax_or_reference_imports(path):
 def test_port_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.kernels.plan_scan, repro_torch.kernels.build, "
-            "repro_torch.obs; "
+            "repro_torch.obs, repro_torch.configs, repro_torch.sharding, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.mamba_scan, repro_torch.models.common, "
+            "repro_torch.models.attention, repro_torch.models.ssm, "
+            "repro_torch.models.transformer, repro_torch.models.model, "
+            "repro_torch.runtime.steps, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -96,3 +106,30 @@ def test_entry_points_raise_without_gpu(no_gpu):
                  resource_planning="batched",
                  backend="torch").plan_queries(queries)
     assert all(jp.plan is not None for jp in plans)
+
+
+def test_serve_and_build_model_raise_without_gpu(no_gpu):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models.model import build_model
+    argv = ["--arch", "smollm-360m", "--smoke", "--requests", "1",
+            "--max-new", "2"]
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_model(get_config("falcon-mamba-7b").smoke())
+    # asking for the CPU explicitly works
+    assert main(argv + ["--device", "cpu"]) == 0
+
+
+LIBRARY_KERNELS = ("scaled_dot_product_attention", "flash_attn",
+                   "selective_scan_fn", "mamba_ssm")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         sorted(PORT.rglob("*.cu")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_attention_or_scan(path):
+    text = path.read_text()
+    bad = [name for name in LIBRARY_KERNELS if name in text]
+    assert not bad, f"{path} calls {bad}"

@@ -1,0 +1,149 @@
+"""The port's model stack against the reference's ``Model`` at smoke size.
+
+For ``smollm-360m`` (dense, GQA, prefill attention through K7) and
+``falcon-mamba-7b`` (ssm, Mamba1, prefill scan through K8) smoke configs,
+the reference's parameters are carried across with ``load_jax_params`` and
+the same numpy-drawn tokens go through both.  In float32: full-forward
+logits and prefill logits within 1e-4, and 8 teacher-forced decode steps
+within 1e-3 (the tolerances of ``tests/test_decode_consistency.py``; the
+port's attention and scan sum in other orders than the reference's jnp
+twins).  In bfloat16 (the configs' own dtype) the two packages round at
+other places (silu, softplus, the residual adds), so logits of magnitude
+up to ~1.5 agree to 2e-2, the tolerance of the bfloat16 kernel tests.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import REGISTRY as RREGISTRY
+from repro.models import build_model as rbuild
+from repro.models.transformer import model_defs as rmodel_defs
+from repro.sharding import ParamDef as RParamDef
+from repro_torch.configs import REGISTRY, get_config
+from repro_torch.models.model import (_flatten, build_model, check_supported,
+                                      load_jax_params)
+from repro_torch.models.transformer import model_defs
+
+ARCHS = ["smollm-360m", "falcon-mamba-7b"]
+B, S, P = 2, 24, 16
+
+
+def _pair(arch, dtype="float32"):
+    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype=dtype)
+    cfg = dataclasses.replace(REGISTRY[arch].smoke(), dtype=dtype)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    rmodel = rbuild(rcfg)
+    params = rmodel.init(jax.random.PRNGKey(0))
+    model = build_model(cfg, device="cpu").load_jax_params(
+        jax.tree_util.tree_map(np.asarray, params))
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))
+    return rmodel, params, model, toks
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_prefill_decode_match_reference(arch):
+    rmodel, params, model, toks = _pair(arch)
+    jt = jnp.asarray(toks, jnp.int32)
+    with torch.no_grad():
+        rh, _, _ = rmodel.forward(params, {"tokens": jt})
+        rlog = np.asarray(rmodel.logits(params, rh))
+        h, _, _ = model.forward({"tokens": toks})
+        np.testing.assert_allclose(_np(model.logits(h)), rlog, atol=1e-4,
+                                   rtol=1e-4)
+
+        rl, rcache = rmodel.prefill(params, {"tokens": jt[:, :P]},
+                                    cache_len=S)
+        tl, cache = model.prefill({"tokens": toks[:, :P]}, cache_len=S)
+        np.testing.assert_allclose(_np(tl), np.asarray(rl), atol=1e-4,
+                                   rtol=1e-4)
+        for t in range(P, P + 8):
+            q_pos = np.full((B,), t, np.int32)
+            rl, rcache = rmodel.decode_step(
+                params, rcache, {"tokens": jt[:, t:t + 1]},
+                jnp.asarray(q_pos))
+            tl, cache = model.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                                          q_pos)
+            np.testing.assert_allclose(_np(tl), np.asarray(rl), atol=1e-3,
+                                       rtol=1e-3, err_msg=f"t={t}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_matches_own_forward(arch):
+    """The serving invariant on the port alone: prefill + step-by-step
+    decode reproduce its full forward's logits (float32)."""
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    model = build_model(cfg, device="cpu", seed=3)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    with torch.no_grad():
+        h, _, _ = model.forward({"tokens": toks})
+        ref = model.logits(h)
+        logits, cache = model.prefill({"tokens": toks[:, :P]}, cache_len=S)
+        assert float((logits - ref[:, P - 1]).abs().max()) < 1e-4
+        for t in range(P, S):
+            logits, cache = model.decode_step(
+                cache, {"tokens": toks[:, t:t + 1]}, np.full((B,), t))
+            assert float((logits - ref[:, t]).abs().max()) < 1e-3, f"t={t}"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_forward_matches_reference(arch):
+    rmodel, params, model, toks = _pair(arch, dtype="bfloat16")
+    with torch.no_grad():
+        rh, _, _ = rmodel.forward(params, {"tokens": jnp.asarray(toks)})
+        h, _, _ = model.forward({"tokens": toks})
+        assert h.dtype == torch.bfloat16
+        got, want = _np(model.logits(h)), np.asarray(rmodel.logits(params, rh))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+
+
+def test_load_jax_params_names_and_shapes():
+    for arch in ARCHS:
+        cfg = REGISTRY[arch].smoke()
+        # the port's parameter definitions are the reference's
+        rdefs = jax.tree_util.tree_flatten_with_path(
+            rmodel_defs(cfg), is_leaf=lambda x: isinstance(x, RParamDef))[0]
+        want = {".".join(k.key for k in path): (d.shape, d.logical, d.init)
+                for path, d in rdefs}
+        got = {name: (d.shape, d.logical, d.init)
+               for name, d in _flatten(model_defs(cfg))}
+        assert got == want
+        params = rbuild(cfg).init(jax.random.PRNGKey(1))
+        state = load_jax_params(jax.tree_util.tree_map(np.asarray, params))
+        model = build_model(cfg, device="cpu")
+        own = model.state_dict()
+        assert sorted(state) == sorted(own)
+        assert all(state[k].shape == own[k].shape for k in own)
+        stacked = params["layers"]["in_proj"] if cfg.family == "ssm" \
+            else params["layers"]["attn"]["wq"]
+        name = "in_proj" if cfg.family == "ssm" else "attn.wq"
+        for i in range(cfg.n_layers):
+            assert np.array_equal(state[f"layers.{i}.{name}"].numpy(),
+                                  np.asarray(stacked)[i])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b",
+                                  "llama-3.2-vision-11b", "musicgen-medium",
+                                  "gemma2-9b", "qwen3-moe-30b-a3b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError):
+        check_supported(get_config(arch))
+    with pytest.raises(NotImplementedError):
+        build_model(get_config(arch).smoke(), device="cpu")
+
+
+def test_forward_refuses_positions():
+    cfg = get_config("smollm-360m").smoke()
+    model = build_model(cfg, device="cpu")
+    toks = np.zeros((1, 4), np.int64)
+    with pytest.raises(NotImplementedError, match="positions"):
+        model.forward({"tokens": toks, "positions": toks})
