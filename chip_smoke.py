@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Build and run the PyTorch/CUDA port on one GPU: RAQO planning and
-model serving through the port's hand-written CUDA kernels.
+"""Build and run the PyTorch/CUDA port on one GPU: RAQO planning, model
+serving, the join operators and the streaming planner service through the
+port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,9 @@ Phases (any failure exits nonzero; there is no CPU path):
 
 1. device  — the card's name and power limit from nvidia-smi;
 2. build   — compile every source in src/repro_torch/kernels/csrc/
-             (plan_scan.cu, flash_attention.cu, mamba_scan.cu) with nvcc,
-             one process per source, all started together;
+             (plan_scan.cu, flash_attention.cu, mamba_scan.cu,
+             hash_join.cu, merge_join.cu) with nvcc, one process per
+             source, all started together;
 3. parity  — each CUDA kernel against its plain torch version on the card:
              scan_argmin at both launch geometries over every shipped
              surface x objective, the 10M-row scaled_cluster(100_000, 100)
@@ -44,7 +46,25 @@ Phases (any failure exits nonzero; there is no CPU path):
 8. times   — flash_attention at B=1, S=4096, smollm's heads, bfloat16
              against attention_ref and torch's scaled_dot_product_attention
              (timed here only; the port never calls it), selective_scan at
-             B=1, S=4096, D=8192, N=16 against selective_scan_ref.
+             B=1, S=4096, D=8192, N=16 against selective_scan_ref;
+9. joins   — ops.bhj_join and ops.smj_join at TPC-H SF 100 (row counts from
+             tpch_schema(100)), data made on the card from a seeded
+             generator: lineitem x supplier on suppkey (BHJ, 600M probes
+             into 1M dense keys, all hit) and lineitem x orders on
+             orderkey (SMJ, ~600M probes clustered by order into the ~72M
+             orders that Q3's date filter keeps, ~half miss); each
+             bit-equal to its plain version there and on small edge cases
+             (duplicate keys, negative values, INT_MIN / INT_MAX keys,
+             R = 1, R = 0, S = 0, ragged lengths); times against the plain
+             versions, the byte bound and (SMJ) torch.searchsorted, timed
+             here only;
+10. service — StreamingPlannerService on the streaming bench's schema
+             (random_schema(16, seed=0)), simulator models and 100K
+             containers x 100 GB through the scan kernel: the bench's
+             12-query churn stream and 32 sampled closed-loop tickets equal
+             to solo planning on a fresh broker; closed loop at concurrency
+             256 over 512 Poisson arrivals and the open-loop replay of 200
+             arrivals at 100/s, with plans/s, p50/p99 latency and waves.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -82,6 +102,20 @@ SCAN_TOL = 1e-4
 LOGIT_TOL = 1e-3               # float32 prefill logits, kernels vs plain
 SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
              device="cuda")
+
+JOIN_SF = 100                  # TPC-H scale factor of phase 9
+JOIN_SEED = 9
+Q3_SELECTIVITY = 0.48          # share of orders with o_orderdate < 1995-03-15
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+# integer operations per row: BHJ hashes each build and probe key (9) and
+# compares once; SMJ does one step of 3 per search level, then 2
+HASH_OPS = 10
+SEARCH_STEP_OPS, SEARCH_END_OPS = 3, 2
+
+STREAM_TABLES = 16             # the streaming bench's random_schema(16, 0)
+STREAM_CLOSED = dict(concurrency=256, n_queries=512, seed=43)   # its FULL
+STREAM_OPEN = dict(rate=100.0, n=200, seed=11)                  # its OPEN
+STREAM_SAMPLE = 32             # closed-loop tickets checked against solo
 
 
 def check(ok: bool, what: str) -> None:
@@ -335,6 +369,277 @@ def model_times(torch, dev, err, served):
     ]
 
 
+def tpch_join_inputs(torch, dev, tpch):
+    """Phase 9's inputs at the row counts of ``tpch``, made on the card
+    from a seeded generator: BHJ (l_suppkey, s_suppkey, s_nationkey) and
+    SMJ (l_orderkey, o_orderkey, o_custkey) as int32."""
+    rows = {n: r.rows for n, r in tpch.relations.items()}
+    g = torch.Generator(device=dev).manual_seed(JOIN_SEED)
+    i32 = torch.int32
+    R = rows["supplier"]
+    bhj = (torch.randint(1, R + 1, (rows["lineitem"],), generator=g,
+                         device=dev, dtype=i32),
+           torch.arange(1, R + 1, device=dev, dtype=i32),
+           torch.randint(0, rows["nation"], (R,), generator=g, device=dev,
+                         dtype=i32))
+    # dbgen's sparse order keys: 8 of every 32, so the largest is ~4x the
+    # order count; 1..7 lines per order (L_LINENUMBER), clustered by order
+    i = torch.arange(rows["orders"], device=dev)
+    okey = (32 * (i // 8) + i % 8 + 1).to(i32)
+    del i
+    lines = torch.randint(1, 8, (rows["orders"],), generator=g, device=dev)
+    probe = torch.repeat_interleave(okey, lines)
+    del lines
+    keep = torch.rand(rows["orders"], generator=g, device=dev) < \
+        Q3_SELECTIVITY
+    bkeys = okey[keep]
+    del okey, keep
+    bvals = torch.randint(1, rows["customer"] + 1, (bkeys.numel(),),
+                          generator=g, device=dev, dtype=i32)
+    return bhj, (probe, bkeys, bvals)
+
+
+def join_edge_cases(torch, dev):
+    """Phase 9's small cases: each join kernel bit-equal to its plain
+    version, and the two hand-checked cases equal to their answers;
+    returns the number of kernel/plain comparisons."""
+    from repro_torch.kernels import hash_join as hj
+    from repro_torch.kernels import merge_join as mj
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(JOIN_SEED + 1)
+
+    def t(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    def rand(n, lo, hi, sort=False):
+        x = torch.randint(lo, hi, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        return torch.sort(x).values if sort else x
+
+    lo, hi = INT32_MIN, INT32_MAX
+    # name -> (probe, build keys ascending, build values, answer or None)
+    cases = {
+        "duplicates, negative values": (
+            t([5, 9, 2, 3]), t([2, 5, 9, 9]), t([20, -50, 90, 91]),
+            [-50, 90, 20, -1]),
+        "INT_MIN and INT_MAX keys": (
+            t([hi, lo, 7, -1, 0, lo + 1]), t([lo, -1, 0, hi]),
+            t([1, 2, 3, 4]), [4, 1, -1, 2, 3, -1]),
+        "R=1": (t([4, 3, 4]), t([4]), t([-7]), [-7, -1, -7]),
+        "R=0": (t([1, 2]), t([]), t([]), [-1, -1]),
+        "S=0": (t([]), t([1, 2]), t([3, 4]), []),
+        "ragged, duplicates": (rand(100_003, -500, 500),
+                               rand(4_099, -400, 400, sort=True),
+                               rand(4_099, lo, hi), None),
+        "dense duplicates": (rand(1_000_003, 0, 5_000),
+                             rand(200_001, 0, 5_000, sort=True),
+                             rand(200_001, lo, hi), None),
+        "full int32 range": (rand(300_007, lo, hi),
+                             rand(100_003, lo, hi, sort=True),
+                             rand(100_003, lo, hi), None),
+    }
+    # the hash join also takes unsorted build sides: the first row wins
+    for name in [name for name, c in cases.items() if c[1].numel() > 4]:
+        p, k, v, _ = cases[name]
+        perm = torch.randperm(k.numel(), generator=g, device=dev)
+        cases[name + ", unsorted"] = (p, k[perm], v[perm], None)
+    n = 0
+    for name, (p, k, v, answer) in cases.items():
+        pairs = [("hash_join", hj.hash_join, ref.hash_join_ref)]
+        if not name.endswith("unsorted"):
+            pairs.append(("merge_join", mj.merge_join, ref.merge_join_ref))
+        for kname, kernel, plain in pairs:
+            got, want = kernel(p, k, v), plain(p, k, v)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.int32 and torch.equal(got, want) and
+                  (answer is None or got.tolist() == answer),
+                  f"{kname} {name}: kernel {got.tolist()[:8]} vs plain "
+                  f"{want.tolist()[:8]} (answer {answer})")
+            n += 1
+    return n
+
+
+def join_phase(torch, dev, sf: int = JOIN_SF):
+    """Phase 9: both join operators through their public wrappers at TPC-H
+    scale factor ``sf`` (the main path of the joins), held against their
+    plain versions; returns the kernels' JSON records."""
+    from repro_torch.core.schema import tpch_schema
+    from repro_torch.kernels import hash_join as hj
+    from repro_torch.kernels import merge_join as mj
+    from repro_torch.kernels import ops, ref
+    t = time.perf_counter()
+    tpch = tpch_schema(sf)
+    bhj, smj = tpch_join_inputs(torch, dev, tpch)
+    torch.cuda.synchronize()
+    print(f"joins: TPC-H SF {sf} inputs made on the card in "
+          f"{time.perf_counter() - t:.2f} s: BHJ S={bhj[0].numel()} "
+          f"R={bhj[1].numel()}, SMJ S={smj[0].numel()} R={smj[1].numel()}",
+          flush=True)
+    ops.reset_launch_counts()
+    got_b = ops.bhj_join(*bhj)
+    got_s = ops.smj_join(*smj)
+    torch.cuda.synchronize()
+    launches = {"hash_join": hj.hash_join.launches,
+                "merge_join": mj.merge_join.launches}
+    check(all(launches.values()),
+          f"a join kernel never launched on its main path: {launches}")
+    err = {}
+    for name, got, args, plain in (("hash_join", got_b, bhj,
+                                    ref.hash_join_ref),
+                                   ("merge_join", got_s, smj,
+                                    ref.merge_join_ref)):
+        want = plain(*args)
+        check(got.shape == want.shape and got.dtype == torch.int32,
+              f"{name}: {tuple(got.shape)} {got.dtype}")
+        same = torch.equal(got, want)
+        err[name] = 0.0 if same else \
+            float((got.long() - want.long()).abs().max())
+        check(same, f"{name} at TPC-H SF {sf}: "
+              f"{int((got != want).sum())} values differ from the plain "
+              f"version's (max_abs_err {err[name]})")
+        del want
+    # every lineitem has its supplier; ~half the orders fail Q3's filter
+    check(bool((got_b >= 0).all()) and
+          int(got_b.max()) < tpch.relations["nation"].rows,
+          "BHJ: a lineitem missed its supplier or got no nation key")
+    miss = int((got_s == -1).sum()) / got_s.numel()
+    hits = got_s[got_s != -1]
+    check(abs(miss - (1 - Q3_SELECTIVITY)) < 0.01 and int(hits.min()) >= 1
+          and int(hits.max()) <= tpch.relations["customer"].rows,
+          f"SMJ: miss share {miss} (expected ~{1 - Q3_SELECTIVITY}) or a "
+          f"custkey out of range")
+    del got_b, got_s, hits
+    n_edge = join_edge_cases(torch, dev)
+    print(f"joins (main path): hash_join and merge_join bit-equal to their "
+          f"plain versions at TPC-H SF {sf} (SMJ miss share {miss:.4f})"
+          f" and in {n_edge} edge cases; launches {launches}", flush=True)
+
+    hj_ms = time_ms(lambda: ops.bhj_join(*bhj), 10, torch)
+    hj_plain = time_ms(lambda: ref.hash_join_ref(*bhj), 3, torch)
+    mj_ms = time_ms(lambda: ops.smj_join(*smj), 10, torch)
+    mj_plain = time_ms(lambda: ref.merge_join_ref(*smj), 3, torch)
+    mj_lib = time_ms(lambda: torch.searchsorted(smj[1], smj[0]), 3, torch)
+    # bytes: probe keys read and values written (8 a probe), build keys
+    # and values read (8 a build row); operations: integer, over the
+    # card's 32-bit rate outside the tensor cores
+    S, R = bhj[0].numel(), bhj[1].numel()
+    hj_bound, hj_by = bound_ms(8 * S + 8 * R, HASH_OPS * (S + R))
+    S, R = smj[0].numel(), smj[1].numel()
+    mj_bound, mj_by = bound_ms(
+        8 * S + 8 * R,
+        S * (SEARCH_STEP_OPS * R.bit_length() + SEARCH_END_OPS))
+    print(f"time hash_join S={bhj[0].numel()} R={bhj[1].numel()}: "
+          f"{hj_ms:.4f} ms; plain {hj_plain:.3f} ms; bound {hj_bound:.4f} ms "
+          f"({hj_by})", flush=True)
+    print(f"time merge_join S={S} R={R}: {mj_ms:.4f} ms; plain "
+          f"{mj_plain:.3f} ms; torch.searchsorted {mj_lib:.3f} ms; bound "
+          f"{mj_bound:.4f} ms ({mj_by})", flush=True)
+    del bhj, smj
+    torch.cuda.empty_cache()
+    csrc = "src/repro_torch/kernels/csrc/"
+    return [
+        {"name": "hash_join", "route": "cuda", "source": csrc + "hash_join.cu",
+         "replaces": "src/repro/kernels/hash_join.py:28",
+         "launches": launches["hash_join"], "max_abs_err": err["hash_join"],
+         "ms": hj_ms, "plain_ms": hj_plain, "bound_ms": hj_bound,
+         "bound_by": hj_by, "library_ms": None},
+        {"name": "merge_join", "route": "cuda",
+         "source": csrc + "merge_join.cu",
+         "replaces": "src/repro/kernels/merge_join.py:28",
+         "launches": launches["merge_join"],
+         "max_abs_err": err["merge_join"], "ms": mj_ms, "plain_ms": mj_plain,
+         "bound_ms": mj_bound, "bound_by": mj_by, "library_ms": mj_lib},
+    ]
+
+
+def service_phase(torch, cluster):
+    """Phase 10: the streaming planner service through the scan kernel on
+    the streaming bench's schema and traffic; plans equal to solo planning
+    on a fresh broker.  Returns the closed-loop run's scan launches."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.plan_broker import PlanBroker
+    from repro_torch.core.raqo import RAQO
+    from repro_torch.core.schema import random_query, random_schema
+    from repro_torch.kernels import plan_scan as ps
+    from repro_torch.service import StreamingPlannerService, poisson_trace
+    schema = random_schema(STREAM_TABLES, seed=0)
+    backend = ps.CudaPlanBackend()
+
+    def raqo():
+        return RAQO(schema, models=cm.simulator_cost_models(),
+                    cluster=cluster, resource_planning="batched",
+                    backend=backend, broker=PlanBroker(backend))
+
+    def equal_to_solo(tickets):
+        return all(t.done and plan_signature(raqo().joint(t.tables)) ==
+                   plan_signature(t.joint) for t in tickets)
+
+    def workload(n, seed):
+        return [(a.tenant, a.tables) for a in poisson_trace(
+            schema, n, rate=1000.0, seed=seed, tenants=64)]
+
+    def summary(rep):
+        return (f"{rep['completed']} plans, {rep['plans_per_s']:.2f} plans/s,"
+                f" p50 {rep['query_p50_s']:.4f} s, p99 "
+                f"{rep['query_p99_s']:.4f} s, {rep['waves']} waves, max wave "
+                f"{rep['broker']['max_wave']}, mean wave "
+                f"{rep['broker']['mean_wave']:.1f}, {rep['elapsed_s']:.3f} s")
+
+    t = time.perf_counter()
+    svc = StreamingPlannerService(raqo())
+    churn = []
+    for i in range(12):                  # the bench's churn stream
+        churn.append(svc.submit(random_query(schema, 2 + i % 5,
+                                             seed=100 + i), tenant=i))
+        if i % 2:
+            svc.step()
+    svc.drain()
+    check(equal_to_solo(churn), "service: a churn-stream plan differs from "
+          "solo planning")
+
+    conc, n, seed = (STREAM_CLOSED[k] for k in
+                     ("concurrency", "n_queries", "seed"))
+    shared = raqo()
+    StreamingPlannerService(shared).run_closed_loop(
+        workload(max(8, n // 8), seed + 999), conc)            # warm-up
+    svc = StreamingPlannerService(shared)
+    work = workload(n, seed)
+    ps.reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = svc.run_closed_loop(work, conc)
+    torch.cuda.synchronize()
+    closed = svc.report(elapsed_s=time.perf_counter() - t0)
+    launches = ps.scan_argmin.launches
+    check(len(tickets) == n and all(
+        t.done and t.joint.plan is not None and
+        math.isfinite(t.joint.exec_time) for t in tickets),
+        "service: a closed-loop query has no finite plan")
+    check(launches > 0, "service: scan_argmin never launched")
+    pick = np.random.default_rng(0).choice(n, STREAM_SAMPLE, replace=False)
+    check(equal_to_solo([tickets[i] for i in sorted(pick)]),
+          "service: a closed-loop plan differs from solo planning")
+    print(f"service closed loop x{conc} (main path): {summary(closed)}; "
+          f"scan_argmin launches {launches}, float64 re-searches "
+          f"{svc.broker.f64_researches}", flush=True)
+
+    shared = raqo()
+    StreamingPlannerService(shared).run_closed_loop(workload(16, 1234), 8)
+    svc = StreamingPlannerService(shared)
+    trace = poisson_trace(schema, STREAM_OPEN["n"], rate=STREAM_OPEN["rate"],
+                          seed=STREAM_OPEN["seed"], tenants=64)
+    t0 = time.perf_counter()
+    tickets = svc.run_open_loop(trace)
+    torch.cuda.synchronize()
+    opened = svc.report(elapsed_s=time.perf_counter() - t0)
+    check(len(tickets) == STREAM_OPEN["n"] and all(t.done for t in tickets),
+          "service: an open-loop query did not finish")
+    print(f"service open loop {STREAM_OPEN['rate']:g}/s: {summary(opened)}",
+          flush=True)
+    print(f"service: 12 churn and {STREAM_SAMPLE} closed-loop plans equal "
+          f"to solo planning ({time.perf_counter() - t:.1f} s)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -569,7 +874,13 @@ def main() -> int:
     err = model_kernel_parity(torch, dev)
     served = serve_phase(torch)
     kernels += model_times(torch, dev, err, served)
-    print(f"phases 6-8: {time.perf_counter() - t:.1f} s; total "
+    print(f"phases 6-8: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 9-10. the joins and the streaming service ---------------------------- #
+    t = time.perf_counter()
+    kernels += join_phase(torch, dev)
+    service_phase(torch, big)
+    print(f"phases 9-10: {time.perf_counter() - t:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,8 @@ SOURCES = {
     "plan_scan": "repro_torch.kernels.plan_scan",
     "flash_attention": "repro_torch.kernels.flash_attention",
     "mamba_scan": "repro_torch.kernels.mamba_scan",
+    "hash_join": "repro_torch.kernels.hash_join",
+    "merge_join": "repro_torch.kernels.merge_join",
 }
 
 # -fmad=false and IEEE division and expf (nvcc's defaults without

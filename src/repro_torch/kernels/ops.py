@@ -1,5 +1,6 @@
-"""Public wrappers for the model kernels (the port of
-``repro.kernels.ops``'s ``flash_attention`` and ``selective_scan``).
+"""Public wrappers for the model and join kernels (the port of
+``repro.kernels.ops``: ``flash_attention``, ``selective_scan``,
+``bhj_join`` and ``smj_join``).
 
 ``impl="cuda"`` (the default) is the deployment path: the hand-written
 CUDA kernel for CUDA tensors, its plain version for CPU tensors (the
@@ -12,7 +13,9 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import hash_join as _hj
 from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import merge_join as _mj
 from repro_torch.kernels import ref
 
 IMPLS = ("cuda", "ref")
@@ -42,6 +45,27 @@ def selective_scan(u, dt, A, Bmat, Cmat, h0=None, impl: str = "cuda"):
     return _ms.selective_scan(u, dt, A, Bmat, Cmat, h0)
 
 
+def bhj_join(probe_keys, build_keys, build_vals, *, impl: str = "cuda"):
+    """Broadcast hash join (PK join): (S,) int32 values of the first
+    matching build row, -1 on a miss.  The reference's ``block_probe`` /
+    ``block_build`` tile sizes have no counterpart here."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.hash_join_ref(probe_keys, build_keys, build_vals)
+    return _hj.hash_join(probe_keys, build_keys, build_vals)
+
+
+def smj_join(probe_keys, build_keys, build_vals, *, impl: str = "cuda"):
+    """Sort-merge join on ascending ``build_keys``; the same result as
+    ``bhj_join``."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.merge_join_ref(probe_keys, build_keys, build_vals)
+    return _mj.merge_join(probe_keys, build_keys, build_vals)
+
+
 def reset_launch_counts() -> None:
     _fa.flash_attention.launches = 0
     _ms.selective_scan.launches = 0
+    _hj.hash_join.launches = 0
+    _mj.merge_join.launches = 0

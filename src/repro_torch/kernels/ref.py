@@ -1,8 +1,9 @@
-"""Plain torch versions of the model kernels (the port of
-``repro.kernels.ref``'s ``attention_ref`` and ``selective_scan_ref``).
+"""Plain torch versions of the model and join kernels (the port of
+``repro.kernels.ref``'s ``attention_ref``, ``selective_scan_ref``,
+``hash_join_ref`` and ``merge_join_ref``).
 
-They are the CPU path of ``ops.flash_attention`` / ``ops.selective_scan``
-and what ``chip_smoke.py`` holds the CUDA kernels against on the card
+They are the CPU path of the wrappers in ``ops`` and what
+``chip_smoke.py`` holds the CUDA kernels against on the card
 (``impl="ref"``).
 """
 from __future__ import annotations
@@ -55,3 +56,42 @@ def selective_scan_ref(u, dt, A, Bmat, Cmat, h0=None):
     y = torch.stack(ys, dim=1) if ys else \
         torch.zeros((Bsz, 0, D), dtype=torch.float32, device=u.device)
     return y, h
+
+
+def check_join(probe_keys, build_keys, build_vals) -> None:
+    """The joins take 1-D int32 probe keys and equal-length 1-D int32
+    build keys and values."""
+    ts = (probe_keys, build_keys, build_vals)
+    if any(t.dtype != torch.int32 or t.ndim != 1 for t in ts) or \
+            build_keys.shape != build_vals.shape:
+        raise ValueError(
+            "joins take 1-D int32 probe keys and equal-length 1-D int32 "
+            "build keys and values, got " +
+            ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in ts))
+
+
+def hash_join_ref(probe_keys, build_keys, build_vals):
+    """PK join: for each probe key, the value of the FIRST build row whose
+    key matches (the reference's ``argmax`` over the (S, R) compare), or
+    -1.  A stable sort of the build keys and a left ``searchsorted`` find
+    that row in O(S log R) instead of the (S, R) compare matrix."""
+    check_join(probe_keys, build_keys, build_vals)
+    R = build_keys.shape[0]
+    if R == 0:
+        return torch.full_like(probe_keys, -1)
+    skeys, order = torch.sort(build_keys, stable=True)
+    pos = torch.searchsorted(skeys, probe_keys).clamp_(max=R - 1)
+    hit = skeys[pos] == probe_keys
+    return torch.where(hit, build_vals[order[pos]], -1)
+
+
+def merge_join_ref(probe_keys, build_keys, build_vals):
+    """Sorted-runs join: ``build_keys`` ascending (not checked); the value
+    at the first build row whose key matches, or -1."""
+    check_join(probe_keys, build_keys, build_vals)
+    R = build_keys.shape[0]
+    if R == 0:
+        return torch.full_like(probe_keys, -1)
+    pos = torch.searchsorted(build_keys, probe_keys).clamp_(0, R - 1)
+    hit = build_keys[pos] == probe_keys
+    return torch.where(hit, build_vals[pos], -1)

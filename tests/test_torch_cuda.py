@@ -9,7 +9,10 @@ The plan-scan kernels are built with -fmad=false and IEEE division, so
 flat ids and float32 costs must equal the plain torch versions' bit for
 bit.  The model kernels sum in other orders than their plain versions and
 are held to the tolerances of tests/test_kernels.py: 1e-5 for float32
-attention, 2e-2 for bfloat16, 1e-4 for the selective scan.
+attention, 2e-2 for bfloat16, 1e-4 for the selective scan.  The join
+kernels return int32 values and must equal their plain versions exactly;
+the streaming service through the scan kernel must plan as solo planning
+does.
 """
 import dataclasses
 
@@ -20,15 +23,19 @@ import torch
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cluster import (ClusterConditions, ResourceDim,
                                       paper_cluster)
+from repro_torch.core.plan_broker import PlanBroker
 from repro_torch.core.planning_backend import TorchPlanBackend
 from repro_torch.core.raqo import RAQO
 from repro_torch.core.schema import random_query, random_schema
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import hash_join as hj
 from repro_torch.kernels import mamba_scan as ms
+from repro_torch.kernels import merge_join as mj
 from repro_torch.kernels import plan_scan as ps
 from repro_torch.kernels import ref
 from repro_torch.launch.serve import serve
+from repro_torch.service import StreamingPlannerService, poisson_trace
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +154,74 @@ def test_smoke_serve_through_kernels(dev):
         assert got["served"] == 4 and got["tokens"] == plain["tokens"]
     after = (fa.flash_attention.launches, ms.selective_scan.launches)
     assert after[0] > before[0] and after[1] > before[1]
+
+
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+# name -> (S, R, key range, values' range): random keys from numpy
+JOIN_CASES = {
+    "pk": (1024, 512, (0, 5000), (0, 1 << 20)),
+    "duplicates-negative": (10_007, 3_001, (-300, 300),
+                            (INT32_MIN, INT32_MAX)),
+    "full-range": (100_003, 50_001, (INT32_MIN, INT32_MAX),
+                   (INT32_MIN, INT32_MAX)),
+    "r1": (257, 1, (0, 3), (-9, 9)),
+    "r0": (33, 0, (0, 3), (0, 1)),
+    "s0": (0, 64, (0, 100), (0, 100)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_CASES))
+def test_join_kernels_equal_plain(dev, name):
+    S, R, (klo, khi), (vlo, vhi) = JOIN_CASES[name]
+    rng = np.random.default_rng(7)
+    probe = rng.integers(klo, khi, S, dtype=np.int64).astype(np.int32)
+    keys = rng.integers(klo, khi, R, dtype=np.int64).astype(np.int32)
+    vals = rng.integers(vlo, vhi, R, dtype=np.int64).astype(np.int32)
+    probe[: min(S, 3)] = [INT32_MIN, INT32_MAX, 0][: min(S, 3)]
+    p, k, v = (torch.from_numpy(x).to(dev) for x in (probe, keys, vals))
+    sk, order = torch.sort(k, stable=True)
+    sv = v[order]
+    before = (hj.hash_join.launches, mj.merge_join.launches)
+    for kernel, plain, args in ((hj.hash_join, ref.hash_join_ref, (p, k, v)),
+                                (hj.hash_join, ref.hash_join_ref,
+                                 (p, sk, sv)),
+                                (mj.merge_join, ref.merge_join_ref,
+                                 (p, sk, sv))):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), name
+    launched = S > 0
+    assert (hj.hash_join.launches, mj.merge_join.launches) == \
+        (before[0] + 2 * launched, before[1] + launched)
+
+
+def test_join_kernels_first_match(dev):
+    """Duplicate build keys and values below -1: the first matching row's
+    value, as the reference's oracles give it."""
+    p, k, v = (torch.tensor(xs, dtype=torch.int32, device=dev)
+               for xs in ([5, 9, 2, 3], [2, 5, 9, 9], [20, -50, 90, 91]))
+    assert hj.hash_join(p, k, v).tolist() == [-50, 90, 20, -1]
+    assert mj.merge_join(p, k, v).tolist() == [-50, 90, 20, -1]
+    assert hj.hash_join(p, k.flip(0), v.flip(0)).tolist() == \
+        [-50, 91, 20, -1]
+
+
+def test_streaming_service_through_kernels_matches_solo(dev):
+    schema = random_schema(10, seed=0)
+    backend = ps.CudaPlanBackend()
+
+    def raqo():
+        return RAQO(schema, models=cm.simulator_cost_models(),
+                    cluster=paper_cluster(), resource_planning="batched",
+                    backend=backend, broker=PlanBroker(backend))
+
+    trace = poisson_trace(schema, 24, rate=1000.0, seed=3, tenants=6)
+    before = ps.scan_argmin.launches
+    svc = StreamingPlannerService(raqo())
+    tickets = svc.run_closed_loop([(a.tenant, a.tables) for a in trace],
+                                  concurrency=8)
+    assert ps.scan_argmin.launches > before
+    for t in tickets:
+        solo = raqo().joint(t.tables)
+        assert (solo.plan.describe(), solo.exec_time, solo.money) == \
+            (t.joint.plan.describe(), t.joint.exec_time, t.joint.money)

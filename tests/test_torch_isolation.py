@@ -5,9 +5,10 @@ On a host without a GPU the default backend (``"cuda"``) must raise
 ``RuntimeError`` from every entry point instead of quietly planning on
 the CPU; ``backend="torch"`` is how a caller asks for the CPU.  The same
 holds for serving: ``build_model`` and ``serve`` default to the GPU and
-``device="cpu"`` / ``--device cpu`` asks for the CPU.  The port computes
-attention and the selective scan in its own kernels, never through a
-library's fused call.
+``device="cpu"`` / ``--device cpu`` asks for the CPU, and for the
+streaming planner service, whose default broker is the CUDA backend's.
+The port computes attention, the selective scan and the joins in its own
+kernels, never through a library's fused call, sort or search.
 """
 import ast
 import os
@@ -57,7 +58,10 @@ def test_port_import_loads_no_jax():
             "repro_torch.kernels.mamba_scan, repro_torch.models.common, "
             "repro_torch.models.attention, repro_torch.models.ssm, "
             "repro_torch.models.transformer, repro_torch.models.model, "
-            "repro_torch.runtime.steps, repro_torch.launch.serve; "
+            "repro_torch.runtime.steps, repro_torch.launch.serve, "
+            "repro_torch.kernels.hash_join, repro_torch.kernels.merge_join, "
+            "repro_torch.service, repro_torch.service.admission, "
+            "repro_torch.service.traces; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -108,6 +112,20 @@ def test_entry_points_raise_without_gpu(no_gpu):
     assert all(jp.plan is not None for jp in plans)
 
 
+def test_streaming_service_raises_without_gpu(no_gpu):
+    from repro_torch.core.raqo import RAQO
+    from repro_torch.core.schema import random_query, random_schema
+    from repro_torch.service import StreamingPlannerService
+    schema = random_schema(6, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        StreamingPlannerService(RAQO(schema))
+    # asking for the CPU explicitly works
+    svc = StreamingPlannerService(RAQO(schema, backend="torch"))
+    ticket = svc.submit(random_query(schema, 3, seed=0))
+    svc.drain()
+    assert ticket.done and ticket.joint.plan is not None
+
+
 def test_serve_and_build_model_raise_without_gpu(no_gpu):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main
@@ -132,4 +150,21 @@ LIBRARY_KERNELS = ("scaled_dot_product_attention", "flash_attn",
 def test_no_library_attention_or_scan(path):
     text = path.read_text()
     bad = [name for name in LIBRARY_KERNELS if name in text]
+    assert not bad, f"{path} calls {bad}"
+
+
+# the join kernels sort and search by hand; only their plain versions in
+# kernels/ref.py may call the library's
+LIBRARY_SORT_SEARCH = ("searchsorted", "argsort", "torch.sort", "unique",
+                       "thrust::", "cub::")
+JOIN_KERNEL_FILES = [PORT / "kernels" / name for name in
+                     ("hash_join.py", "merge_join.py", "csrc/hash_join.cu",
+                      "csrc/merge_join.cu")]
+
+
+@pytest.mark.parametrize("path", JOIN_KERNEL_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_join_kernels_call_no_library_sort_or_search(path):
+    text = path.read_text()
+    bad = [name for name in LIBRARY_SORT_SEARCH if name in text]
     assert not bad, f"{path} calls {bad}"
