@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and run the PyTorch/CUDA port on one GPU: RAQO planning, model
-serving, the join operators and the streaming planner service through the
-port's hand-written CUDA kernels.
+serving, the join operators, the streaming planner service, the sharded
+plan scan and the sharding planner through the port's hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -64,7 +65,25 @@ Phases (any failure exits nonzero; there is no CPU path):
              12-query churn stream and 32 sampled closed-loop tickets equal
              to solo planning on a fresh broker; closed loop at concurrency
              256 over 512 Poisson arrivals and the open-loop replay of 200
-             arrivals at 100/s, with plans/s, p50/p99 latency and waves.
+             arrivals at 100/s, with plans/s, p50/p99 latency and waves;
+11. sharded — scan_argmin_sharded (K4) over D in {1, 2, 3, 4, 7} logical
+             shards of the card on scaled_cluster(100_000, 100), Q = 60 and
+             Q = 1, a tie-heavy surface (a floor plateau across every shard
+             boundary), a grid whose last shard is below one tile and an
+             all-infeasible grid: bit-equal to single-launch scan_argmin and
+             to scan_argmin_sharded_ref; then RAQO.plan_queries of the TPC-H
+             queries on CudaPlanBackend(devices=[cuda] * 4) (the main path)
+             with plans equal to the unsharded backend's; real GPUs too when
+             more than one is visible; K4 times at D in {1, 4, 7};
+12. sharding — every roofline surface (10 archs x train / prefill /
+             decode x plan choices x both objectives x 3 param sets) in the
+             kernels bit-equal to its plain version, row by row; then
+             ShardingPlanner().joint on the default CUDA backend for all ten
+             archs at full width x 3 shapes x hillclimb / ensemble / brute,
+             for_budget(64) and replan(lost_chips=128), every decision equal
+             to backend="torch"; one broker shared by TPC-H operator
+             requests, a sharding planner and a TPC-H RAQO session, plans
+             equal to solo planning; the roofline scan's time.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -151,6 +170,23 @@ def time_ms(fn, reps: int, torch) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(torch, fn, reps: int, kernel: str):
+    """Device time of one launch of ``kernel`` (a name substring) over
+    ``reps`` calls of ``fn``, from torch.profiler; None when the profiler
+    records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", 0) for e in rows)
+    count = sum(e.count for e in rows)
+    return total / count / 1e3 if count and total else None
 
 
 def plan_signature(jp):
@@ -640,6 +676,319 @@ def service_phase(torch, cluster):
     return launches
 
 
+SHARDS = (1, 2, 3, 4, 7)        # logical shards phase 11 holds K4 at
+SHARDED_MAIN = 4               # logical shards of phase 11's main path
+SHARD_TIMES = (1, 4, 7)        # shard counts phase 11 times K4 at
+PLAN_MODES = ("hillclimb", "ensemble", "brute")
+BUDGET_CHIPS = 64              # ShardingPlanner.for_budget's chip budget
+LOST_CHIPS = 128               # ShardingPlanner.replan's lost chips
+
+
+def sharded_phase(torch, dev):
+    """Phase 11: the sharded scan (K4) over logical shards of one card,
+    against single-launch scan_argmin and its plain version; then
+    RAQO.plan_queries on sharded and unsharded backends (the main path);
+    then times.  Returns K4's JSON record."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.cluster import (ClusterConditions, ResourceDim,
+                                          scaled_cluster)
+    from repro_torch.core.plan_broker import PlanBroker
+    from repro_torch.core.raqo import RAQO
+    from repro_torch.core.schema import TPCH_QUERIES, tpch_schema
+    from repro_torch.kernels import plan_scan as ps
+    t = time.perf_counter()
+    rng = np.random.default_rng(11)
+    big = scaled_cluster(100_000, 100)
+    dims = ps.grid_dims(big, dev)
+    # 1000 rows past the last whole tile of every shard count below
+    ragged = ps.grid_dims(ClusterConditions(dims=(
+        ResourceDim("num_containers", 1, 3197),
+        ResourceDim("container_gb", 1, 8))), dev)
+    sim = cm.simulator_cost_models()
+    smj = cm.Surface(sim["SMJ"], "time")
+    # cost 2000 ss - nc, clamped at the 1e-3 floor: every row from
+    # nc >= 2000 ss on ties at the floor (all 100 container sizes of an nc
+    # tie anyway), across every shard boundary past the first minimum
+    ties = cm.Surface(cm.RegressionModel(
+        "ties", np.array([2000.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0])), "time")
+
+    def params(Q, ss_hi=60.0):
+        ss = rng.uniform(0.01, ss_hi, Q)
+        return torch.tensor(np.stack([ss, ss + rng.uniform(0.0, 200.0, Q)],
+                                     1), dtype=torch.float32, device=dev)
+
+    cases = [("sim/SMJ", smj, dims, params(60)),
+             ("sim/SMJ", smj, dims, params(1)),
+             ("ties", ties, dims, params(60, 45.0)),
+             ("ties", ties, dims, params(1, 4.0)),
+             ("ragged", smj, ragged, params(60)),
+             ("all-infeasible", cm.Surface(sim["BHJ"], "time"), dims,
+              torch.tensor([[80.0, 300.0]] * 8, device=dev))]
+    total_ragged = math.prod(d.size for d in ragged)
+    for D in (4, 7):
+        check(0 < ps.shard_spans(total_ragged, D)[-1][1] < ps.TILE_ROWS,
+              f"the ragged grid's last of {D} shards is not below a tile")
+
+    def hold(devices_of, label):
+        n = 0
+        for name, surface, d, p in cases:
+            Q = p.shape[0]
+            qb = ps.CudaPlanBackend.q_per_block(Q)
+            one = ps.scan_argmin(surface, d, p, qb)
+            plain1 = ps.scan_argmin_ref(surface, d, p)
+            for D in SHARDS:
+                devs = devices_of(D)
+                if devs is None:
+                    continue
+                got = ps.scan_argmin_sharded(surface, d, p, devs, qb)
+                plain = ps.scan_argmin_sharded_ref(surface, d, p, D)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a.to(dev), b) for a, b in
+                          zip(got + one + plain, plain1 * 3)),
+                      f"scan_argmin_sharded {name} Q={Q} {label} D={D}: "
+                      f"{got[1].tolist()[:4]} vs single launch "
+                      f"{one[1].tolist()[:4]}, plain {plain[1].tolist()[:4]}")
+                n += 1
+            if name == "all-infeasible":
+                check(bool(torch.isinf(one[0]).all()) and
+                      bool((one[1] == -1).all()),
+                      "all-infeasible scan found a configuration")
+        return n
+
+    n = hold(lambda D: [dev] * D, "logical shards of one card")
+    print(f"K4 parity: {n} cases (10M rows, ties across shard boundaries, "
+          f"a last shard of {ps.shard_spans(total_ragged, 7)[-1][1]} rows, "
+          f"all-infeasible; D in {SHARDS}) bit-equal to single-launch "
+          f"scan_argmin and to scan_argmin_sharded_ref", flush=True)
+
+    # the main path: TPC-H planning on a sharded backend
+    tpch = tpch_schema(100)
+    qs = list(TPCH_QUERIES.values())
+
+    def plan(backend):
+        t0 = time.perf_counter()
+        plans = RAQO(schema=tpch, models=cm.paper_models(), cluster=big,
+                     resource_planning="batched", backend=backend,
+                     broker=PlanBroker(backend)).plan_queries(qs)
+        torch.cuda.synchronize()
+        return [plan_signature(j) for j in plans], time.perf_counter() - t0
+
+    solo, solo_s = plan(ps.CudaPlanBackend())
+    ps.reset_launch_counts()
+    sharded, sharded_s = plan(ps.CudaPlanBackend(devices=[dev] *
+                                                 SHARDED_MAIN))
+    launches = ps.scan_argmin_sharded.launches
+    check(sharded == solo, "sharded TPC-H plans differ from unsharded ones")
+    check(launches > 0 and ps.scan_argmin.launches == 0,
+          f"the sharded main path did not go through K4 alone: "
+          f"{launches} K4 and {ps.scan_argmin.launches} K1/K2 launches")
+    print(f"K4 main path: RAQO.plan_queries of the {len(qs)} TPC-H queries "
+          f"on CudaPlanBackend(devices=[cuda]*{SHARDED_MAIN}) in "
+          f"{sharded_s:.3f} s (unsharded {solo_s:.3f} s), plans equal; "
+          f"scan_argmin_sharded launches {launches}", flush=True)
+
+    n_gpu = torch.cuda.device_count()
+    if n_gpu > 1:
+        real = [torch.device("cuda", i) for i in range(n_gpu)]
+        n = hold(lambda D: real[:D] if D <= n_gpu else None,
+                 f"{n_gpu} GPUs")
+        multi, _ = plan(ps.CudaPlanBackend(devices=n_gpu))
+        check(multi == solo, f"TPC-H plans on {n_gpu} GPUs differ")
+        print(f"K4 across {n_gpu} GPUs: {n} cases bit-equal, TPC-H plans "
+              f"equal", flush=True)
+    else:
+        print("K4: one GPU visible, so only logical shards of one card ran "
+              "(real multi-GPU shards need a host with more than one GPU)",
+              flush=True)
+
+    p60 = params(60)
+    qb = ps.CudaPlanBackend.q_per_block(60)
+    one_ms = time_ms(lambda: ps.scan_argmin(smj, dims, p60, qb), 10, torch)
+    k4_ms = {D: time_ms(lambda D=D: ps.scan_argmin_sharded(
+        smj, dims, p60, [dev] * D, qb), 10, torch) for D in SHARD_TIMES}
+    plain_ms = time_ms(lambda: ps.scan_argmin_sharded_ref(
+        smj, dims, p60, SHARDED_MAIN), 2, torch)
+    rows = big.grid_size()
+    bound, by = bound_ms(60 * smj.n_params * 4 + 60 * 8,
+                         rows * 60 * surface_ops(smj))
+    print(f"time scan_argmin_sharded sim/SMJ/time rows={rows} Q=60: "
+          + "; ".join(f"D={D} {ms:.4f} ms" for D, ms in k4_ms.items())
+          + f"; single-launch scan_argmin {one_ms:.4f} ms; plain (D="
+          f"{SHARDED_MAIN}) {plain_ms:.3f} ms; bound {bound:.4f} ms ({by})",
+          flush=True)
+    print(f"phase 11: {time.perf_counter() - t:.1f} s", flush=True)
+    return {"name": "scan_argmin_sharded", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/plan_scan.cu",
+            "replaces": "src/repro/kernels/plan_scan.py:367",
+            "launches": launches, "max_abs_err": 0.0,
+            "ms": k4_ms[SHARDED_MAIN], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def decision(planner_call):
+    """A ShardingPlanner decision as (resources, plan choice, objective),
+    or the error's type when no plan is feasible."""
+    try:
+        d = planner_call()
+    except RuntimeError:
+        return "infeasible"
+    return (d.resources, d.plan_choice, d.objective_value)
+
+
+def sharding_phase(torch, dev):
+    """Phase 12: the roofline surfaces in-kernel against their plain
+    versions, then ShardingPlanner on the default CUDA backend against
+    backend="torch" for every arch at full width, and one broker session
+    shared with TPC-H costing."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, ShapeConfig, get_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.cluster import scaled_cluster
+    from repro_torch.core.plan_broker import PlanBroker
+    from repro_torch.core.planning_backend import get_backend
+    from repro_torch.core.plans import OperatorCosting
+    from repro_torch.core.raqo import RAQO
+    from repro_torch.core.schema import TPCH_QUERIES, tpch_schema
+    from repro_torch.core.sharding_planner import (PLAN_CHOICES,
+                                                   ShardingPlanner,
+                                                   TpuCluster)
+    from repro_torch.kernels import plan_scan as ps
+    t = time.perf_counter()
+    train = ShapeConfig("train", 4096, 256, "train")
+    shapes = (train, SHAPES["prefill_32k"], SHAPES["decode_32k"])
+    inf = math.inf
+    exact = get_backend("torch")
+
+    # every roofline surface: each row's cost (neighbor_step from every
+    # grid point) and the scan's argmin bit-equal to the plain version
+    n = 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in shapes:
+            cluster = TpuCluster().dims(shape)
+            dims = ps.grid_dims(cluster, dev)
+            cur = torch.tensor(np.indices([d.size for d in dims]).reshape(
+                len(dims), -1).T.copy(), device=dev)
+            for obj in ("time", "chip_seconds"):
+                planner = ShardingPlanner(objective=obj, backend="torch")
+                for choice in PLAN_CHOICES[shape.kind]:
+                    s = planner._grid_fn(cfg, shape, choice,
+                                         exact).surface
+                    for pr in ((inf, inf), (64.0, inf), (inf, 384.0)):
+                        p = torch.tensor([pr], dtype=torch.float32,
+                                         device=dev)
+                        got = ps.neighbor_step(s, dims, cur, p) + \
+                            ps.scan_argmin(s, dims, p)
+                        want = ps.neighbor_step_ref(s, dims, cur, p) + \
+                            ps.scan_argmin_ref(s, dims, p)
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(a, b)
+                                  for a, b in zip(got, want)),
+                              f"roofline {arch} {shape.name} {obj} {choice} "
+                              f"{pr}: kernel {got[3].tolist()} "
+                              f"{got[4].tolist()} vs plain "
+                              f"{want[3].tolist()} {want[4].tolist()}")
+                        n += 1
+    print(f"roofline surfaces: {n} kernel/plain cases bit-equal (every "
+          f"grid row's cost and the argmin)", flush=True)
+
+    # the main path: joint / for_budget / replan on the default backend
+    ps.reset_launch_counts()
+    walls, n_dec = [], 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in shapes:
+            for mode in PLAN_MODES:
+                t0 = time.perf_counter()
+                got = decision(lambda: ShardingPlanner(
+                    resource_planning=mode).joint(cfg, shape, arch=arch))
+                walls.append((f"{arch}/{shape.name}/{mode}",
+                              time.perf_counter() - t0))
+                want = decision(lambda: ShardingPlanner(
+                    resource_planning=mode, backend="torch").joint(
+                        cfg, shape, arch=arch))
+                check(got == want, f"joint {arch} {shape.name} {mode}: "
+                      f"{got} vs torch {want}")
+                n_dec += 1
+        for call in (lambda p: p.for_budget(cfg, train, BUDGET_CHIPS),
+                     lambda p: p.replan(cfg, train, lost_chips=LOST_CHIPS)):
+            got = decision(lambda: call(ShardingPlanner()))
+            want = decision(lambda: call(ShardingPlanner(backend="torch")))
+            check(got == want, f"{arch} budget/replan: {got} vs {want}")
+            n_dec += 1
+    torch.cuda.synchronize()
+    launches = {"scan_argmin": ps.scan_argmin.launches,
+                "neighbor_step": ps.neighbor_step.launches}
+    check(launches["scan_argmin"] > 0 and launches["neighbor_step"] > 0,
+          f"the sharding planner did not go through the kernels: {launches}")
+    print(f"sharding planner (main path): {n_dec} decisions of "
+          f"{len(ARCH_IDS)} archs x {len(shapes)} shapes x {PLAN_MODES} "
+          f"plus for_budget({BUDGET_CHIPS}) and replan(lost_chips="
+          f"{LOST_CHIPS}) equal to backend='torch'; launches {launches}",
+          flush=True)
+    print("joint wall s: " + ", ".join(f"{k} {v:.4f}" for k, v in walls),
+          flush=True)
+
+    # one broker session: TPC-H operators and a sharding planner's plan
+    # choices in one flush, then a TPC-H RAQO session on the same broker
+    backend = ps.CudaPlanBackend()
+    broker = PlanBroker(backend)
+    big = scaled_cluster(100_000, 100)
+    tpch = tpch_schema(100)
+    models = cm.paper_models()
+    sizes = sorted(r.size_gb for r in tpch.relations.values())
+    ops = [(impl, sizes[i], sizes[-1]) for i in range(len(sizes) - 1)
+           for impl in ("SMJ", "BHJ")]
+    costing = OperatorCosting(models=models, cluster=big,
+                              resource_planning="batched", broker=broker)
+    for op in ops:
+        costing.prefetch(*op)
+    pending = broker.pending_count()
+    cfg = get_config("deepseek-67b")
+    shared = decision(lambda: ShardingPlanner(
+        resource_planning="ensemble", broker=broker).joint(cfg, train))
+    check(pending > 0 and broker.pending_count() == 0,
+          f"the sharding planner's flush did not take the {pending} DB "
+          f"requests along")
+    solo_costing = OperatorCosting(models=models, cluster=big,
+                                   resource_planning="batched",
+                                   backend=ps.CudaPlanBackend())
+    check(all(costing.plan_resources(*op) == solo_costing.plan_resources(*op)
+              for op in ops), "shared-flush DB plans differ from solo")
+    check(shared == decision(lambda: ShardingPlanner(
+        resource_planning="ensemble").joint(cfg, train)),
+        "shared-flush sharding decision differs from solo")
+    qs = list(TPCH_QUERIES.values())
+    got = RAQO(schema=tpch, models=models, cluster=big,
+               resource_planning="batched", backend=backend,
+               broker=broker).plan_queries(qs)
+    want = RAQO(schema=tpch, models=models, cluster=big,
+                resource_planning="batched", backend=backend,
+                broker=PlanBroker(backend)).plan_queries(qs)
+    check([plan_signature(j) for j in got] ==
+          [plan_signature(j) for j in want],
+          "TPC-H plans on the shared broker differ from solo planning")
+    print(f"shared broker: {pending} TPC-H operator requests flushed with "
+          f"deepseek-67b's plan choices, then {len(qs)} TPC-H queries; "
+          f"plans and decisions equal to solo planning; broker "
+          f"{broker.counters_snapshot()['waves']} waves", flush=True)
+
+    # the roofline scan's kernel time (deepseek-67b train, first choice)
+    planner = ShardingPlanner(backend="torch")
+    s = planner._grid_fn(cfg, train, PLAN_CHOICES["train"][0],
+                         exact).surface
+    dims = ps.grid_dims(TpuCluster().dims(train), dev)
+    p = torch.tensor([[inf, inf]], dtype=torch.float32, device=dev)
+    roof_ms = time_ms(lambda: ps.scan_argmin(s, dims, p), 200, torch)
+    dev_ms = device_ms(torch, lambda: ps.scan_argmin(s, dims, p), 50,
+                       "scan_argmin_kernel")
+    print(f"time scan_argmin roofline train deepseek-67b "
+          f"{math.prod(d.size for d in dims)} rows Q=1: {roof_ms:.4f} ms a "
+          f"call (CUDA events; the wrapper's host work bounds it), kernel "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} on "
+          f"the device (torch.profiler)", flush=True)
+    print(f"phase 12: {time.perf_counter() - t:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -880,8 +1229,12 @@ def main() -> int:
     t = time.perf_counter()
     kernels += join_phase(torch, dev)
     service_phase(torch, big)
-    print(f"phases 9-10: {time.perf_counter() - t:.1f} s; total "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phases 9-10: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # 11-12. the sharded scan and the sharding planner -------------------- #
+    kernels.append(sharded_phase(torch, dev))
+    sharding_phase(torch, dev)
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

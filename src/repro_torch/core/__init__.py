@@ -1,10 +1,12 @@
 """RAQO core of the port: cost models, Algorithm-1 hill climbing, the
-resource-plan cache, the session planning broker, and the Selinger and
-FastRandomized planners behind the ``RAQO`` facade."""
+resource-plan cache, the session planning broker, the Selinger and
+FastRandomized planners behind the ``RAQO`` facade, and the roofline and
+sharding planner of the accelerator domain."""
 from repro_torch.core.cluster import (ClusterConditions,  # noqa: F401
                                       PlanningStats, ResourceDim,
                                       paper_cluster, scaled_cluster)
-from repro_torch.core.cost_model import (HiveSimulator,  # noqa: F401
+from repro_torch.core.cost_model import (CostTable,  # noqa: F401
+                                         HiveSimulator,
                                          RegressionModel, SimulatorCostModel,
                                          Surface, models_from_arrays,
                                          monetary_cost, paper_models,
@@ -26,3 +28,9 @@ from repro_torch.core.schema import (Schema, TPCH_QUERIES,  # noqa: F401
 from repro_torch.core.selinger import (exhaustive_left_deep,  # noqa: F401
                                        selinger_plan)
 from repro_torch.core.fast_randomized import fast_randomized_plan  # noqa: F401
+from repro_torch.core.roofline import (HW, Resources,  # noqa: F401
+                                       RooflineCost, RooflineTerms,
+                                       chip_seconds, terms_for, terms_grid)
+from repro_torch.core.sharding_planner import (PLAN_CHOICES,  # noqa: F401
+                                               ShardingDecision,
+                                               ShardingPlanner, TpuCluster)

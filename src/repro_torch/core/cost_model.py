@@ -36,16 +36,20 @@ The port differs from the reference in four places:
   marks ``ss > oom_frac * cs`` infeasible, so a CUDA kernel can evaluate
   it.  Each shipped model also describes itself as a ``Surface``
   (kind + constants + objective) that ``repro_torch.kernels.plan_scan``
-  turns into kernel arguments.
+  turns into kernel arguments; so do the sharding planner's rooflines
+  (``roofline.RooflineCost``) and ``CostTable``, a cost per grid point.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.roofline import RooflineCost
 
 FEATURES = ("ss", "ss2", "cs", "cs2", "nc", "nc2", "cs_nc")
 
@@ -320,51 +324,130 @@ def monetary_cost(exec_time_s, cs, nc, dollars_per_gb_hour: float = 0.05):
 # Surface descriptors: what a CUDA kernel needs to evaluate a cost fn.
 # --------------------------------------------------------------------------- #
 
-SURFACE_KINDS = {"regression": 0, "smj": 1, "bhj": 2}
-OBJECTIVES = {"time": 0, "money": 1, "sla": 2}
+@dataclasses.dataclass(frozen=True, eq=False)
+class CostTable:
+    """A cost per grid configuration plus the request's ``params[0]``: the
+    counterpart of a reference cost fn that looks its costs up in an array
+    it captured (the reference's Pallas kernels take such arrays as kernel
+    inputs).  ``costs`` has the grid's shape, first dim slowest; ``grids``
+    are the dims' values, each ascending."""
+    grids: Tuple[np.ndarray, ...]
+    costs: np.ndarray
+    _on: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        shape = tuple(len(g) for g in self.grids)
+        if self.costs.shape != shape:
+            raise ValueError(f"costs {self.costs.shape} for a grid {shape}")
+        if any(np.any(np.diff(g) <= 0) for g in self.grids):
+            raise ValueError("CostTable grids must be strictly ascending")
+
+    @classmethod
+    def of(cls, cluster, costs) -> "CostTable":
+        return cls(tuple(np.asarray(d.grid(), dtype=np.int64)
+                         for d in cluster.dims),
+                   np.asarray(costs, dtype=np.float64))
+
+    def flat_costs(self, device, dtype=torch.float32) -> torch.Tensor:
+        """The costs by flat row id on ``device`` (one copy per device and
+        dtype, kept)."""
+        key = (torch.device(device), dtype)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.costs.ravel(), dtype=dtype,
+                                             device=device)
+        return self._on[key]
+
+    def __call__(self, configs, p0):
+        cfgs = torch.as_tensor(configs)
+        flat = torch.zeros(cfgs.shape[0], dtype=torch.int64,
+                           device=cfgs.device)
+        for d, g in enumerate(self.grids):
+            idx = torch.searchsorted(torch.as_tensor(g, device=cfgs.device),
+                                     cfgs[:, d].contiguous())
+            flat = flat * len(g) + idx
+        dtype = p0.dtype if isinstance(p0, torch.Tensor) else torch.float64
+        return self.flat_costs(cfgs.device, dtype)[flat] + p0
+
+
+SURFACE_KINDS = {"regression": 0, "smj": 1, "bhj": 2, "table": 3,
+                 "train": 4, "prefill": 5, "decode": 6}
+OBJECTIVES = {"time": 0, "money": 1, "sla": 2, "chip_seconds": 3}
 # per-request params each objective reads: [ss, ls] or [ss, ls, target]
 PARAMS_OF = {"time": 2, "money": 2, "sla": 3}
+ROOFLINE_KINDS = ("train", "prefill", "decode")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Surface:
     """A shipped batch cost surface as data: the model it evaluates and
-    the objective wrapped around it (``time``; ``money``, the
-    ``plans._grid_fn`` wrap; ``sla``, the ``RAQO.resources_for_plan``
-    wrap).  Calling it evaluates the plain torch expression
-    ``fn(configs, params)``; ``kind``/``consts``/``oom`` are what the CUDA
+    the objective wrapped around it.  DB models take ``time``, ``money``
+    (the ``plans._grid_fn`` wrap) or ``sla`` (the
+    ``RAQO.resources_for_plan`` wrap) with params ``[ss, ls(, target)]``;
+    a ``roofline.RooflineCost`` takes ``time`` or ``chip_seconds`` (the
+    ``ShardingPlanner._grid_fn`` wrap) with params ``[chip_budget,
+    max_chips]``; a ``CostTable`` takes ``time`` with params ``[offset]``.
+    Calling it evaluates the plain torch expression ``fn(configs,
+    params)``; ``kind``/``consts``/``flags``/``batch`` are what the CUDA
     kernel takes in its place."""
-    model: object                    # RegressionModel | SimulatorCostModel
+    model: object
     objective: str = "time"
 
     def __post_init__(self):
-        if self.objective not in OBJECTIVES:
-            raise ValueError(f"unknown objective {self.objective!r}")
-        self.kind                     # validates the model type
+        allowed = {"table": ("time",), "roofline": ("time", "chip_seconds")}
+        group = "roofline" if self.kind in ROOFLINE_KINDS else self.kind
+        if self.objective not in allowed.get(group, tuple(PARAMS_OF)):
+            raise ValueError(f"objective {self.objective!r} does not apply "
+                             f"to a {self.kind} surface")
 
-    @property
+    @functools.cached_property
     def kind(self) -> str:
         m = self.model
         if isinstance(m, RegressionModel):
             return "regression"
         if isinstance(m, SimulatorCostModel):
             return "smj" if m.name == "SMJ" else "bhj"
+        if isinstance(m, CostTable):
+            return "table"
+        if isinstance(m, RooflineCost):
+            return m.kind
         raise TypeError(f"no kernel surface for {type(m).__name__}")
 
-    @property
+    @functools.cached_property
+    def n_dims(self) -> Optional[int]:
+        """The grid dimension count the surface evaluates (None: any)."""
+        if self.kind == "table":
+            return len(self.model.grids)
+        return 4 if self.kind in ROOFLINE_KINDS else 2
+
+    @functools.cached_property
     def n_params(self) -> int:
-        return PARAMS_OF[self.objective]
+        if self.kind == "table":
+            return 1
+        return 2 if self.kind in ROOFLINE_KINDS else PARAMS_OF[self.objective]
 
     @property
     def oom(self) -> bool:
         return self.kind == "bhj" or (self.kind == "regression" and
                                       self.model.oom_frac is not None)
 
+    @property
+    def flags(self) -> int:
+        return self.model.flags() if self.kind in ROOFLINE_KINDS else 0
+
+    @property
+    def batch(self) -> int:
+        """The global batch a train surface's microbatching must divide."""
+        return self.model.shape.global_batch if self.kind == "train" else 0
+
     def consts(self) -> Tuple[float, ...]:
         """The surface's constants in the kernel's order, each a Python
         float folded exactly as the Python expression folds it (e.g.
         ``disk_gbps * 80``) before the kernel rounds it to float32."""
         m = self.model
+        if self.kind in ROOFLINE_KINDS:
+            return m.consts()
+        if self.kind == "table":
+            return ()
         if self.kind == "regression":
             frac = m.oom_frac if m.oom_frac is not None else 0.0
             return tuple(float(v) for v in m.coef) + (float(m.floor),
@@ -377,6 +460,10 @@ class Surface:
                 s.probe_gbps, s.bhj_mem_frac)
 
     def __call__(self, cfgs, params):
+        if self.kind == "table":
+            return self.model(cfgs, params[0])
+        if self.kind in ROOFLINE_KINDS:
+            return self._roofline(cfgs, params)
         ss, ls = params[0], params[1]
         t = self.model.cost_grid(ss, ls, cfgs)
         if self.objective == "time":
@@ -386,3 +473,19 @@ class Surface:
         if self.objective == "money":
             return torch.where(torch.isfinite(t), money, math.inf)
         return torch.where(t <= params[2], money, math.inf)
+
+    def _roofline(self, cfgs, params):
+        """``ShardingPlanner._grid_fn``: the step time (or chip-seconds),
+        inf where the configuration is infeasible, over the chip budget
+        ``params[0]`` or the degraded cluster's ``params[1]``, or (train)
+        where pods * dp * microbatch does not divide the global batch."""
+        g = self.model.grid(cfgs, dtype=_dtype_of(params[0]))
+        cost = g.step_s if self.objective != "chip_seconds" \
+            else g.step_s * g.chips
+        bad = ~g.feasible
+        bad = bad | (g.chips > params[0]) | (g.chips > params[1])
+        if self.kind == "train":
+            a = torch.as_tensor(cfgs)
+            denom = a[:, 0] * a[:, 1] * a[:, 3]
+            bad = bad | ((self.model.shape.global_batch % denom) != 0)
+        return torch.where(bad, math.inf, cost)

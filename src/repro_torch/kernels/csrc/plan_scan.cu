@@ -1,48 +1,63 @@
 // Fused decode + cost + argmin kernels for RAQO resource planning on Hopper.
 //
-// scan_argmin    replaces the reference's Pallas kernels _scan_kernel and
-//                _scan_many_unrolled_kernel (src/repro/kernels/plan_scan.py):
-//                decode flat row ids of the (containers x container-GB) grid
-//                into configurations, evaluate a cost surface for every
-//                request, and keep the first strict minimum per request.
-// neighbor_step  replaces _neighbor_kernel: one step of the ensemble hill
-//                climb (centre and 2*D +-1 neighbours of every start).
+// scan_argmin    replaces the reference's Pallas kernels _scan_kernel (K1),
+//                _scan_many_unrolled_kernel (K2) and _scan_kernel_dyn (K4)
+//                (src/repro/kernels/plan_scan.py): decode flat row ids of a
+//                resource grid of 1..MAX_DIMS dimensions into
+//                configurations, evaluate a cost surface for every request,
+//                and keep the first strict minimum per request.  The rows
+//                are a run-time range [row0, row0 + nrows): the whole grid
+//                for K1/K2, one shard's span for K4, so ONE compiled kernel
+//                serves every shard (the reference passed the shard's block
+//                offset in as a traced scalar for the same reason).
+// neighbor_step  replaces _neighbor_kernel (K3): one step of the ensemble
+//                hill climb (centre and 2*D +-1 neighbours of every start).
 //
 // What bounds them: FP32 ALU and SFU work.  A row reads nothing from device
 // memory (its configuration is decoded from the row id, the request's
 // params sit in shared memory), so the kernels move almost no bytes; each
-// row costs a 32-bit divmod, a handful of IEEE divisions and, for the SMJ
-// surface, one logf.  The first design keeps it simple: no config array or
-// cost vector ever reaches device memory, every thread folds its rows in
-// registers, and one 64-bit atomicMin per block and request combines the
-// blocks.  Making it fast (fewer divisions, per-request hoisting of the
-// request-only terms, a persistent grid) is later work.
+// row costs one 32-bit divmod per dimension after the first, a handful of
+// IEEE divisions and, for the SMJ surface, one logf.  The first design
+// keeps it simple: no config array or cost vector ever reaches device
+// memory, every thread folds its rows in registers, and one 64-bit
+// atomicMin per block and request combines the blocks.  The surface kind
+// and the dimension count are template parameters (one instantiation per
+// pair a surface can take, chosen at launch), so a row's decoded values
+// stay in registers and no row branches on the kind.
 //
 // Order: TPU grids run in order, so the reference carried its (cost, index)
 // accumulator across blocks.  CUDA blocks run in any order, so each thread
 // keeps a strict-< running best over its rows in ascending order, a block
 // reduction takes the lexicographic min of (cost, flat id), and the block
 // result is folded with atomicMin on a key whose high 32 bits are the
-// order-preserving bits of the cost and whose low 32 bits are the flat id:
-// the lowest cost wins and a tie goes to the lowest flat id, which is the
-// first minimum in enumerate_configs order whatever the block order.
+// order-preserving bits of the cost and whose low 32 bits are the GLOBAL
+// flat id: the lowest cost wins and a tie goes to the lowest flat id, which
+// is the first minimum in enumerate_configs order whatever the block order.
+// The same key folds K4's shards (repro_torch/kernels/plan_scan.py).
 //
 // Arithmetic: built with -fmad=false and IEEE division, so every float32
 // operation rounds as the plain PyTorch version's does on the card.  Each
 // surface keeps the operation order of its Python expression
-// (repro_torch/core/cost_model.py).
+// (repro_torch/core/cost_model.py, repro_torch/core/roofline.py); the host
+// folds every resource-independent term to one constant in float64, in
+// Python's order, and the kernel rounds it to float32 where the Python
+// expression meets a tensor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_CONSTS 12
+#define MAX_DIMS 8
+#define MAX_CONSTS 16
 #define MAX_PARAMS 4
 #define MAX_Q_PER_BLOCK 64
 #define ROWS_PER_THREAD 8
 #define SCAN_THREADS 256
 
-enum { SURF_REGRESSION = 0, SURF_SMJ = 1, SURF_BHJ = 2 };
-enum { OBJ_TIME = 0, OBJ_MONEY = 1, OBJ_SLA = 2 };
+enum { SURF_REGRESSION = 0, SURF_SMJ = 1, SURF_BHJ = 2, SURF_TABLE = 3,
+       SURF_TRAIN = 4, SURF_PREFILL = 5, SURF_DECODE = 6 };
+enum { OBJ_TIME = 0, OBJ_MONEY = 1, OBJ_SLA = 2, OBJ_CHIP_SECONDS = 3 };
+// roofline switches (Surface.flags)
+enum { F_REMAT = 1, F_FSDP = 2, F_SEQ_SHARD = 4, F_MOE = 8, F_GATHERED = 16 };
 
 struct Dim {                       // one grid dimension's decode recipe
     int64_t lo, step, size;        // value = lo + step * idx (affine) ...
@@ -51,20 +66,27 @@ struct Dim {                       // one grid dimension's decode recipe
 
 struct Surface {
     int kind, objective, oom, n_params;
+    int flags;                     // roofline switches
+    int64_t batch;                 // roofline train: the global batch
     float c[MAX_CONSTS];           // constants, rounded to float32 once
 };
 
 struct ScanArgs {
-    Dim dim[2];                    // (num_containers, container_gb)
+    Dim dim[MAX_DIMS];             // first dim slowest
+    int n_dims;
     Surface s;
+    const float* table;            // SURF_TABLE: cost by flat row id
     int64_t total;                 // rows of the grid (< 2**32)
+    int64_t row0, nrows;           // the rows this launch scans
     int64_t n_queries;
     int q_per_block;
 };
 
 struct NeighborArgs {
-    Dim dim[2];
+    Dim dim[MAX_DIMS];
+    int n_dims;
     Surface s;
+    const float* table;
     int64_t n_starts;
 };
 
@@ -121,20 +143,140 @@ __device__ __forceinline__ float bhj(const float* c, float ss, float ls,
     return ss > c[4] * cs ? INFINITY : out;
 }
 
-// one configuration's cost for one request's params p
-__device__ __forceinline__ float surface_cost(const Surface& s,
-                                              const float* p,
-                                              float nc, float cs) {
+// the DB surfaces over (nc, cs), wrapped in their objective
+template <int KIND>
+__device__ __forceinline__ float db_cost(const Surface& s, const float* p,
+                                         float nc, float cs) {
     float ss = p[0], ls = p[1];
     float t;
-    if (s.kind == SURF_REGRESSION) t = regression(s.c, s.oom, ss, nc, cs);
-    else if (s.kind == SURF_SMJ) t = smj(s.c, ss, ls, nc, cs);
+    if constexpr (KIND == SURF_REGRESSION)
+        t = regression(s.c, s.oom, ss, nc, cs);
+    else if constexpr (KIND == SURF_SMJ) t = smj(s.c, ss, ls, nc, cs);
     else t = bhj(s.c, ss, ls, nc, cs);
     if (s.objective == OBJ_TIME) return t;
     // monetary_cost: exec_time_s / 3600.0 * cs * nc * 0.05
     float money = t / 3600.0f * cs * nc * 0.05f;
     if (s.objective == OBJ_MONEY) return isfinite(t) ? money : INFINITY;
     return t <= p[2] ? money : INFINITY;             // SLA: p[2] = target
+}
+
+// ---------------------------- roofline surfaces ---------------------------- //
+// repro_torch/core/roofline.py's *_terms_grid in float32, wrapped in
+// ShardingPlanner._grid_fn's objective and masks.  Row values (pods, dp,
+// tp, mb); constants as RooflineCost.consts() lists them.  Each line keeps
+// its Python expression's order; "0.0f + x" is the Python "wire = 0.0;
+// wire = wire + x".
+
+enum { R_N = 0, R_N2, R_HBM, R_FLOPS, R_PEAK, R_BW, R_LINK, R_TOKENS,
+       R_TOPK, R_A, R_B, R_C, R_D, R_E };
+
+// step time (or chip-seconds) of one configuration, inf where masked
+__device__ __forceinline__ float roofline_finish(
+        const Surface& s, const float* p, float chips, float compute_s,
+        float traffic, float wire, float hbm, bool bad) {
+    const float* c = s.c;
+    float memory_s = traffic / c[R_BW];
+    float collective_s = wire / c[R_LINK];
+    float step = compute_s + memory_s + collective_s;
+    float cost = s.objective == OBJ_CHIP_SECONDS ? step * chips : step;
+    bad = bad || !(hbm < c[R_HBM]) || chips > p[0] || chips > p[1];
+    return bad ? INFINITY : cost;
+}
+
+// train_terms_grid; R_A = 12.0 * L, R_B = 6.0 * L, R_C = d_model * 2,
+// R_D = 2 * 2 * blocks * L, R_E = L
+__device__ __forceinline__ float roofline_train(
+        const Surface& s, const float* p, const float* v) {
+    const float* c = s.c;
+    const bool remat = s.flags & F_REMAT, fsdp = s.flags & F_FSDP,
+               seq = s.flags & F_SEQ_SHARD;
+    const float pods = v[0], dp = v[1], tp = v[2], mb = v[3];
+    float chips = pods * dp * tp;
+    float dp_total = pods * dp;
+    float param_shard = c[R_N] / (fsdp ? tp * dp : tp * 1.0f);
+    float weight_read = c[R_N] / tp * 3.0f * 2.0f;
+    float opt_rw = param_shard * 5.0f * 4.0f;
+    float grad_rw = param_shard * 2.0f * 4.0f;
+    float tok_local = c[R_TOKENS] / dp_total;
+    float sp_div = seq ? tok_local / tp : tok_local / 1.0f;
+    float act_rw = c[R_A] * sp_div * c[R_C] +
+                   c[R_B] * tok_local * c[R_C] / tp;
+    float traffic = weight_read + opt_rw + grad_rw + act_rw;
+    traffic = traffic + (mb - 1.0f) * weight_read * 0.5f;
+    float wire = 0.0f + c[R_D] * (tok_local * c[R_C]) * (tp - 1.0f) / tp;
+    if (fsdp) {
+        wire = wire + c[R_N2] / tp * 3.0f * (dp - 1.0f) / dp * mb;
+        wire = wire + c[R_N2] / tp * (dp - 1.0f) / dp;
+    }
+    float red = fsdp ? pods : dp_total;
+    wire = wire + c[R_N2] / (fsdp ? tp * dp : tp * 1.0f) * 2.0f *
+                  (red - 1.0f) / red;
+    if (s.flags & F_MOE)
+        wire = wire + c[R_TOKENS] / chips * 6.0f * c[R_TOPK] * c[R_C];
+    float act_saved = c[R_E] * (tok_local / (seq ? tp * mb : mb)) * c[R_C];
+    if (!remat) act_saved = act_saved * 8.0f;
+    float hbm = param_shard * 16.0f + act_saved + c[R_N] / tp * 2.0f;
+    float compute_s = c[R_FLOPS] / (chips * c[R_PEAK]);
+    // the grid's values are small integers, exact in float32
+    bool bad = s.batch % ((int64_t)pods * (int64_t)dp * (int64_t)mb) != 0;
+    return roofline_finish(s, p, chips, compute_s, traffic, wire, hbm, bad);
+}
+
+// prefill_terms_grid; R_A = 6.0 * L, R_B = d_model, R_C = 4 * L,
+// R_D = the KV/state cache bytes
+__device__ __forceinline__ float roofline_prefill(
+        const Surface& s, const float* p, const float* v) {
+    const float* c = s.c;
+    const float pods = v[0], dp = v[1], tp = v[2];
+    float chips = pods * dp * tp;
+    float dp_total = pods * dp;
+    float tok_local = c[R_TOKENS] / dp_total;
+    float traffic = c[R_N2] / tp + c[R_A] * tok_local * c[R_B] * 2.0f +
+                    c[R_D] / chips;
+    float wire = 0.0f + tok_local * c[R_C] * c[R_B] * 2.0f * (tp - 1.0f) / tp;
+    if (s.flags & F_MOE)
+        wire = wire + c[R_TOKENS] / chips * 3.0f * c[R_TOPK] * c[R_B] * 2.0f;
+    float hbm = c[R_N2] / tp + c[R_D] / chips +
+                tok_local * c[R_B] * 2.0f * 4.0f;
+    float compute_s = c[R_FLOPS] / (chips * c[R_PEAK]);
+    return roofline_finish(s, p, chips, compute_s, traffic, wire, hbm, false);
+}
+
+// decode_terms_grid; R_A = the cache bytes, R_B = 2 * L * B * d_model * 2,
+// R_C = B, R_D = d_model
+__device__ __forceinline__ float roofline_decode(
+        const Surface& s, const float* p, const float* v) {
+    const float* c = s.c;
+    const bool gathered = s.flags & F_GATHERED;
+    const float pods = v[0], dp = v[1], tp = v[2];
+    float chips = pods * dp * tp;
+    float weights = gathered ? c[R_N2] / chips : c[R_N2] / tp;
+    float traffic = weights + c[R_A] / chips;
+    float wire = 0.0f + (tp - 1.0f) * c[R_B] / tp /
+                        max_nan(pods * dp, 1.0f);
+    if (gathered)
+        wire = wire + c[R_N2] / tp * (dp - 1.0f) / max_nan(dp, 1.0f);
+    if (s.flags & F_MOE)
+        wire = wire + c[R_C] / chips * 6.0f * c[R_TOPK] * c[R_D] * 2.0f;
+    float hbm = weights + c[R_A] / chips;
+    float compute_s = c[R_FLOPS] / (chips * c[R_PEAK]);
+    return roofline_finish(s, p, chips, compute_s, traffic, wire, hbm, false);
+}
+
+// one configuration's cost for one request's params p: v holds its ND
+// grid values, flat its row id (for the table surface)
+template <int KIND, int ND>
+__device__ __forceinline__ float surface_cost(const Surface& s,
+                                              const float* table,
+                                              const float* p,
+                                              const float* v,
+                                              uint32_t flat) {
+    if constexpr (KIND == SURF_TABLE) return table[flat] + p[0];
+    else if constexpr (KIND == SURF_TRAIN) return roofline_train(s, p, v);
+    else if constexpr (KIND == SURF_PREFILL)
+        return roofline_prefill(s, p, v);
+    else if constexpr (KIND == SURF_DECODE) return roofline_decode(s, p, v);
+    else return db_cost<KIND>(s, p, v[0], v[1]);
 }
 
 // order-preserving unsigned bits of a float (-0.0 folded into +0.0)
@@ -149,6 +291,7 @@ __device__ __forceinline__ void take_min(float& c, uint32_t& f,
     if (oc < c || (oc == c && of < f)) { c = oc; f = of; }
 }
 
+template <int KIND, int ND>
 __global__ void __launch_bounds__(SCAN_THREADS)
 scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
                    unsigned long long* __restrict__ out) {
@@ -164,24 +307,34 @@ scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
         sp[i] = params[q0 * P + i];
 
     // decode this thread's rows once: ascending flat ids, strided by the
-    // block so a warp's rows are neighbours
-    const int64_t tile = (int64_t)blockIdx.x * SCAN_THREADS * ROWS_PER_THREAD;
-    float nc[ROWS_PER_THREAD], cs[ROWS_PER_THREAD];
+    // block so a warp's rows are neighbours; the last tile of a span (and
+    // of the grid) is ragged
+    int64_t end = a.row0 + a.nrows;
+    if (end > a.total) end = a.total;
+    const int64_t tile = a.row0 +
+        (int64_t)blockIdx.x * SCAN_THREADS * ROWS_PER_THREAD;
+    float v[ROWS_PER_THREAD][ND];
     uint32_t flat[ROWS_PER_THREAD];
     int n_rows = 0;
 #pragma unroll
     for (int k = 0; k < ROWS_PER_THREAD; ++k) {
         int64_t r = tile + (int64_t)k * SCAN_THREADS + threadIdx.x;
         flat[k] = (uint32_t)r;
-        if (r < a.total) {
-            // row-major, first dim slowest: 32-bit divmod (total < 2**32)
-            uint32_t s1 = (uint32_t)a.dim[1].size;
-            uint32_t i0 = (uint32_t)r / s1, i1 = (uint32_t)r - i0 * s1;
-            nc[k] = value_of(a.dim[0], i0);
-            cs[k] = value_of(a.dim[1], i1);
+        if (r < end) {
+            // row-major, first dim slowest: 32-bit divmods (total < 2**32)
+            uint32_t rem = (uint32_t)r;
+#pragma unroll
+            for (int d = ND - 1; d > 0; --d) {
+                uint32_t sz = (uint32_t)a.dim[d].size;
+                uint32_t q = rem / sz;
+                v[k][d] = value_of(a.dim[d], rem - q * sz);
+                rem = q;
+            }
+            v[k][0] = value_of(a.dim[0], rem);
             n_rows = k + 1;
         } else {
-            nc[k] = cs[k] = 0.0f;
+#pragma unroll
+            for (int d = 0; d < ND; ++d) v[k][d] = 0.0f;
         }
     }
     __syncthreads();
@@ -194,7 +347,8 @@ scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
 #pragma unroll
         for (int k = 0; k < ROWS_PER_THREAD; ++k) {
             if (k < n_rows) {
-                float c = surface_cost(a.s, p, nc[k], cs[k]);
+                float c = surface_cost<KIND, ND>(a.s, a.table, p, v[k],
+                                                 flat[k]);
                 if (c < best) { best = c; best_f = flat[k]; }  // strict <
             }
         }
@@ -223,6 +377,7 @@ scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
     }
 }
 
+template <int KIND, int ND>
 __global__ void neighbor_step_kernel(NeighborArgs a,
                                      const int64_t* __restrict__ cur,
                                      const float* __restrict__ params,
@@ -233,38 +388,109 @@ __global__ void neighbor_step_kernel(NeighborArgs a,
     if (s >= a.n_starts) return;
     float p[MAX_PARAMS];
     for (int k = 0; k < a.s.n_params; ++k) p[k] = params[k];
-    int64_t idx[2] = {cur[2 * s], cur[2 * s + 1]};
-    center[s] = surface_cost(a.s, p, value_of(a.dim[0], idx[0]),
-                             value_of(a.dim[1], idx[1]));
+    int64_t idx[ND];
+    float v[ND];
+    uint32_t flat = 0;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+        idx[d] = cur[ND * s + d];
+        v[d] = value_of(a.dim[d], idx[d]);
+        flat = flat * (uint32_t)a.dim[d].size + (uint32_t)idx[d];
+    }
+    center[s] = surface_cost<KIND, ND>(a.s, a.table, p, v, flat);
     // slots in _neighbor_offsets order: (dim 0, -1), (dim 0, +1),
-    // (dim 1, -1), (dim 1, +1); first strict minimum wins, off-grid = inf
+    // (dim 1, -1), ...; first strict minimum wins, off-grid = inf
     float best = INFINITY;
     int32_t slot = 0;
-    for (int j = 0; j < 4; ++j) {
-        int d = j >> 1;
-        int64_t n[2] = {idx[0], idx[1]};
-        n[d] += (j & 1) ? 1 : -1;
+#pragma unroll
+    for (int j = 0; j < 2 * ND; ++j) {
+        const int d = j >> 1;
+        const int64_t n = idx[d] + ((j & 1) ? 1 : -1);
         float c = INFINITY;
-        if (n[d] >= 0 && n[d] < a.dim[d].size)
-            c = surface_cost(a.s, p, value_of(a.dim[0], n[0]),
-                             value_of(a.dim[1], n[1]));
+        if (n >= 0 && n < a.dim[d].size) {
+            float nv[ND];
+            uint32_t nflat = 0;
+#pragma unroll
+            for (int e = 0; e < ND; ++e) {
+                const int64_t i = e == d ? n : idx[e];
+                nv[e] = e == d ? value_of(a.dim[e], n) : v[e];
+                nflat = nflat * (uint32_t)a.dim[e].size + (uint32_t)i;
+            }
+            c = surface_cost<KIND, ND>(a.s, a.table, p, nv, nflat);
+        }
         if (c < best) { best = c; slot = j; }
     }
     best_cost[s] = best;
     best_slot[s] = slot;
 }
 
+// the (kind, dimension count) pairs a surface can take: the DB surfaces on
+// 2-D grids, the rooflines on 4-D ones, a table on any; F<KIND, ND>::run
+// for the pair, or false for any other
+template <template <int, int> class F, typename... A>
+static bool dispatch(int kind, int nd, A... args) {
+    if (kind == SURF_TABLE) {
+        switch (nd) {
+            case 1: F<SURF_TABLE, 1>::run(args...); return true;
+            case 2: F<SURF_TABLE, 2>::run(args...); return true;
+            case 3: F<SURF_TABLE, 3>::run(args...); return true;
+            case 4: F<SURF_TABLE, 4>::run(args...); return true;
+            case 5: F<SURF_TABLE, 5>::run(args...); return true;
+            case 6: F<SURF_TABLE, 6>::run(args...); return true;
+            case 7: F<SURF_TABLE, 7>::run(args...); return true;
+            case 8: F<SURF_TABLE, 8>::run(args...); return true;
+        }
+    } else if (nd == 2) {
+        switch (kind) {
+            case SURF_REGRESSION: F<SURF_REGRESSION, 2>::run(args...);
+                return true;
+            case SURF_SMJ: F<SURF_SMJ, 2>::run(args...); return true;
+            case SURF_BHJ: F<SURF_BHJ, 2>::run(args...); return true;
+        }
+    } else if (nd == 4) {
+        switch (kind) {
+            case SURF_TRAIN: F<SURF_TRAIN, 4>::run(args...); return true;
+            case SURF_PREFILL: F<SURF_PREFILL, 4>::run(args...); return true;
+            case SURF_DECODE: F<SURF_DECODE, 4>::run(args...); return true;
+        }
+    }
+    return false;
+}
+
+template <int KIND, int ND>
+struct LaunchScan {
+    static void run(dim3 grid, cudaStream_t st, const ScanArgs* a,
+                    const float* params, unsigned long long* out) {
+        scan_argmin_kernel<KIND, ND><<<grid, SCAN_THREADS, 0, st>>>(
+            *a, params, out);
+    }
+};
+
+template <int KIND, int ND>
+struct LaunchNeighbor {
+    static void run(unsigned blocks, unsigned threads, cudaStream_t st,
+                    const NeighborArgs* a, const int64_t* cur,
+                    const float* params, float* center, float* best,
+                    int32_t* slot) {
+        neighbor_step_kernel<KIND, ND><<<blocks, threads, 0, st>>>(
+            *a, cur, params, center, best, slot);
+    }
+};
+
 extern "C" {
 
-// out: (n_queries,) uint64 keys, preset to all ones by the caller
+// out: (n_queries,) uint64 keys, preset to all ones by the caller; scans
+// rows [row0, row0 + nrows) of the grid, nrows > 0
 int scan_argmin(const ScanArgs* args, const void* params, void* out,
                 void* stream) {
     const ScanArgs& a = *args;
     const int64_t rows = (int64_t)SCAN_THREADS * ROWS_PER_THREAD;
-    dim3 grid((unsigned)((a.total + rows - 1) / rows),
+    dim3 grid((unsigned)((a.nrows + rows - 1) / rows),
               (unsigned)((a.n_queries + a.q_per_block - 1) / a.q_per_block));
-    scan_argmin_kernel<<<grid, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-        a, (const float*)params, (unsigned long long*)out);
+    if (!dispatch<LaunchScan>(a.s.kind, a.n_dims, grid,
+                              (cudaStream_t)stream, args,
+                              (const float*)params, (unsigned long long*)out))
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }
 
@@ -272,11 +498,13 @@ int neighbor_step(const NeighborArgs* args, const void* cur,
                   const void* params, void* center, void* best_cost,
                   void* best_slot, void* stream) {
     const NeighborArgs& a = *args;
-    const int threads = 128;
+    const unsigned threads = 128;
     unsigned blocks = (unsigned)((a.n_starts + threads - 1) / threads);
-    neighbor_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        a, (const int64_t*)cur, (const float*)params, (float*)center,
-        (float*)best_cost, (int32_t*)best_slot);
+    if (!dispatch<LaunchNeighbor>(
+            a.s.kind, a.n_dims, blocks, threads, (cudaStream_t)stream, args,
+            (const int64_t*)cur, (const float*)params, (float*)center,
+            (float*)best_cost, (int32_t*)best_slot))
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }
 

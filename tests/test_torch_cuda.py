@@ -225,3 +225,79 @@ def test_streaming_service_through_kernels_matches_solo(dev):
         solo = raqo().joint(t.tables)
         assert (solo.plan.describe(), solo.exec_time, solo.money) == \
             (t.joint.plan.describe(), t.joint.exec_time, t.joint.money)
+
+
+ND_GRIDS = [ClusterConditions(dims=(
+    ResourceDim("a", 1, 301, 3), ResourceDim("b", 1, 9),
+    ResourceDim("c", 1, 8, values=(1, 2, 4, 8)))),
+    ClusterConditions(dims=tuple(ResourceDim(f"d{i}", 0, 3)
+                                 for i in range(ps.MAX_DIMS)))]
+
+
+def test_nd_table_kernels_bit_equal_plain(dev):
+    """K1/K2 and K3 on 3-D and MAX_DIMS-D grids over a cost table."""
+    rng = np.random.default_rng(3)
+    for cluster in ND_GRIDS:
+        shape = tuple(len(d.grid()) for d in cluster.dims)
+        table = rng.integers(0, 1 << 20, size=shape).astype(np.float64)
+        table[rng.random(shape) < 0.3] = np.inf
+        s = cm.Surface(cm.CostTable.of(cluster, table))
+        dims = ps.grid_dims(cluster, dev)
+        p = torch.tensor(rng.integers(0, 9, (70, 1)), dtype=torch.float32,
+                         device=dev)
+        want = ps.scan_argmin_ref(s, dims, p)
+        for qb in (1, ps.UNROLL_Q):
+            got = ps.scan_argmin(s, dims, p, qb)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        cur = torch.tensor(np.stack([rng.integers(0, n, 40) for n in shape],
+                                    1), device=dev)
+        got = ps.neighbor_step(s, dims, cur, p[:1])
+        want = ps.neighbor_step_ref(s, dims, cur, p[:1])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 7])
+def test_sharded_scan_bit_equal_single_launch_and_plain(dev, D):
+    """K4 over D logical shards of one card (and real GPUs when there are
+    enough): ties across every shard boundary and a ragged last shard."""
+    rng = np.random.default_rng(D)
+    cluster = ClusterConditions(dims=(ResourceDim("nc", 1, 3197),
+                                      ResourceDim("cs", 1, 8)))
+    dims = ps.grid_dims(cluster, dev)
+    ties = cm.Surface(cm.RegressionModel(
+        "ties", np.array([2000.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0])), "time")
+    sim = cm.Surface(cm.simulator_cost_models()["SMJ"], "time")
+    ss = rng.uniform(0.01, 1.5, 33)
+    p = torch.tensor(np.stack([ss, ss + rng.uniform(0, 50, 33)], 1),
+                     dtype=torch.float32, device=dev)
+    shard_sets = [[dev] * D]
+    if torch.cuda.device_count() >= D:
+        shard_sets.append([torch.device("cuda", i) for i in range(D)])
+    for s in (ties, sim):
+        for Q in (1, 33):
+            one = ps.scan_argmin(s, dims, p[:Q], min(Q, ps.UNROLL_Q))
+            plain = ps.scan_argmin_sharded_ref(s, dims, p[:Q], D)
+            for devices in shard_sets:
+                before = ps.scan_argmin_sharded.launches
+                got = ps.scan_argmin_sharded(s, dims, p[:Q], devices,
+                                             min(Q, ps.UNROLL_Q))
+                assert ps.scan_argmin_sharded.launches - before == \
+                    sum(1 for _, n in ps.shard_spans(3197 * 8, D) if n)
+                assert all(torch.equal(a.to(dev), b) and torch.equal(b, c)
+                           for a, b, c in zip(got, one, plain))
+
+
+def test_sharding_planner_on_kernels_matches_torch(dev):
+    from repro_torch.core.sharding_planner import ShardingPlanner
+    from repro_torch.configs import get_shape
+    for arch in ("smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b"):
+        for sname in ("train_4k", "prefill_32k", "decode_32k"):
+            for mode in ("hillclimb", "ensemble", "brute"):
+                got = ShardingPlanner(resource_planning=mode).joint(
+                    get_config(arch), get_shape(sname))
+                want = ShardingPlanner(resource_planning=mode,
+                                       backend="torch").joint(
+                    get_config(arch), get_shape(sname))
+                assert (got.resources, got.plan_choice,
+                        got.objective_value) == \
+                    (want.resources, want.plan_choice, want.objective_value)

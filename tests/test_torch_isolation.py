@@ -61,7 +61,8 @@ def test_port_import_loads_no_jax():
             "repro_torch.runtime.steps, repro_torch.launch.serve, "
             "repro_torch.kernels.hash_join, repro_torch.kernels.merge_join, "
             "repro_torch.service, repro_torch.service.admission, "
-            "repro_torch.service.traces; "
+            "repro_torch.service.traces, repro_torch.launch.mesh, "
+            "repro_torch.core.roofline, repro_torch.core.sharding_planner; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -110,6 +111,18 @@ def test_entry_points_raise_without_gpu(no_gpu):
                  resource_planning="batched",
                  backend="torch").plan_queries(queries)
     assert all(jp.plan is not None for jp in plans)
+
+
+def test_sharding_planner_raises_without_gpu(no_gpu):
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core.sharding_planner import ShardingPlanner
+    cfg, shape = get_config("smollm-360m"), get_shape("train_4k")
+    for call in (lambda p: p.joint(cfg, shape),
+                 lambda p: p.replan(cfg, shape, lost_chips=128)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call(ShardingPlanner())
+    # asking for the CPU explicitly works
+    assert ShardingPlanner(backend="torch").joint(cfg, shape).resources
 
 
 def test_streaming_service_raises_without_gpu(no_gpu):
