@@ -17,18 +17,27 @@ Phases (any failure exits nonzero; there is no CPU path):
              scan_argmin at both launch geometries over every shipped
              surface x objective, the 10M-row scaled_cluster(100_000, 100)
              grid and a ragged grid, Q in {1, 8, 65}, an all-OOM case;
-             neighbor_step with 26 starts.  Flat ids equal, costs bit-equal;
+             neighbor_step with 26 starts; ensemble_climb (Q requests x 26
+             starts in one launch) over every surface on the ragged grid
+             (max_iters 200), on the 10M-row grid (Q=2, max_iters 2000: its
+             plain climb takes ~1e5 host steps a request to converge there),
+             to convergence on the ensemble grid and on a 3-D table.  Flat
+             ids and indices equal, costs bit-equal;
 4. main    — RAQO.plan_queries on the §VII-C scale workload (8 random
              5-relation queries, simulator models, 100K containers x 100 GB)
-             through the scan kernel ("batched") and the neighbor-step kernel
-             ("ensemble", on 1K containers x 100 GB: its host-driven climb
-             takes one launch and one sync per grid step, ~1e5 per request
-             at 100K containers), then the four TPC-H queries (SF 100, the
-             paper's published models, 100K x 100); every plan must equal
-             the plain version's (TorchPlanBackend float32 on the card) and
-             both kernels must have launched;
+             through the scan kernel ("batched") and the ensemble-climb
+             kernel ("ensemble", on 1K containers x 100 GB, where the plain
+             version's host climb still runs), then the four TPC-H queries
+             (SF 100, the paper's published models, 100K x 100); every plan
+             must equal the plain version's (TorchPlanBackend float32 on the
+             card), both kernels must have launched and neighbor_step must
+             not have; then "ensemble" at 100K x 100 through the kernel,
+             timed (its plans are not compared: the plain climb would take
+             ~1e5 host steps a request);
 5. times   — each kernel at the main path's largest wave shape against its
-             plain version and its bound (bytes or FP32 operations);
+             plain version and its bound (bytes or FP32 operations); the
+             climb at the largest climb group, with its longest chain's
+             iterations and the time of one iteration;
 6. model kernels against plain, on the card — flash_attention at
              smollm-360m's heads (H=15, KV=5, hd=64, B=4, S in {16, 100,
              512}, float32 and bfloat16, plus window+softcap and
@@ -44,10 +53,13 @@ Phases (any failure exits nonzero; there is no CPU path):
              the configs' own bfloat16 through the kernels (tok/s, steps,
              launches; flash_attention must launch on smollm-360m and
              selective_scan on falcon-mamba-7b);
-8. times   — flash_attention at B=1, S=4096, smollm's heads, bfloat16
-             against attention_ref and torch's scaled_dot_product_attention
-             (timed here only; the port never calls it), selective_scan at
-             B=1, S=4096, D=8192, N=16 against selective_scan_ref;
+8. times   — flash_attention at B=1, S=4096 and at the serve shape (B=4,
+             S=256), smollm's heads, bfloat16, at both tensor-core block
+             geometries, against attention_ref and torch's
+             scaled_dot_product_attention (timed here only; the port never
+             calls it); the built library's SASS must show HGMMA in the
+             tensor-core kernel; selective_scan at B=1, S=4096, D=8192,
+             N=16 against selective_scan_ref;
 9. joins   — ops.bhj_join and ops.smj_join at TPC-H SF 100 (row counts from
              tpch_schema(100)), data made on the card from a seeded
              generator: lineitem x supplier on suppkey (BHJ, 600M probes
@@ -77,7 +89,8 @@ Phases (any failure exits nonzero; there is no CPU path):
              more than one is visible; K4 times at D in {1, 4, 7};
 12. sharding — every roofline surface (10 archs x train / prefill /
              decode x plan choices x both objectives x 3 param sets) in the
-             kernels bit-equal to its plain version, row by row; then
+             kernels bit-equal to its plain version, row by row, and its
+             ensemble climb from every grid point; then
              ShardingPlanner().joint on the default CUDA backend for all ten
              archs at full width x 3 shapes x hillclimb / ensemble / brute,
              for_budget(64) and replan(lost_chips=128), every decision equal
@@ -113,10 +126,12 @@ FOLD_OPS = 1
 
 QUERIES = 8                    # random 5-relation queries (seeds 0..7)
 ENSEMBLE_CONTAINERS = 1_000    # the ensemble pass's grid: 1K x 100 GB
+CLIMB_STARTS = 26              # the planners' 2 corners + 24 random starts
 
 ATTN_HEADS = (15, 5, 64)       # smollm-360m: H, KV, hd
 SCAN_WIDTH = (8192, 16)        # falcon-mamba-7b: d_inner, N
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SERVE_ATTN = (4, 256)          # the serve phase's prefill: 4 slots x 256
 SCAN_TOL = 1e-4
 LOGIT_TOL = 1e-3               # float32 prefill logits, kernels vs plain
 SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
@@ -235,19 +250,29 @@ def model_kernel_parity(torch, dev):
               (100, "float32", dict(window=40, attn_softcap=50.0)),
               (512, "bfloat16", dict(causal=False)),
               (100, "float32", dict(causal=False))]
-    for S, dt, opts in cases:
+    cases = [(4, S, H, KV, hd, dt, o) for S, dt, o in cases]
+    # the dense 67B's head dim (64 heads, 8 KV heads, hd 128), cut to 8:2
+    cases += [(2, S, 8, 2, 128, "bfloat16", o) for S, o in (
+        (200, {}), (300, dict(window=70, attn_softcap=20.0)),
+        (130, dict(causal=False)))]
+    for B, S, H, KV, hd, dt, opts in cases:
         dtype = getattr(torch, dt)
-        q = torch.randn((4, S, H, hd), generator=g, device=dev).to(dtype)
-        k = torch.randn((4, S, KV, hd), generator=g, device=dev).to(dtype)
-        v = torch.randn((4, S, KV, hd), generator=g, device=dev).to(dtype)
-        got = fa.flash_attention(q, k, v, **opts)
+        q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
         want = ref.attention_ref(q, k, v, **opts)
-        torch.cuda.synchronize()
-        e, ok = allclose_err(got, want, ATTN_TOL[dt])
-        check(ok and got.dtype == dtype and got.shape == q.shape,
-              f"flash_attention S={S} {dt} {opts}: max_abs_err {e} above "
-              f"{ATTN_TOL[dt]}")
-        note("flash_attention", dt, e)
+        # the rule's block geometry, then each tensor-core one
+        geos = [None] + list(fa.BLOCK_Q) if dtype == torch.bfloat16 and \
+            hd in fa.TC_HEAD_DIMS else [None]
+        for bq in geos:
+            got = fa.flash_attention_blocks(q, k, v, bq, **opts)
+            torch.cuda.synchronize()
+            e, ok = allclose_err(got, want, ATTN_TOL[dt])
+            check(ok and got.dtype == dtype and got.shape == q.shape,
+                  f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} {dt} "
+                  f"{opts} block_q={bq}: max_abs_err {e} above "
+                  f"{ATTN_TOL[dt]}")
+            note("flash_attention", dt, e)
     D, N = SCAN_WIDTH
     for S in (16, 100, 512):
         for dt in ("float32", "bfloat16"):
@@ -353,21 +378,54 @@ def model_times(torch, dev, err, served):
         err["flash_attention"]["bfloat16"], e)
     fa_ms = time_ms(lambda: fa.flash_attention(q, k, v), 20, torch)
     fa_plain = time_ms(lambda: ref.attention_ref(q, k, v), 3, torch)
-    # the yardstick: torch's fused attention, KV heads repeated beforehand
-    G = H // KV
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    fa_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20, torch)
     # unmasked (q, k) pairs x (QK^T + PV) x 2 FLOPs per multiply-add
     pairs = S * (S + 1) // 2
     fa_bound, fa_by = bound_ms(2 * (2 * S * H * hd + 2 * S * KV * hd),
                                4 * hd * pairs * H, H100_BF16_FLOPS)
-    print(f"time flash_attention B=1 S={S} H={H} KV={KV} hd={hd} bf16 "
-          f"causal: {fa_ms:.4f} ms; plain {fa_plain:.3f} ms; "
-          f"scaled_dot_product_attention {fa_lib:.4f} ms; bound "
-          f"{fa_bound:.4f} ms ({fa_by})", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fa_lib = None
+    for B, Sx in ((1, S), SERVE_ATTN):
+        if B == 1:
+            qx, kx, vx = q, k, v
+        else:
+            qx, kx, vx = (torch.randn((B, Sx, n, hd), generator=g,
+                                      device=dev).to(bf16)
+                          for n in (H, KV, KV))
+        geo = {bq: time_ms(lambda bq=bq: fa.flash_attention_blocks(
+            qx, kx, vx, bq), 20, torch) for bq in fa.BLOCK_Q}
+        # the yardstick: torch's fused attention, KV heads repeated first
+        G = H // KV
+        qt = qx.transpose(1, 2).contiguous()
+        kt = kx.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        vt = vx.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20,
+                         torch)
+        if B == 1:
+            fa_lib = lib_ms
+        rule = fa.DEFAULT_BLOCK_Q
+        print(f"time flash_attention B={B} S={Sx} H={H} KV={KV} hd={hd} "
+              f"bf16 causal (tensor cores): " + "; ".join(
+                  f"block_q={bq} {ms:.4f} ms{' (rule)' if bq == rule else ''}"
+                  for bq, ms in geo.items()) +
+              f"; scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+    print(f"time flash_attention B=1 S={S} (rule): {fa_ms:.4f} ms; plain "
+          f"{fa_plain:.3f} ms; scaled_dot_product_attention {fa_lib:.4f} "
+          f"ms; bound {fa_bound:.4f} ms ({fa_by})", flush=True)
+    # the tensor-core kernel must really issue wgmma (SASS HGMMA)
+    from repro_torch.kernels import build
+    sass = subprocess.run(
+        ["cuobjdump", "--dump-sass", str(build.library_path(
+            "flash_attention"))], capture_output=True, text=True,
+        check=True).stdout
+    funcs = {b.split("\n", 1)[0].strip(): b.count("HGMMA")
+             for b in sass.split("Function : ")[1:]}
+    tc = {f: n for f, n in funcs.items() if "flash_attention_tc" in f}
+    check(len(tc) == 2 * len(fa.BLOCK_Q) and all(tc.values()),
+          f"the bfloat16 tensor-core kernels show no HGMMA in SASS: {tc}")
+    print(f"SASS: HGMMA in every tensor-core instantiation "
+          f"{sorted(tc.values())}, none in the CUDA-core kernel "
+          f"({sum(n for f, n in funcs.items() if f not in tc)})",
+          flush=True)
     D, N = SCAN_WIDTH
     u = torch.randn((1, S, D), generator=g, device=dev).to(bf16)
     dtv = torch.nn.functional.softplus(
@@ -877,9 +935,11 @@ def sharding_phase(torch, dev):
                         p = torch.tensor([pr], dtype=torch.float32,
                                          device=dev)
                         got = ps.neighbor_step(s, dims, cur, p) + \
-                            ps.scan_argmin(s, dims, p)
+                            ps.scan_argmin(s, dims, p) + \
+                            ps.ensemble_climb(s, dims, cur, p, 100_000)
                         want = ps.neighbor_step_ref(s, dims, cur, p) + \
-                            ps.scan_argmin_ref(s, dims, p)
+                            ps.scan_argmin_ref(s, dims, p) + \
+                            ps.ensemble_climb_ref(s, dims, cur, p, 100_000)
                         torch.cuda.synchronize()
                         check(all(torch.equal(a, b)
                                   for a, b in zip(got, want)),
@@ -889,7 +949,8 @@ def sharding_phase(torch, dev):
                               f"{want[3].tolist()} {want[4].tolist()}")
                         n += 1
     print(f"roofline surfaces: {n} kernel/plain cases bit-equal (every "
-          f"grid row's cost and the argmin)", flush=True)
+          f"grid row's cost, the argmin and the climb from every row)",
+          flush=True)
 
     # the main path: joint / for_budget / replan on the default backend
     ps.reset_launch_counts()
@@ -917,8 +978,10 @@ def sharding_phase(torch, dev):
             n_dec += 1
     torch.cuda.synchronize()
     launches = {"scan_argmin": ps.scan_argmin.launches,
+                "ensemble_climb": ps.ensemble_climb.launches,
                 "neighbor_step": ps.neighbor_step.launches}
-    check(launches["scan_argmin"] > 0 and launches["neighbor_step"] > 0,
+    check(launches["scan_argmin"] > 0 and launches["ensemble_climb"] > 0 and
+          launches["neighbor_step"] == 0,
           f"the sharding planner did not go through the kernels: {launches}")
     print(f"sharding planner (main path): {n_dec} decisions of "
           f"{len(ARCH_IDS)} archs x {len(shapes)} shapes x {PLAN_MODES} "
@@ -1043,7 +1106,8 @@ def main() -> int:
                  ResourceDim("num_containers", 1, 29_998, 7),
                  ResourceDim("container_gb", 1, 64,
                              values=(1, 2, 3, 5, 8, 13, 21, 34, 55, 64))))}
-    max_err = {"scan_argmin": 0.0, "neighbor_step": 0.0}
+    max_err = {"scan_argmin": 0.0, "neighbor_step": 0.0,
+               "ensemble_climb": 0.0}
     n_cases = 0
 
     def params_for(surface, Q):
@@ -1073,7 +1137,31 @@ def main() -> int:
             n_cases += 1
         return rc, rf
 
+    def climb_starts(dims, S=CLIMB_STARTS):
+        sizes = [d.size for d in dims]
+        cur = np.stack([rng.integers(0, s, S) for s in sizes], 1)
+        cur[0], cur[1] = 0, np.asarray(sizes) - 1      # the two corners
+        return torch.tensor(cur, device=dev)
+
+    def same_climb(name, surface, dims, starts, p, max_iters):
+        nonlocal n_cases
+        got = ps.ensemble_climb(surface, dims, starts, p, max_iters)
+        want = ps.ensemble_climb_ref(surface, dims, starts, p, max_iters)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(got[1]) & torch.isfinite(want[1])
+        if fin.any():
+            max_err["ensemble_climb"] = max(
+                max_err["ensemble_climb"],
+                float((got[1][fin] - want[1][fin]).abs().max()))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"ensemble_climb {name} Q={p.shape[0]} max_iters={max_iters}: "
+              f"kernel {got[1].tolist()} {got[2].tolist()} vs plain "
+              f"{want[1].tolist()} {want[2].tolist()}")
+        n_cases += 1
+        return int(got[2].max())
+
     t0 = time.perf_counter()
+    longest = {}
     for gname, cluster in grids.items():
         dims = ps.grid_dims(cluster, dev)
         for sname, surface in surfaces:
@@ -1098,6 +1186,35 @@ def main() -> int:
                   f"neighbor_step {sname} {gname}: kernel {got} vs plain "
                   f"{ref}")
             n_cases += 1
+            # the 10M-row grid's plain climb takes ~1e5 steps a request:
+            # two surfaces there, cut at 2000 iterations
+            if gname == "ragged":
+                longest[f"{sname} {gname}"] = same_climb(
+                    f"{sname} {gname}", surface, dims, climb_starts(dims),
+                    params_for(surface, 3), 200)
+            elif sname in ("sim/SMJ/time", "paper/BHJ/money"):
+                longest[f"{sname} {gname}"] = same_climb(
+                    f"{sname} {gname}", surface, dims, climb_starts(dims),
+                    params_for(surface, 2), 2_000)
+    ens_dims = ps.grid_dims(scaled_cluster(ENSEMBLE_CONTAINERS, 100), dev)
+    for sname in ("sim/SMJ/time", "sim/BHJ/money"):
+        surface = dict(surfaces)[sname]
+        longest[f"{sname} ensemble grid"] = same_climb(
+            f"{sname} ensemble grid", surface, ens_dims,
+            climb_starts(ens_dims), params_for(surface, 2), 100_000)
+    # a table on a 3-D grid: three cost levels, so ties everywhere
+    cube = ClusterConditions(dims=(
+        ResourceDim("a", 1, 7), ResourceDim("b", 2, 20, 3),
+        ResourceDim("c", 1, 8, values=(1, 2, 4, 8))))
+    levels = rng.integers(0, 3, size=(7, 7, 4)).astype(np.float64)
+    levels[rng.random(levels.shape) < 0.2] = np.inf
+    table = cm.Surface(cm.CostTable.of(cube, levels))
+    cube_dims = ps.grid_dims(cube, dev)
+    for max_iters in (1, 2, 100_000):
+        same_climb(f"table 3-D max_iters {max_iters}", table, cube_dims,
+                   climb_starts(cube_dims, 9),
+                   torch.tensor([[3.0], [0.0]], device=dev), max_iters)
+    print(f"ensemble_climb: longest chains {longest}", flush=True)
     # all-OOM: the hash side exceeds 70% of every container size
     oom = cm.Surface(models["sim"]["BHJ"], "time")
     dims = ps.grid_dims(grids["scaled_100000x100"], dev)
@@ -1142,7 +1259,8 @@ def main() -> int:
     ps.reset_launch_counts()
     got = plan_all(cuda_be)
     launches = {"scan_argmin": ps.scan_argmin.launches,
-                "neighbor_step": ps.neighbor_step.launches}
+                "neighbor_step": ps.neighbor_step.launches,
+                "ensemble_climb": ps.ensemble_climb.launches}
     plain = plan_all(TorchPlanBackend(device="cuda", dtype=torch.float32))
     for name, kw, qs in runs:
         plans, secs, broker = got[name]
@@ -1160,9 +1278,36 @@ def main() -> int:
               f"requests {c['requests']}, max wave {c['max_wave']}, "
               f"float64 re-searches {broker.f64_researches}, plans equal "
               f"to plain", flush=True)
-    print(f"main launches: {launches}", flush=True)
-    check(launches["scan_argmin"] > 0 and launches["neighbor_step"] > 0,
+    print(f"main launches: {launches} (neighbor_step: the ensemble climb "
+          f"no longer steps from the host)", flush=True)
+    check(launches["scan_argmin"] > 0 and launches["ensemble_climb"] > 0,
           f"a kernel of the main path never launched: {launches}")
+    check(launches["neighbor_step"] == 0,
+          f"the ensemble climb still stepped from the host: {launches}")
+
+    # the §VII-C grid through the climb kernel: timed, not compared (the
+    # plain climb would take ~1e5 host steps a request there)
+    big_be = ps.CudaPlanBackend()
+    broker = PlanBroker(big_be)
+    ps.reset_launch_counts()
+    t = time.perf_counter()
+    plans = RAQO(schema=schema, models=cm.simulator_cost_models(),
+                 cluster=big, resource_planning="ensemble", backend=big_be,
+                 broker=broker).plan_queries(queries)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t
+    check(len(plans) == len(queries) and all(
+        jp.plan is not None and math.isfinite(jp.exec_time)
+        for jp in plans), "ensemble at 100K containers: missing plan")
+    check(ps.ensemble_climb.launches > 0 and ps.neighbor_step.launches == 0,
+          "ensemble at 100K containers did not climb in the kernel")
+    c = broker.counters_snapshot()
+    print(f"main ensemble at {big.grid_size()} configs (kernel only, plans "
+          f"not compared with plain): plan_queries {big_s:.3f} s, waves "
+          f"{c['waves']}, requests {c['requests']}, max wave "
+          f"{c['max_wave']}, ensemble_climb launches "
+          f"{ps.ensemble_climb.launches}, largest climb group "
+          f"{big_be.max_climb_stack}", flush=True)
 
     # 5. times at the main path's largest wave shape ----------------------- #
     Q = max(1, cuda_be.max_stack)
@@ -1185,7 +1330,6 @@ def main() -> int:
               f"{ms:.4f} ms; plain {scan_plain:.3f} ms; bound "
               f"{scan_bound:.4f} ms ({scan_by})", flush=True)
     S = 26
-    ens_dims = ps.grid_dims(scaled_cluster(ENSEMBLE_CONTAINERS, 100), dev)
     cur = torch.tensor(np.stack([rng.integers(0, d.size, S)
                                  for d in ens_dims], 1), device=dev)
     p1 = params_for(surface, 1)
@@ -1201,6 +1345,36 @@ def main() -> int:
           f"{nb_plain:.4f} ms; bound {nb_bound:.7f} ms ({nb_by})",
           flush=True)
 
+    # the climb at the main path's largest climb group (the ensemble grid)
+    from repro_torch.core.planning_backend import start_indices
+    Qc = max(1, cuda_be.max_climb_stack)
+    ens = scaled_cluster(ENSEMBLE_CONTAINERS, 100)
+    starts = torch.tensor(start_indices(ens, None, 24, 0), device=dev)
+    pc = params_for(surface, Qc)
+    out = ps.ensemble_climb(surface, ens_dims, starts, pc, 100_000)
+    steps = int(out[2].sum())                 # iterations over all starts
+    chain = int(out[2].max())                 # the longest start's
+    cl_ms = time_ms(lambda: ps.ensemble_climb(surface, ens_dims, starts, pc,
+                                              100_000), 10, torch)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ps.ensemble_climb_ref(surface, ens_dims, starts, pc, 100_000)
+    e1.record()
+    torch.cuda.synchronize()
+    cl_plain = e0.elapsed_time(e1)            # one call: ~1e3 host steps
+    D = len(ens_dims)
+    # reads the starts and params, writes index, cost and three counts per
+    # (request, start); each iteration costs the centre and 2D neighbours
+    cl_bound, cl_by = bound_ms(
+        starts.numel() * 8 + pc.numel() * 4 + Qc * starts.shape[0] *
+        (D * 8 + 4 + 3 * 8), steps * (2 * D + 1) * surface_ops(surface))
+    print(f"time ensemble_climb sim/SMJ/time Q={Qc} S={starts.shape[0]} "
+          f"on {ens.grid_size()} configs: {cl_ms:.4f} ms; plain "
+          f"{cl_plain:.3f} ms; bound {cl_bound:.7f} ms ({cl_by}, {steps} "
+          f"start-iterations); longest chain {chain} iterations, "
+          f"{cl_ms * 1e6 / chain:.1f} ns an iteration", flush=True)
+
     src = "src/repro_torch/kernels/csrc/plan_scan.cu"
     kernels = [
         {"name": "scan_argmin", "route": "cuda", "source": src,
@@ -1215,6 +1389,12 @@ def main() -> int:
          "max_abs_err": max_err["neighbor_step"], "ms": nb_ms,
          "plain_ms": nb_plain, "bound_ms": nb_bound,
          "bound_by": nb_by, "library_ms": None},
+        {"name": "ensemble_climb", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/plan_scan.py:290",
+         "launches": launches["ensemble_climb"],
+         "max_abs_err": max_err["ensemble_climb"], "ms": cl_ms,
+         "plain_ms": cl_plain, "bound_ms": cl_bound, "bound_by": cl_by,
+         "library_ms": None},
     ]
     print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s", flush=True)
 

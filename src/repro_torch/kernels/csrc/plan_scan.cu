@@ -12,9 +12,21 @@
 //                offset in as a traced scalar for the same reason).
 // neighbor_step  replaces _neighbor_kernel (K3): one step of the ensemble
 //                hill climb (centre and 2*D +-1 neighbours of every start).
+// ensemble_climb the whole ensemble climb of K3 on the device: Q requests x
+//                S starts, each climbing to convergence (or max_iters) in
+//                one launch, where the reference's host loop launched one
+//                neighbour step and synced once per iteration.  Both K3
+//                kernels cost a slot through one __device__ function
+//                (slot_cost), so their trajectories are the same by
+//                construction.
 //
-// What bounds them: FP32 ALU and SFU work.  A row reads nothing from device
-// memory (its configuration is decoded from the row id, the request's
+// What bounds them: FP32 ALU and SFU work; for ensemble_climb, latency.
+// A climb is a dependent chain (each step starts where the last one moved),
+// so it runs one group of lanes per (request, start): the next power of two
+// >= 2*D + 1 lanes, one neighbour slot (or the centre) a lane, and a
+// shuffle reduction picks the first strict minimum in slot order; an
+// iteration is one surface evaluation plus log2(lanes) shuffle rounds.
+// A scan row reads nothing from device memory (its configuration is decoded from the row id, the request's
 // params sit in shared memory), so the kernels move almost no bytes; each
 // row costs one 32-bit divmod per dimension after the first, a handful of
 // IEEE divisions and, for the SMJ surface, one logf.  The first design
@@ -88,6 +100,15 @@ struct NeighborArgs {
     Surface s;
     const float* table;
     int64_t n_starts;
+};
+
+struct ClimbArgs {
+    Dim dim[MAX_DIMS];
+    int n_dims;
+    Surface s;
+    const float* table;
+    int64_t n_queries, n_starts;
+    int64_t max_iters;
 };
 
 // np.maximum / torch.clamp_min: NaN in, NaN out
@@ -377,6 +398,42 @@ scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
     }
 }
 
+// the cost of slot j of a start at grid indices idx (values v): slots 0 ..
+// 2ND - 1 are its +-1 neighbours in _neighbor_offsets order ((dim 0, -1),
+// (dim 0, +1), (dim 1, -1), ...), inf off the grid; slot 2ND is the centre
+template <int KIND, int ND>
+__device__ __forceinline__ float slot_cost(const Dim* dim, const Surface& s,
+                                           const float* table,
+                                           const float* p,
+                                           const int64_t* idx,
+                                           const float* v, int j) {
+    const int d = j >> 1;                      // the centre moves no dim
+    float nv[ND];
+    uint32_t flat = 0;
+#pragma unroll
+    for (int e = 0; e < ND; ++e) {
+        int64_t i = idx[e];
+        nv[e] = v[e];
+        if (e == d) {
+            i += (j & 1) ? 1 : -1;
+            if (i < 0 || i >= dim[e].size) return INFINITY;
+            nv[e] = value_of(dim[e], i);
+        }
+        flat = flat * (uint32_t)dim[e].size + (uint32_t)i;
+    }
+    return surface_cost<KIND, ND>(s, table, p, nv, flat);
+}
+
+template <int ND>
+__device__ __forceinline__ int in_grid_neighbours(const Dim* dim,
+                                                  const int64_t* idx) {
+    int n = 0;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+        n += (idx[d] > 0) + (idx[d] < dim[d].size - 1);
+    return n;
+}
+
 template <int KIND, int ND>
 __global__ void neighbor_step_kernel(NeighborArgs a,
                                      const int64_t* __restrict__ cur,
@@ -390,38 +447,112 @@ __global__ void neighbor_step_kernel(NeighborArgs a,
     for (int k = 0; k < a.s.n_params; ++k) p[k] = params[k];
     int64_t idx[ND];
     float v[ND];
-    uint32_t flat = 0;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
         idx[d] = cur[ND * s + d];
         v[d] = value_of(a.dim[d], idx[d]);
-        flat = flat * (uint32_t)a.dim[d].size + (uint32_t)idx[d];
     }
-    center[s] = surface_cost<KIND, ND>(a.s, a.table, p, v, flat);
-    // slots in _neighbor_offsets order: (dim 0, -1), (dim 0, +1),
-    // (dim 1, -1), ...; first strict minimum wins, off-grid = inf
+    center[s] = slot_cost<KIND, ND>(a.dim, a.s, a.table, p, idx, v, 2 * ND);
+    // first strict minimum over the neighbour slots, off-grid = inf
     float best = INFINITY;
     int32_t slot = 0;
 #pragma unroll
     for (int j = 0; j < 2 * ND; ++j) {
-        const int d = j >> 1;
-        const int64_t n = idx[d] + ((j & 1) ? 1 : -1);
-        float c = INFINITY;
-        if (n >= 0 && n < a.dim[d].size) {
-            float nv[ND];
-            uint32_t nflat = 0;
-#pragma unroll
-            for (int e = 0; e < ND; ++e) {
-                const int64_t i = e == d ? n : idx[e];
-                nv[e] = e == d ? value_of(a.dim[e], n) : v[e];
-                nflat = nflat * (uint32_t)a.dim[e].size + (uint32_t)i;
-            }
-            c = surface_cost<KIND, ND>(a.s, a.table, p, nv, nflat);
-        }
+        float c = slot_cost<KIND, ND>(a.dim, a.s, a.table, p, idx, v, j);
         if (c < best) { best = c; slot = j; }
     }
     best_cost[s] = best;
     best_slot[s] = slot;
+}
+
+#define CLIMB_THREADS 128
+
+// lanes a (request, start) climbs on: the next power of two >= 2ND + 1
+template <int ND>
+struct ClimbLanes {
+    static constexpr int value = 2 * ND + 1 <= 4 ? 4 : 2 * ND + 1 <= 8 ? 8 :
+                                 2 * ND + 1 <= 16 ? 16 : 32;
+};
+
+// out_idx (Q, S, ND) int64, out_cost (Q, S) float32 at the final index,
+// iters (Q, S): iterations the start evaluated (moves + 1, at most
+// max_iters), valid_sum (Q, S): in-grid neighbours summed over them,
+// valid_final (Q, S): in-grid neighbours at the final index
+template <int KIND, int ND>
+__global__ void __launch_bounds__(CLIMB_THREADS)
+ensemble_climb_kernel(ClimbArgs a, const int64_t* __restrict__ starts,
+                      const float* __restrict__ params,
+                      int64_t* __restrict__ out_idx,
+                      float* __restrict__ out_cost,
+                      int64_t* __restrict__ iters,
+                      int64_t* __restrict__ valid_sum,
+                      int64_t* __restrict__ valid_final) {
+    constexpr int L = ClimbLanes<ND>::value;
+    const int64_t g = ((int64_t)blockIdx.x * CLIMB_THREADS + threadIdx.x) / L;
+    const int j = threadIdx.x % L;
+    const bool live = g < a.n_queries * a.n_starts;
+    const int64_t q = live ? g / a.n_starts : 0;
+    const int64_t st = live ? g % a.n_starts : 0;
+    float p[MAX_PARAMS];                     // in registers
+#pragma unroll
+    for (int k = 0; k < MAX_PARAMS; ++k)
+        p[k] = k < a.s.n_params ? params[q * a.s.n_params + k] : 0.0f;
+    int64_t idx[ND];
+    float v[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+        idx[d] = starts[ND * st + d];
+        v[d] = value_of(a.dim[d], idx[d]);
+    }
+    float cost = INFINITY;
+    int64_t it = 0, vsum = 0;
+    bool done = !live || a.max_iters <= 0;
+    // the whole warp iterates until its last group is done, so every
+    // shuffle has all 32 lanes; a finished group idles
+    while (__any_sync(0xFFFFFFFFu, !done)) {
+        float c = INFINITY;
+        if (!done && j <= 2 * ND)
+            c = slot_cost<KIND, ND>(a.dim, a.s, a.table, p, idx, v, j);
+        const float centre = __shfl_sync(0xFFFFFFFFu, c, 2 * ND, L);
+        // (cost, slot) over the neighbour slots, first strict minimum:
+        // NaN, inf and the padding lanes never win, all of them -> slot 0
+        float best = j < 2 * ND && c < INFINITY ? c : INFINITY;
+        int slot = j < 2 * ND ? j : L;
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) {
+            const float ob = __shfl_xor_sync(0xFFFFFFFFu, best, off, L);
+            const int os = __shfl_xor_sync(0xFFFFFFFFu, slot, off, L);
+            if (ob < best || (ob == best && os < slot)) {
+                best = ob;
+                slot = os;
+            }
+        }
+        if (!done) {
+            ++it;
+            vsum += in_grid_neighbours<ND>(a.dim, idx);
+            cost = centre;
+            if (best < centre) {           // strict <: Algorithm 1's stop
+#pragma unroll
+                for (int d = 0; d < ND; ++d)
+                    if (d == (slot >> 1)) {
+                        idx[d] += (slot & 1) ? 1 : -1;
+                        v[d] = value_of(a.dim[d], idx[d]);
+                    }
+                cost = best;
+            } else {
+                done = true;
+            }
+            if (it >= a.max_iters) done = true;
+        }
+    }
+    if (live && j == 0) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d) out_idx[g * ND + d] = idx[d];
+        out_cost[g] = cost;
+        iters[g] = it;
+        valid_sum[g] = vsum;
+        valid_final[g] = in_grid_neighbours<ND>(a.dim, idx);
+    }
 }
 
 // the (kind, dimension count) pairs a surface can take: the DB surfaces on
@@ -477,6 +608,21 @@ struct LaunchNeighbor {
     }
 };
 
+template <int KIND, int ND>
+struct LaunchClimb {
+    static void run(cudaStream_t st, const ClimbArgs* a,
+                    const int64_t* starts, const float* params,
+                    int64_t* idx, float* cost, int64_t* iters,
+                    int64_t* valid_sum, int64_t* valid_final) {
+        constexpr int L = ClimbLanes<ND>::value;
+        const int64_t lanes = a->n_queries * a->n_starts * L;
+        const unsigned blocks =
+            (unsigned)((lanes + CLIMB_THREADS - 1) / CLIMB_THREADS);
+        ensemble_climb_kernel<KIND, ND><<<blocks, CLIMB_THREADS, 0, st>>>(
+            *a, starts, params, idx, cost, iters, valid_sum, valid_final);
+    }
+};
+
 extern "C" {
 
 // out: (n_queries,) uint64 keys, preset to all ones by the caller; scans
@@ -504,6 +650,20 @@ int neighbor_step(const NeighborArgs* args, const void* cur,
             a.s.kind, a.n_dims, blocks, threads, (cudaStream_t)stream, args,
             (const int64_t*)cur, (const float*)params, (float*)center,
             (float*)best_cost, (int32_t*)best_slot))
+        return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+// starts (S, n_dims) int64 shared by the Q requests of params (Q, P)
+int ensemble_climb(const ClimbArgs* args, const void* starts,
+                   const void* params, void* idx, void* cost, void* iters,
+                   void* valid_sum, void* valid_final, void* stream) {
+    const ClimbArgs& a = *args;
+    if (!dispatch<LaunchClimb>(
+            a.s.kind, a.n_dims, (cudaStream_t)stream, args,
+            (const int64_t*)starts, (const float*)params, (int64_t*)idx,
+            (float*)cost, (int64_t*)iters, (int64_t*)valid_sum,
+            (int64_t*)valid_final))
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }

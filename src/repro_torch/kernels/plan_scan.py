@@ -22,17 +22,24 @@ kernels (``csrc/plan_scan.cu``, built by ``kernels/build.py``):
   per-shard keys are folded on ``devices[0]`` by a min.
 * ``neighbor_step`` replaces ``_neighbor_kernel`` (K3): one ensemble
   hill-climb step, one thread per start.
+* ``ensemble_climb`` is K3's whole climb on the device: Q requests x S
+  starts, each to convergence (or ``max_iters``) in one launch, one group
+  of lanes per (request, start) evaluating its neighbour slots in
+  parallel.  It costs a slot through the same ``__device__`` function as
+  ``neighbor_step``, so its trajectories are the neighbour step's.
+  ``CudaPlanBackend`` climbs through it: one launch per stacked climb
+  group (one a plan device when sharded), no host sync inside the climb.
 
 Grids have 1..``MAX_DIMS`` dimensions, decoded row-major with the first
 dimension slowest (``enumerate_configs`` order), like the reference's.
 
 Each wrapper takes the plain version (``scan_argmin_ref``,
-``scan_argmin_sharded_ref``, ``neighbor_step_ref``, same module) only for
-CPU tensors; for CUDA tensors it launches the kernel or raises.  Each
-keeps a plain integer launch counter (``scan_argmin.launches``,
-``scan_argmin_sharded.launches`` — one a shard —,
-``neighbor_step.launches``), bumped where the kernel launches and nowhere
-else.
+``scan_argmin_sharded_ref``, ``neighbor_step_ref``, ``ensemble_climb_ref``,
+same module) only for CPU tensors; for CUDA tensors it launches the kernel
+or raises.  Each keeps a plain integer launch counter
+(``scan_argmin.launches``, ``scan_argmin_sharded.launches`` — one a shard
+—, ``neighbor_step.launches``, ``ensemble_climb.launches``), bumped where
+the kernel launches and nowhere else.
 
 Cost surfaces: a CUDA kernel cannot run an arbitrary Python cost fn (the
 reference pre-traced any jax fn to a jaxpr).  The kernels carry one
@@ -159,6 +166,13 @@ def _check(surface: Surface, dims: Sequence[GridDim],
     return total
 
 
+def _check_starts(dims: Sequence[GridDim], starts: torch.Tensor) -> None:
+    if starts.dtype != torch.int64 or starts.ndim != 2 or \
+            starts.shape[1] != len(dims):
+        raise ValueError(f"climb starts must be (S, {len(dims)}) int64 grid "
+                         f"indices, got {tuple(starts.shape)} {starts.dtype}")
+
+
 def shard_spans(total: int, n_shards: int) -> List[Tuple[int, int]]:
     """K4's geometry: ``n_shards`` contiguous ascending ``(row0, nrows)``
     spans of ``ceil(total / n_shards)`` rows rounded up to whole tiles;
@@ -246,6 +260,51 @@ def neighbor_step_ref(surface: Surface, dims: Sequence[GridDim],
             j.to(torch.int32))
 
 
+def _in_grid(dims: Sequence[GridDim], cur: torch.Tensor) -> torch.Tensor:
+    """(S,) in-grid ±1 neighbour count of each (S, D) grid index."""
+    sizes = torch.as_tensor([d.size for d in dims], device=cur.device)
+    return ((cur > 0).sum(1) + (cur < sizes - 1).sum(1)).to(torch.int64)
+
+
+def ensemble_climb_ref(surface: Surface, dims: Sequence[GridDim],
+                       starts: torch.Tensor, params: torch.Tensor,
+                       max_iters: int
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Plain torch version of ``ensemble_climb``: for each request, a loop
+    of ``neighbor_step_ref`` over all S starts, moving each start that
+    improves strictly and freezing the ones that stopped, until none moves
+    or ``max_iters`` steps.  Returns ((Q, S, D) int64 final index, (Q, S)
+    float32 cost there (inf where no step ran), (Q, S) int64 iterations
+    each start evaluated, (Q, S) int64 in-grid neighbours summed over
+    them, (Q, S) int64 in-grid neighbours at the final index)."""
+    _check(surface, dims, params)
+    _check_starts(dims, starts)
+    Q, (S, D) = params.shape[0], starts.shape
+    offs = torch.as_tensor(_neighbor_offsets(D), device=starts.device)
+    out = []
+    for q in range(Q):
+        cur = starts.clone()
+        cost = torch.full((S,), math.inf, dtype=params.dtype,
+                          device=params.device)
+        iters = torch.zeros(S, dtype=torch.int64, device=starts.device)
+        vsum = torch.zeros(S, dtype=torch.int64, device=starts.device)
+        moving = torch.ones(S, dtype=torch.bool, device=starts.device)
+        for _ in range(max_iters):
+            centre, best, slot = neighbor_step_ref(surface, dims, cur,
+                                                   params[q:q + 1])
+            iters += moving
+            vsum += torch.where(moving, _in_grid(dims, cur), 0)
+            improved = moving & (best < centre)       # strict <
+            cost = torch.where(moving, centre, cost)
+            cost = torch.where(improved, best, cost)
+            cur = torch.where(improved[:, None], cur + offs[slot.long()], cur)
+            moving = improved
+            if not bool(moving.any()):
+                break
+        out.append((cur, cost, iters, vsum, _in_grid(dims, cur)))
+    return tuple(torch.stack(col) for col in zip(*out))
+
+
 # ------------------------------- the kernels -------------------------------- #
 
 class _Dim(ctypes.Structure):
@@ -274,6 +333,13 @@ class _NeighborArgs(ctypes.Structure):
                 ("n_starts", ctypes.c_int64)]
 
 
+class _ClimbArgs(ctypes.Structure):
+    _fields_ = [("dim", _Dim * MAX_DIMS), ("n_dims", ctypes.c_int),
+                ("s", _Surface), ("table", ctypes.c_void_p),
+                ("n_queries", ctypes.c_int64), ("n_starts", ctypes.c_int64),
+                ("max_iters", ctypes.c_int64)]
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (build.load_library)."""
     vp = ctypes.c_void_p
@@ -281,12 +347,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.scan_argmin.restype = ctypes.c_int
     lib.neighbor_step.argtypes = [vp] * 7
     lib.neighbor_step.restype = ctypes.c_int
+    lib.ensemble_climb.argtypes = [vp] * 9
+    lib.ensemble_climb.restype = ctypes.c_int
     return lib
 
 
-# memoized per (dims, surface) object: the climb launches the same pair
-# every iteration, and building the ctypes structs costs more than the
-# launch (the cache holds strong refs, so ids stay valid)
+# memoized per (dims, surface) object: a planning session launches the
+# same pairs wave after wave, and building the ctypes structs costs more
+# than the launch (the cache holds strong refs, so ids stay valid)
 @functools.lru_cache(maxsize=64)
 def _c_dims(dims: Tuple[GridDim, ...]):
     return (_Dim * MAX_DIMS)(*[
@@ -305,14 +373,6 @@ def _c_surface(surface: Surface) -> _Surface:
                     OBJECTIVES[surface.objective], int(surface.oom),
                     surface.n_params, surface.flags, surface.batch,
                     (ctypes.c_float * MAX_CONSTS)(*consts))
-
-
-@functools.lru_cache(maxsize=64)
-def _neighbor_args(dims: Tuple[GridDim, ...], surface: Surface,
-                   n_starts: int, device: torch.device) -> _NeighborArgs:
-    """The climb's per-iteration launch arguments (the same every step)."""
-    return _NeighborArgs(_c_dims(dims), len(dims), _c_surface(surface),
-                         _table(surface, device), n_starts)
 
 
 def _table(surface: Surface, device: torch.device) -> Optional[int]:
@@ -473,7 +533,8 @@ def neighbor_step(surface: Surface, dims: Sequence[GridDim],
     center = torch.empty(S, dtype=torch.float32, device=cur.device)
     best = torch.empty(S, dtype=torch.float32, device=cur.device)
     slot = torch.empty(S, dtype=torch.int32, device=cur.device)
-    args = _neighbor_args(tuple(dims), surface, S, cur.device)
+    args = _NeighborArgs(_c_dims(tuple(dims)), len(dims),
+                         _c_surface(surface), _table(surface, cur.device), S)
     with torch.cuda.device(cur.device):
         check_launch(lib.neighbor_step(
             ctypes.addressof(args), cur.data_ptr(), params.data_ptr(),
@@ -486,10 +547,47 @@ def neighbor_step(surface: Surface, dims: Sequence[GridDim],
 neighbor_step.launches = 0
 
 
+def ensemble_climb(surface: Surface, dims: Sequence[GridDim],
+                   starts: torch.Tensor, params: torch.Tensor,
+                   max_iters: int) -> Tuple[torch.Tensor, ...]:
+    """The ensemble hill climb of Q requests (``params`` (Q, P) float32)
+    from the S grid indices ``starts`` ((S, D) int64) in one launch, each
+    (request, start) to convergence or ``max_iters`` iterations.  Returns
+    ``ensemble_climb_ref``'s five tensors.  CUDA tensors launch the kernel
+    on the current stream without syncing; CPU tensors take
+    ``ensemble_climb_ref``."""
+    _check(surface, dims, params)
+    _check_starts(dims, starts)
+    if max_iters < 0:
+        raise ValueError(f"max_iters={max_iters} < 0")
+    if not _on_cuda(starts, params, *_values_of(dims)):
+        return ensemble_climb_ref(surface, dims, starts, params, max_iters)
+    lib = load_library("plan_scan")
+    Q, (S, D) = params.shape[0], starts.shape
+    dev = starts.device
+    idx = torch.empty((Q, S, D), dtype=torch.int64, device=dev)
+    cost = torch.empty((Q, S), dtype=torch.float32, device=dev)
+    counts = torch.empty((3, Q, S), dtype=torch.int64, device=dev)
+    args = _ClimbArgs(_c_dims(tuple(dims)), D, _c_surface(surface),
+                      _table(surface, dev), Q, S, max_iters)
+    with torch.cuda.device(dev):
+        check_launch(lib.ensemble_climb(
+            ctypes.addressof(args), starts.data_ptr(), params.data_ptr(),
+            idx.data_ptr(), cost.data_ptr(), counts[0].data_ptr(),
+            counts[1].data_ptr(), counts[2].data_ptr(), stream(dev)),
+            "ensemble_climb")
+    ensemble_climb.launches += 1
+    return idx, cost, counts[0], counts[1], counts[2]
+
+
+ensemble_climb.launches = 0
+
+
 def reset_launch_counts() -> None:
     scan_argmin.launches = 0
     scan_argmin_sharded.launches = 0
     neighbor_step.launches = 0
+    ensemble_climb.launches = 0
 
 
 # ------------------------------ the backend --------------------------------- #
@@ -505,7 +603,7 @@ def _surface_of(fn: BatchCostFn) -> Surface:
 
 
 class CudaPlanBackend:
-    """``PlanBackend`` over the CUDA scan and neighbor-step kernels
+    """``PlanBackend`` over the CUDA scan and ensemble-climb kernels
     (``get_backend("cuda")``), float32 like the reference's pallas
     backend: ``exact = False``, so the broker re-commits every winner in
     float64 and re-searches on the exact ``"torch"`` backend when float32
@@ -513,9 +611,11 @@ class CudaPlanBackend:
 
     ``device="cpu"`` runs the same wrappers on CPU tensors, which take the
     plain versions — the tests reach the kernel path without a card.  Scans
-    launch on the current stream; ``finalize`` does the one device->host
-    copy.  The hill climb is the reference's host loop: one neighbor-step
-    launch and one sync per iteration.
+    and climbs launch on the current stream; ``finalize`` does the one
+    device->host copy.  A stacked climb is one ``ensemble_climb`` launch
+    that runs every (request, start) to convergence on the device; its
+    results and ``configs_explored`` are the reference pallas backend's,
+    whose host loop launched one neighbour step and synced per iteration.
 
     Plan devices (the reference's ``devices`` cap and ``REPRO_PLAN_DEVICES``,
     ``repro_torch.launch.mesh``): ``devices`` is an int cap on the visible
@@ -525,8 +625,8 @@ class CudaPlanBackend:
     ``["cpu"] * 4`` their plain versions.  With one plan device the
     geometry is the unsharded one.  With more, ``argmin_grid[_many]`` scan
     through ``scan_argmin_sharded`` (K4), and ``hill_climb_ensemble_many``
-    climbs contiguous groups of the requests on the devices in order; each
-    request's trajectory is unchanged."""
+    climbs contiguous groups of the requests on the devices in order, one
+    launch a group; each request's trajectory is unchanged."""
 
     name = "cuda"
     exact = False
@@ -548,9 +648,10 @@ class CudaPlanBackend:
                 raise ValueError(f"plan devices {devices} do not match the "
                                  f"backend's device {self.device}")
         self._grids = {}
-        # largest request stack one scan launch served (chip_smoke.py
-        # times the kernels at that shape)
+        # largest request stack one scan / climb launch served
+        # (chip_smoke.py times the kernels at that shape)
         self.max_stack = 0
+        self.max_climb_stack = 0
 
     def device_count(self) -> int:
         """Shards the grid scans are split over (1: unsharded)."""
@@ -646,7 +747,7 @@ class CudaPlanBackend:
                                      np.asarray(params)[None, :],
                                      stats=stats, chunk_size=chunk_size)[0]
 
-    # -- ensemble climb on the neighbor step ---------------------------------- #
+    # -- ensemble climb on the device ---------------------------------------- #
 
     def hill_climb_ensemble(self, batch_cost_fn: BatchCostFn,
                             cluster: ClusterConditions,
@@ -654,79 +755,72 @@ class CudaPlanBackend:
                             stats: Optional[PlanningStats] = None, *,
                             params=None, n_random: int = 0, seed: int = 0,
                             max_iters: int = 100_000) -> Result:
-        """Multi-start steepest descent on the backend's device (see
-        ``_climb``)."""
-        return self._climb(batch_cost_fn, cluster, starts, stats, params,
-                           n_random, seed, max_iters, self.device)
-
-    @hot_path("runs the neighbor-step kernel once per climb iteration")
-    def _climb(self, batch_cost_fn: BatchCostFn, cluster: ClusterConditions,
-               starts, stats: Optional[PlanningStats], params,
-               n_random: int, seed: int, max_iters: int,
-               device: torch.device) -> Result:
-        """Multi-start steepest descent, the reference pallas backend's
-        host loop, on ``device``: each iteration launches one neighbor
-        step and syncs once; moves and termination mirror the numpy
-        backend, so trajectories are identical on the same float32
-        costs."""
-        stats = stats if stats is not None else PlanningStats()
-        surface = _surface_of(batch_cost_fn)
+        """Multi-start steepest descent as one ``ensemble_climb`` launch
+        on the backend's device."""
         if params is None:
             raise ValueError("kernel surfaces take per-request params")
-        dims = self._dims(cluster, device)
-        grids_np = grid_arrays(cluster)
-        n_dims = len(grids_np)
-        sizes = np.asarray([len(g) for g in grids_np], dtype=np.int64)
-        cur = np.asarray(start_indices(cluster, starts, n_random, seed))
-        S = len(cur)
-        offs = _neighbor_offsets(n_dims)
-        p = self._params32(surface, params, device)
+        return self._climbs(batch_cost_fn, cluster, np.asarray(params)[None],
+                            starts, stats, n_random, seed, max_iters,
+                            [self.device])()[0]
 
-        cur_cost = np.full(S, np.inf)
-        for _ in range(max_iters):
-            center, best_c, best_j = neighbor_step(
-                surface, dims, torch.as_tensor(cur, device=device), p)
-            # plan-lint: allow(host-sync): the climb is host-driven — each neighbor step must land before the move/stop decision
-            out = torch.stack([center, best_c,
-                               best_j.to(torch.float32)]).cpu().numpy()
-            center = out[0].astype(np.float64)
-            best_c = out[1].astype(np.float64)
-            best_j = out[2].astype(np.int64)
-            nbr = cur[:, None, :] + offs[None, :, :]
-            valid = ((nbr >= 0) & (nbr < sizes)).all(-1)
-            stats.configs_explored += S + int(valid.sum())
-            cur_cost = center
-            improved = best_c < center        # strict <: Algorithm 1 stop
-            if not improved.any():
-                break
-            step = np.take_along_axis(
-                nbr, best_j[:, None, None], 1)[:, 0, :]
-            cur[improved] = step[improved]
-            cur_cost[improved] = best_c[improved]
+    def hill_climb_ensemble_many(self, *args, **kwargs) -> List[Result]:
+        return self.hill_climb_ensemble_many_async(*args, **kwargs)()
 
-        i = int(np.argmin(cur_cost))
-        res = tuple(int(grids_np[d][cur[i, d]]) for d in range(n_dims))
-        return res, float(cur_cost[i])
-
-    def hill_climb_ensemble_many(self, batch_cost_fn: BatchCostFn,
-                                 cluster: ClusterConditions,
-                                 params_many, *,
-                                 starts=None,
-                                 stats: Optional[PlanningStats] = None,
-                                 n_random: int = 0, seed: int = 0,
-                                 max_iters: int = 100_000) -> List[Result]:
-        """One host climb per stacked request; with more than one plan
-        device the requests are cut into contiguous groups, group i
-        climbing on device i (the reference shards the request axis the
-        same way)."""
+    @hot_path("dispatches the ensemble-climb kernel per flush group",
+              folds=1)
+    def hill_climb_ensemble_many_async(self, batch_cost_fn: BatchCostFn,
+                                       cluster: ClusterConditions,
+                                       params_many, *, starts=None,
+                                       stats: Optional[PlanningStats] = None,
+                                       n_random: int = 0, seed: int = 0,
+                                       max_iters: int = 100_000):
+        """Q climbs sharing one cost fn, grid and start set: one
+        ``ensemble_climb`` launch for all of them, or, with more than one
+        plan device, one a device over a contiguous group of the requests
+        (the reference shards the request axis the same way).  Each
+        request's trajectory is unchanged.  Returns the zero-arg finalize
+        that copies the climbs to the host, adds their exploration to
+        ``stats`` and decodes the winners."""
         pm = np.asarray(params_many, dtype=np.float64)
-        per = max(1, -(-pm.shape[0] // self.device_count()))
-        return [self._climb(batch_cost_fn, cluster, starts, stats, pm[q],
-                            n_random, seed, max_iters, self._shards[q // per])
-                for q in range(pm.shape[0])]
+        if pm.shape[0] == 0:
+            return lambda: []
+        return self._climbs(batch_cost_fn, cluster, pm, starts, stats,
+                            n_random, seed, max_iters, self._shards)
 
-    def hill_climb_ensemble_many_async(self, *args, **kwargs):
-        """The climb syncs every iteration, so nothing is left in flight:
-        run eagerly and return the results as a finalized closure."""
-        res = self.hill_climb_ensemble_many(*args, **kwargs)
-        return lambda: res
+    def _climbs(self, batch_cost_fn: BatchCostFn, cluster: ClusterConditions,
+                pm: np.ndarray, starts, stats: Optional[PlanningStats],
+                n_random: int, seed: int, max_iters: int,
+                devices: Sequence[torch.device]):
+        stats = stats if stats is not None else PlanningStats()
+        surface = _surface_of(batch_cost_fn)
+        start_idx = start_indices(cluster, starts, n_random, seed)
+        Q, S = pm.shape[0], len(start_idx)
+        per = max(1, -(-Q // len(devices)))
+        self.max_climb_stack = max(self.max_climb_stack, min(Q, per))
+        outs = []
+        for g, q0 in enumerate(range(0, Q, per)):
+            dev = devices[g]
+            outs.append(ensemble_climb(
+                surface, self._dims(cluster, dev),
+                torch.as_tensor(start_idx, device=dev),
+                self._params32(surface, pm[q0:q0 + per], dev), max_iters))
+
+        def finalize() -> List[Result]:
+            idx, cost, iters, vsum, vfin = (
+                torch.cat([o[k].cpu() for o in outs]).numpy()
+                for k in range(5))
+            # the reference pallas backend's count: every iteration costs
+            # all S centres and their in-grid neighbours until the last
+            # start stops, a stopped start at its final index
+            T = iters.max(1, keepdims=True)
+            stats.configs_explored += int(
+                (T * S).sum() + vsum.sum() + (vfin * (T - iters)).sum())
+            grids = grid_arrays(cluster)
+            res = []
+            for q in range(Q):
+                i = int(np.argmin(cost[q]))
+                res.append((tuple(int(grids[d][idx[q, i, d]])
+                                  for d in range(len(grids))),
+                            float(cost[q, i])))
+            return res
+        return finalize

@@ -84,7 +84,8 @@ def test_kernels_bit_equal_plain(dev, objective):
 def test_raqo_on_kernels_matches_plain(dev, rp):
     schema = random_schema(8, seed=0)
     queries = [random_query(schema, 4, seed=q) for q in range(3)]
-    before = (ps.scan_argmin.launches, ps.neighbor_step.launches)
+    before = (ps.scan_argmin.launches, ps.ensemble_climb.launches,
+              ps.neighbor_step.launches)
     sigs = []
     for backend in (ps.CudaPlanBackend(),
                     TorchPlanBackend(device="cuda", dtype=torch.float32)):
@@ -93,8 +94,10 @@ def test_raqo_on_kernels_matches_plain(dev, rp):
                      backend=backend).plan_queries(queries)
         sigs.append([(p.plan.describe(), p.exec_time) for p in plans])
     assert sigs[0] == sigs[1]
-    after = (ps.scan_argmin.launches, ps.neighbor_step.launches)
+    after = (ps.scan_argmin.launches, ps.ensemble_climb.launches,
+             ps.neighbor_step.launches)
     assert after[rp == "ensemble"] > before[rp == "ensemble"]
+    assert after[2] == before[2]          # the climb runs on the device
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -119,6 +122,31 @@ def test_flash_attention_matches_plain(dev, dtype, tol, B, S, Skv, H, KV,
     assert fa.flash_attention.launches == before + 1
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("block_q", [None, 64, 128])
+@pytest.mark.parametrize("B,S,Skv,H,KV,hd,opts", [
+    (4, 256, 256, 15, 5, 64, {}),
+    (1, 100, 100, 15, 5, 64, dict(window=24, attn_softcap=30.0)),
+    (2, 77, 130, 4, 2, 64, dict(causal=False)),
+    (2, 200, 200, 8, 2, 128, {}),
+    (1, 300, 300, 4, 2, 128, dict(window=70, attn_softcap=20.0)),
+    (1, 64, 96, 4, 1, 128, dict(causal=False)),
+    (3, 1, 1, 2, 1, 64, {}),
+])
+def test_flash_attention_tensor_cores_match_plain(dev, block_q, B, S, Skv,
+                                                  H, KV, hd, opts):
+    """bfloat16 at hd 64 and 128 takes the wgmma/TMA kernel, at each block
+    geometry: ragged S and Skv, window and softcap, non-causal."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, Skv, KV, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, Skv, KV, hd), generator=g, device=dev).bfloat16()
+    got = fa.flash_attention_blocks(q, k, v, block_q, **opts)
+    want = ref.attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -254,6 +282,36 @@ def test_nd_table_kernels_bit_equal_plain(dev):
         got = ps.neighbor_step(s, dims, cur, p[:1])
         want = ps.neighbor_step_ref(s, dims, cur, p[:1])
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = ps.ensemble_climb(s, dims, cur, p[:3], 100_000)
+        want = ps.ensemble_climb_ref(s, dims, cur, p[:3], 100_000)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 100_000])
+@pytest.mark.parametrize("objective", ["time", "money", "sla"])
+def test_ensemble_climb_bit_equal_plain(dev, objective, max_iters):
+    """K3's whole climb in one launch: final indices, costs, iteration and
+    neighbour counts equal to the host loop of neighbor_step_ref."""
+    rng = np.random.default_rng(max_iters)
+    for cluster in GRIDS:
+        dims = ps.grid_dims(cluster, dev)
+        cur = np.stack([rng.integers(0, d.size, 26) for d in dims], 1)
+        cur[0], cur[1] = 0, [d.size - 1 for d in dims]
+        cur = torch.tensor(cur, device=dev)
+        for models in (cm.paper_models(), cm.simulator_cost_models()):
+            for model in models.values():
+                s = cm.Surface(model, objective)
+                ss = rng.uniform(0.01, 40, 3)
+                cols = [ss, ss + rng.uniform(0, 100, 3)]
+                if objective == "sla":
+                    cols.append(rng.uniform(1, 30, 3))
+                p = torch.tensor(np.stack(cols, 1), dtype=torch.float32,
+                                 device=dev)
+                before = ps.ensemble_climb.launches
+                got = ps.ensemble_climb(s, dims, cur, p, max_iters)
+                want = ps.ensemble_climb_ref(s, dims, cur, p, max_iters)
+                assert ps.ensemble_climb.launches == before + 1
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("D", [1, 2, 3, 4, 7])

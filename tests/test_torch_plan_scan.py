@@ -233,3 +233,14 @@ def test_packed_key_order_and_decode():
     assert cost.tolist()[:-1] == [float(np.float32(c)) for c, _ in pairs]
     assert flat.tolist() == [f for _, f in pairs] + [-1]
     assert math.isinf(cost.tolist()[-1])
+
+
+def test_plan_scan_is_built_without_contraction():
+    """The scan and climb kernels equal their plain versions bit for bit
+    only if every float32 multiply and add rounds as written: no FMA
+    contraction, no fast-math division, log or exp."""
+    from repro_torch.kernels import build
+    assert "-fmad=false" in build.NVCC_FLAGS
+    assert not any("fast_math" in f or "fast-math" in f
+                   for f in build.NVCC_FLAGS)
+    assert "plan_scan" in build.SOURCES
