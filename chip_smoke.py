@@ -32,12 +32,16 @@ Phases (any failure exits nonzero; there is no CPU path):
              must equal the plain version's (TorchPlanBackend float32 on the
              card), both kernels must have launched and neighbor_step must
              not have; then "ensemble" at 100K x 100 through the kernel,
-             timed (its plans are not compared: the plain climb would take
-             ~1e5 host steps a request);
+             timed, with the device time of all its climb launches (its
+             plans are not compared: the plain climb would take ~1e5 host
+             steps a request);
 5. times   — each kernel at the main path's largest wave shape against its
              plain version and its bound (bytes or FP32 operations); the
-             climb at the largest climb group, with its longest chain's
-             iterations and the time of one iteration;
+             climb at the largest climb group of the 1K and of the 100K
+             ensemble run, with its longest chain's iterations and the time
+             of one iteration; at 100K every final index must be a local
+             minimum of the plain surface (one neighbor_step_ref there, for
+             starts that stopped before max_iters) with the kernel's cost;
 6. model kernels against plain, on the card — flash_attention at
              smollm-360m's heads (H=15, KV=5, hd=64, B=4, S in {16, 100,
              512}, float32 and bfloat16, plus window+softcap and
@@ -54,11 +58,12 @@ Phases (any failure exits nonzero; there is no CPU path):
              launches; flash_attention must launch on smollm-360m and
              selective_scan on falcon-mamba-7b);
 8. times   — flash_attention at B=1, S=4096 and at the serve shape (B=4,
-             S=256), smollm's heads, bfloat16, at both tensor-core block
-             geometries, against attention_ref and torch's
-             scaled_dot_product_attention (timed here only; the port never
-             calls it); the built library's SASS must show HGMMA in the
-             tensor-core kernel; selective_scan at B=1, S=4096, D=8192,
+             S=256), smollm's heads, bfloat16, against attention_ref and
+             torch's scaled_dot_product_attention (timed here only; the port
+             never calls it) in alternating rounds, each timed eagerly and
+             as replays of a CUDA graph (device-bound, no host launch cost);
+             the built library's SASS must show HGMMA in the tensor-core
+             kernel; selective_scan at B=1, S=4096, D=8192,
              N=16 against selective_scan_ref;
 9. joins   — ops.bhj_join and ops.smj_join at TPC-H SF 100 (row counts from
              tpch_schema(100)), data made on the card from a seeded
@@ -106,10 +111,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -132,6 +139,7 @@ ATTN_HEADS = (15, 5, 64)       # smollm-360m: H, KV, hd
 SCAN_WIDTH = (8192, 16)        # falcon-mamba-7b: d_inner, N
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SERVE_ATTN = (4, 256)          # the serve phase's prefill: 4 slots x 256
+ATTN_ROUNDS = 7                # alternating K7 / SDPA timing rounds
 SCAN_TOL = 1e-4
 LOGIT_TOL = 1e-3               # float32 prefill logits, kernels vs plain
 SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
@@ -187,10 +195,12 @@ def time_ms(fn, reps: int, torch) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(torch, fn, reps: int, kernel: str):
+def device_ms(torch, fn, reps: int, kernel: str,
+              launches: Optional[int] = None):
     """Device time of one launch of ``kernel`` (a name substring) over
-    ``reps`` calls of ``fn``, from torch.profiler; None when the profiler
-    records no device time for it."""
+    ``reps`` calls of ``fn``, or of one call's ``launches`` of it, from
+    torch.profiler; None when the profiler records no device time for it,
+    or not ``reps`` x ``launches`` launches (it can drop events)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -199,9 +209,30 @@ def device_ms(torch, fn, reps: int, kernel: str):
             fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(getattr(e, "device_time_total", 0) for e in rows)
+    # self time: a kernel's own, never its parent op's again
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "device_time_total", 0)) for e in rows)
     count = sum(e.count for e in rows)
+    if launches is not None:
+        if count != reps * launches:
+            return None
+        count = reps
     return total / count / 1e3 if count and total else None
+
+
+def cuda_graph(torch, fn, calls: int):
+    """``calls`` calls of ``fn`` captured in one CUDA graph: timing its
+    replays leaves out the host's launch cost between the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph
 
 
 def plan_signature(jp):
@@ -261,18 +292,13 @@ def model_kernel_parity(torch, dev):
         k = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
         v = torch.randn((B, S, KV, hd), generator=g, device=dev).to(dtype)
         want = ref.attention_ref(q, k, v, **opts)
-        # the rule's block geometry, then each tensor-core one
-        geos = [None] + list(fa.BLOCK_Q) if dtype == torch.bfloat16 and \
-            hd in fa.TC_HEAD_DIMS else [None]
-        for bq in geos:
-            got = fa.flash_attention_blocks(q, k, v, bq, **opts)
-            torch.cuda.synchronize()
-            e, ok = allclose_err(got, want, ATTN_TOL[dt])
-            check(ok and got.dtype == dtype and got.shape == q.shape,
-                  f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} {dt} "
-                  f"{opts} block_q={bq}: max_abs_err {e} above "
-                  f"{ATTN_TOL[dt]}")
-            note("flash_attention", dt, e)
+        got = fa.flash_attention(q, k, v, **opts)
+        torch.cuda.synchronize()
+        e, ok = allclose_err(got, want, ATTN_TOL[dt])
+        check(ok and got.dtype == dtype and got.shape == q.shape,
+              f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} {dt} "
+              f"{opts}: max_abs_err {e} above {ATTN_TOL[dt]}")
+        note("flash_attention", dt, e)
     D, N = SCAN_WIDTH
     for S in (16, 100, 512):
         for dt in ("float32", "bfloat16"):
@@ -376,14 +402,17 @@ def model_times(torch, dev, err, served):
     check(ok, f"flash_attention S={S}: max_abs_err {e}")
     err["flash_attention"]["bfloat16"] = max(
         err["flash_attention"]["bfloat16"], e)
-    fa_ms = time_ms(lambda: fa.flash_attention(q, k, v), 20, torch)
     fa_plain = time_ms(lambda: ref.attention_ref(q, k, v), 3, torch)
     # unmasked (q, k) pairs x (QK^T + PV) x 2 FLOPs per multiply-add
     pairs = S * (S + 1) // 2
     fa_bound, fa_by = bound_ms(2 * (2 * S * H * hd + 2 * S * KV * hd),
                                4 * hd * pairs * H, H100_BF16_FLOPS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fa_lib = None
+    fa_ms = fa_lib = None
+
+    def spread(r):
+        return (f"median {statistics.median(r):.6f} ms [" +
+                ", ".join(f"{t:.6f}" for t in r) + "]")
     for B, Sx in ((1, S), SERVE_ATTN):
         if B == 1:
             qx, kx, vx = q, k, v
@@ -391,24 +420,40 @@ def model_times(torch, dev, err, served):
             qx, kx, vx = (torch.randn((B, Sx, n, hd), generator=g,
                                       device=dev).to(bf16)
                           for n in (H, KV, KV))
-        geo = {bq: time_ms(lambda bq=bq: fa.flash_attention_blocks(
-            qx, kx, vx, bq), 20, torch) for bq in fa.BLOCK_Q}
         # the yardstick: torch's fused attention, KV heads repeated first
         G = H // KV
         qt = qx.transpose(1, 2).contiguous()
         kt = kx.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
         vt = vx.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20,
-                         torch)
+        calls = {"flash_attention": lambda: fa.flash_attention(qx, kx, vx),
+                 "sdpa": lambda: sdpa(qt, kt, vt, is_causal=True)}
+        # alternating rounds of each: 50 eager calls on CUDA events (the
+        # host's launch cost included), then 10 replays of a CUDA graph of
+        # 20 calls (device-bound; decides the order)
+        graphs = {n: cuda_graph(torch, fn, 20) for n, fn in calls.items()}
+        eager = {n: [] for n in calls}
+        dev_r = {n: [] for n in calls}
+        for _ in range(ATTN_ROUNDS):
+            for n, fn in calls.items():
+                eager[n].append(time_ms(fn, 50, torch))
+                dev_r[n].append(time_ms(graphs[n].replay, 10, torch) / 20)
+        del graphs
+        med = {n: statistics.median(r) for n, r in dev_r.items()}
+        a, b = dev_r["flash_attention"], dev_r["sdpa"]
+        wins = sum(x < y for x, y in zip(a, b))
+        order = ("resolved" if max(a) < min(b) or min(a) > max(b) else
+                 "unresolved (ranges overlap)")
         if B == 1:
-            fa_lib = lib_ms
-        rule = fa.DEFAULT_BLOCK_Q
+            fa_ms, fa_lib = med["flash_attention"], med["sdpa"]
         print(f"time flash_attention B={B} S={Sx} H={H} KV={KV} hd={hd} "
-              f"bf16 causal (tensor cores): " + "; ".join(
-                  f"block_q={bq} {ms:.4f} ms{' (rule)' if bq == rule else ''}"
-                  for bq, ms in geo.items()) +
-              f"; scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
-    print(f"time flash_attention B=1 S={S} (rule): {fa_ms:.4f} ms; plain "
+              f"bf16 causal, {ATTN_ROUNDS} alternating rounds, CUDA graph "
+              f"(device-bound): kernel {spread(a)}; "
+              f"scaled_dot_product_attention {spread(b)}; kernel faster in "
+              f"{wins} of {ATTN_ROUNDS}, ordering {order}; eager (host "
+              f"launch included): kernel {spread(eager['flash_attention'])}"
+              f"; scaled_dot_product_attention {spread(eager['sdpa'])}",
+              flush=True)
+    print(f"time flash_attention B=1 S={S}: {fa_ms:.4f} ms; plain "
           f"{fa_plain:.3f} ms; scaled_dot_product_attention {fa_lib:.4f} "
           f"ms; bound {fa_bound:.4f} ms ({fa_by})", flush=True)
     # the tensor-core kernel must really issue wgmma (SASS HGMMA)
@@ -420,7 +465,7 @@ def model_times(torch, dev, err, served):
     funcs = {b.split("\n", 1)[0].strip(): b.count("HGMMA")
              for b in sass.split("Function : ")[1:]}
     tc = {f: n for f, n in funcs.items() if "flash_attention_tc" in f}
-    check(len(tc) == 2 * len(fa.BLOCK_Q) and all(tc.values()),
+    check(len(tc) == len(fa.TC_HEAD_DIMS) and all(tc.values()),
           f"the bfloat16 tensor-core kernels show no HGMMA in SASS: {tc}")
     print(f"SASS: HGMMA in every tensor-core instantiation "
           f"{sorted(tc.values())}, none in the CUDA-core kernel "
@@ -1287,15 +1332,20 @@ def main() -> int:
 
     # the §VII-C grid through the climb kernel: timed, not compared (the
     # plain climb would take ~1e5 host steps a request there)
-    big_be = ps.CudaPlanBackend()
-    broker = PlanBroker(big_be)
+    def plan_big():
+        be = ps.CudaPlanBackend()
+        broker = PlanBroker(be)
+        plans = RAQO(schema=schema, models=cm.simulator_cost_models(),
+                     cluster=big, resource_planning="ensemble", backend=be,
+                     broker=broker).plan_queries(queries)
+        return be, broker, plans
+
     ps.reset_launch_counts()
     t = time.perf_counter()
-    plans = RAQO(schema=schema, models=cm.simulator_cost_models(),
-                 cluster=big, resource_planning="ensemble", backend=big_be,
-                 broker=broker).plan_queries(queries)
+    big_be, broker, plans = plan_big()
     torch.cuda.synchronize()
     big_s = time.perf_counter() - t
+    big_launches = ps.ensemble_climb.launches
     check(len(plans) == len(queries) and all(
         jp.plan is not None and math.isfinite(jp.exec_time)
         for jp in plans), "ensemble at 100K containers: missing plan")
@@ -1305,9 +1355,16 @@ def main() -> int:
     print(f"main ensemble at {big.grid_size()} configs (kernel only, plans "
           f"not compared with plain): plan_queries {big_s:.3f} s, waves "
           f"{c['waves']}, requests {c['requests']}, max wave "
-          f"{c['max_wave']}, ensemble_climb launches "
-          f"{ps.ensemble_climb.launches}, largest climb group "
-          f"{big_be.max_climb_stack}", flush=True)
+          f"{c['max_wave']}, ensemble_climb launches {big_launches}, "
+          f"largest climb group {big_be.max_climb_stack}", flush=True)
+    # the device time of all of one run's climb launches (torch.profiler)
+    big_climb_ms = device_ms(torch, plan_big, 1, "ensemble_climb",
+                             big_launches)
+    big_climb_txt = ("not measured (the profiler dropped launches)"
+                     if big_climb_ms is None else f"{big_climb_ms} ms")
+    print(f"main ensemble at {big.grid_size()} configs: ensemble_climb "
+          f"device time of one plan_queries {big_climb_txt} over "
+          f"{big_launches} launches", flush=True)
 
     # 5. times at the main path's largest wave shape ----------------------- #
     Q = max(1, cuda_be.max_stack)
@@ -1345,35 +1402,68 @@ def main() -> int:
           f"{nb_plain:.4f} ms; bound {nb_bound:.7f} ms ({nb_by})",
           flush=True)
 
-    # the climb at the main path's largest climb group (the ensemble grid)
+    # the climb at the main path's largest climb group (the ensemble grid),
+    # then at the 100K run's, from each grid's own starts
     from repro_torch.core.planning_backend import start_indices
-    Qc = max(1, cuda_be.max_climb_stack)
+    ITERS = 100_000                           # the planners' max_iters
+
+    def climb_time(cl, cdims, Qc, plain: bool):
+        starts = torch.tensor(start_indices(cl, None, 24, 0), device=dev)
+        pc = params_for(surface, Qc)
+        out = ps.ensemble_climb(surface, cdims, starts, pc, ITERS)
+        ms = time_ms(lambda: ps.ensemble_climb(surface, cdims, starts, pc,
+                                               ITERS), 10, torch)
+        pl = None
+        if plain:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ps.ensemble_climb_ref(surface, cdims, starts, pc, ITERS)
+            e1.record()
+            torch.cuda.synchronize()
+            pl = e0.elapsed_time(e1)          # one call: ~1e3 host steps
+        S, D = starts.shape
+        # reads the starts and params, writes index, cost and three counts
+        # per (request, start); costs each start's first centre and every
+        # in-grid neighbour its iterations visit (a later centre's cost is
+        # the previous best; an off-grid slot costs nothing)
+        bnd, by = bound_ms(
+            starts.numel() * 8 + pc.numel() * 4 + Qc * S * (D * 8 + 4 + 3 * 8),
+            (int(out[3].sum()) + Qc * S) * surface_ops(surface))
+        chain = int(out[2].max())             # the longest start's
+        pl_txt = ("not timed (~1e5 host steps a request)" if pl is None
+                  else f"{pl:.3f} ms")
+        print(f"time ensemble_climb sim/SMJ/time Q={Qc} S={S} on "
+              f"{cl.grid_size()} configs: {ms:.4f} ms; plain {pl_txt}; "
+              f"bound {bnd:.7f} ms ({by}, {int(out[2].sum())} "
+              f"start-iterations, {int(out[3].sum())} in-grid "
+              f"neighbours); longest chain {chain} iterations, "
+              f"{ms * 1e6 / max(chain, 1):.1f} ns an iteration", flush=True)
+        return pc, out, ms, pl, bnd, by
+
     ens = scaled_cluster(ENSEMBLE_CONTAINERS, 100)
-    starts = torch.tensor(start_indices(ens, None, 24, 0), device=dev)
-    pc = params_for(surface, Qc)
-    out = ps.ensemble_climb(surface, ens_dims, starts, pc, 100_000)
-    steps = int(out[2].sum())                 # iterations over all starts
-    chain = int(out[2].max())                 # the longest start's
-    cl_ms = time_ms(lambda: ps.ensemble_climb(surface, ens_dims, starts, pc,
-                                              100_000), 10, torch)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    ps.ensemble_climb_ref(surface, ens_dims, starts, pc, 100_000)
-    e1.record()
-    torch.cuda.synchronize()
-    cl_plain = e0.elapsed_time(e1)            # one call: ~1e3 host steps
-    D = len(ens_dims)
-    # reads the starts and params, writes index, cost and three counts per
-    # (request, start); each iteration costs the centre and 2D neighbours
-    cl_bound, cl_by = bound_ms(
-        starts.numel() * 8 + pc.numel() * 4 + Qc * starts.shape[0] *
-        (D * 8 + 4 + 3 * 8), steps * (2 * D + 1) * surface_ops(surface))
-    print(f"time ensemble_climb sim/SMJ/time Q={Qc} S={starts.shape[0]} "
-          f"on {ens.grid_size()} configs: {cl_ms:.4f} ms; plain "
-          f"{cl_plain:.3f} ms; bound {cl_bound:.7f} ms ({cl_by}, {steps} "
-          f"start-iterations); longest chain {chain} iterations, "
-          f"{cl_ms * 1e6 / chain:.1f} ns an iteration", flush=True)
+    _, _, cl_ms, cl_plain, cl_bound, cl_by = climb_time(
+        ens, ens_dims, max(1, cuda_be.max_climb_stack), True)
+    Qb = max(1, big_be.max_climb_stack)
+    pb, out = climb_time(big, dims, Qb, False)[:2]
+    # the long chains, checked without the plain climb: at each final
+    # index one plain step finds the kernel's cost, and no strictly better
+    # in-grid neighbour where the start stopped before ITERS
+    for qi in range(Qb):
+        centre, best, _ = ps.neighbor_step_ref(surface, dims, out[0][qi],
+                                               pb[qi:qi + 1])
+        stopped = out[2][qi] < ITERS
+        check(torch.equal(centre, out[1][qi]) and
+              not bool((stopped & (best < centre)).any()),
+              f"ensemble_climb on {big.grid_size()} configs, request {qi}: "
+              f"a final index is not a local minimum of the plain surface "
+              f"or its cost differs")
+    cut = int((out[2] >= ITERS).sum())
+    print(f"ensemble_climb on {big.grid_size()} configs: the costs of all "
+          f"{Qb} x {out[2].shape[1]} final indices equal the plain "
+          f"surface's, and the {Qb * out[2].shape[1] - cut} starts that "
+          f"stopped before {ITERS} iterations end at local minima ({cut} "
+          f"cut there; chains up to {int(out[2].max())})", flush=True)
 
     src = "src/repro_torch/kernels/csrc/plan_scan.cu"
     kernels = [

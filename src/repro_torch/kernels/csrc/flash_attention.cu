@@ -38,8 +38,8 @@
 //     of 3 stages (hd 64) or 2 (hd 128) guarded by "full" (transaction
 //     bytes) and "empty" (consumer warps) mbarriers, so the copies run
 //     ahead of the math;
-//   - one or two consumer warpgroups own 64 query rows each (block_q 64 or
-//     128, chosen by the wrapper); S = Q K^T is wgmma m64n64k16 with both
+//   - one consumer warpgroup owns the block's 64 query rows; S = Q K^T is
+//     wgmma m64n64k16 with both
 //     operands in shared memory (K-major, 128-byte swizzle: hd = 64 bf16 is
 //     one 128-byte row; hd = 128 is two 64-column halves);
 //   - the online softmax runs on the accumulator fragment (rows reduced
@@ -52,7 +52,8 @@
 //     next batch (a V row of another batch times p = 0 could be 0 * inf).
 // Tried on the card and left out, all slower here: issuing the next tile's
 // S before this tile's softmax (ptxas then serialises the wgmma around the
-// barrier waits), kv tiles of 128 rows, and rings deeper than 3 stages.
+// barrier waits), kv tiles of 128 rows, rings deeper than 3 stages, and
+// 128 query rows a block (two consumer warpgroups sharing each K/V tile).
 // The maps are encoded on the host (cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint) once per (pointer, shape).
 //
@@ -87,7 +88,6 @@ struct AttnArgs {
     int has_cap;
     float cap;
     float scale;           // hd^-1/2, rounded to float32 once
-    int block_q;           // tensor-core kernel: 64 or 128 query rows
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -373,9 +373,9 @@ struct Maps {
     CUtensorMap q, k, v;
 };
 
-// NWG consumer warpgroups (64 query rows each) and one producer warp
-template <int HD, int NWG>
-__global__ void __launch_bounds__(NWG * 128 + 32)
+// one consumer warpgroup (64 query rows) and one producer warp
+template <int HD>
+__global__ void __launch_bounds__(128 + 32)
 flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
                    __nv_bfloat16* __restrict__ o) {
     constexpr int NC = HD / 64;                 // 64-column chunks of hd
@@ -384,7 +384,7 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
     uint8_t* base = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
     __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base);
-    __nv_bfloat16* ks = qs + NWG * NC * CHUNK;  // [stage][chunk]
+    __nv_bfloat16* ks = qs + NC * CHUNK;        // [stage][chunk]
     __nv_bfloat16* vs = ks + ST * NC * CHUNK;
     uint64_t* full = reinterpret_cast<uint64_t*>(vs + ST * NC * CHUNK);
     uint64_t* empty = full + ST;
@@ -394,8 +394,8 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
     const int tile = gridDim.x - 1 - blockIdx.x;
     const int h = blockIdx.y, b = blockIdx.z;
     const int kvh = h / (int)(a.H / a.KV);
-    const int64_t q0 = (int64_t)tile * (NWG * TILE);
-    const int64_t q_last = (q0 + NWG * TILE < a.S ? q0 + NWG * TILE : a.S) - 1;
+    const int64_t q0 = (int64_t)tile * TILE;
+    const int64_t q_last = (q0 + TILE < a.S ? q0 + TILE : a.S) - 1;
     int64_t kv_begin = 0, kv_end = a.Skv;
     if (a.causal) {
         if (q_last + 1 < kv_end) kv_end = q_last + 1;
@@ -409,20 +409,19 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
     if (threadIdx.x == 0) {
         for (int st = 0; st < ST; ++st) {
             mbar_init(&full[st], 1);
-            mbar_init(&empty[st], NWG * 4);
+            mbar_init(&empty[st], 4);
         }
         mbar_init(qbar, 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
 
-    if (threadIdx.x >= NWG * 128) {             // the producer warp
-        if (threadIdx.x == NWG * 128) {
-            mbar_expect_tx(qbar, NWG * NC * CHUNK_BYTES);
-            for (int w = 0; w < NWG; ++w)
-                for (int c = 0; c < NC; ++c)
-                    tma_load(qs + (w * NC + c) * CHUNK, &maps.q, qbar,
-                             c * 64, h, (int)q0 + w * TILE, b);
+    if (threadIdx.x >= 128) {                   // the producer warp
+        if (threadIdx.x == 128) {
+            mbar_expect_tx(qbar, NC * CHUNK_BYTES);
+            for (int c = 0; c < NC; ++c)
+                tma_load(qs + c * CHUNK, &maps.q, qbar, c * 64, h, (int)q0,
+                         b);
             for (int i = 0; i < n_tiles; ++i) {
                 const int s = i % ST;
                 mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
@@ -439,13 +438,9 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
         return;
     }
 
-    // a consumer warpgroup: rows wq0 .. wq0 + 63, this thread's r0, r0 + 8
-    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
-    const int warp = t / 32, lane = t % 32;
-    const int64_t wq0 = q0 + wg * TILE;
-    const int64_t wq_last = (wq0 + TILE < a.S ? wq0 + TILE : a.S) - 1;
-    const int64_t r0 = wq0 + warp * 16 + lane / 4, r1 = r0 + 8;
-    const __nv_bfloat16* qw = qs + wg * NC * CHUNK;
+    // the consumer warpgroup: rows q0 .. q_last, this thread's r0, r0 + 8
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int64_t r0 = q0 + warp * 16 + lane / 4, r1 = r0 + 8;
     // the softmax runs in the log2 domain: y = score * log2(e), masked
     // scores at -1e30 * log2(e), so p = exp2(y - m) is exp(score - max)
     const float sl2 = a.scale * LOG2E, capl2 = a.cap * LOG2E;
@@ -465,111 +460,101 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
         const int s = i % ST;
         const int64_t k0 = (int64_t)(t_begin + i) * TILE;
         mbar_wait(&full[s], (i / ST) & 1);
-        // tiles wholly above this warpgroup's diagonal, or wholly left of
-        // its window, would add p = 0 exactly: skip them
-        bool skip = wq0 >= a.S;
-        if (a.causal) {
-            skip = skip || k0 > wq_last;
-            if (a.window > 0)
-                skip = skip || k0 + TILE - 1 < wq0 - a.window + 1;
+        const __nv_bfloat16* kt = ks + s * NC * CHUNK;
+        const __nv_bfloat16* vt = vs + s * NC * CHUNK;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const int c = kk / 4, off = (kk % 4) * 16;
+            wgmma_ss_n64(sc, desc(qs + c * CHUNK + off, 16, 1024),
+                         desc(kt + c * CHUNK + off, 16, 1024), kk > 0);
         }
-        if (!skip) {
-            const __nv_bfloat16* kt = ks + s * NC * CHUNK;
-            const __nv_bfloat16* vt = vs + s * NC * CHUNK;
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk) {
-                const int c = kk / 4, off = (kk % 4) * 16;
-                wgmma_ss_n64(sc, desc(qw + c * CHUNK + off, 16, 1024),
-                             desc(kt + c * CHUNK + off, 16, 1024), kk > 0);
-            }
-            wgmma_commit();
-            wgmma_wait();
+        wgmma_commit();
+        wgmma_wait();
 
-            // scale, softcap and masks: register 4j + e holds row r0 (e < 2)
-            // or r1 = r0 + 8, column k0 + c with c = 8j + 2 (lane % 4) +
-            // (e & 1); each branch is taken for the whole tile, so the
-            // softcap and the masks cost nothing on the tiles without them
-            if (a.has_cap) {
+        // scale, softcap and masks: register 4j + e holds row r0 (e < 2)
+        // or r1 = r0 + 8, column k0 + c with c = 8j + 2 (lane % 4) +
+        // (e & 1); each branch is taken for the whole tile, so the
+        // softcap and the masks cost nothing on the tiles without them
+        if (a.has_cap) {
 #pragma unroll
-                for (int i = 0; i < 32; ++i)
-                    sc[i] = tanhf(sc[i] * a.scale / a.cap) * capl2;
-            } else {
+            for (int i = 0; i < 32; ++i)
+                sc[i] = tanhf(sc[i] * a.scale / a.cap) * capl2;
+        } else {
 #pragma unroll
-                for (int i = 0; i < 32; ++i) sc[i] *= sl2;
-            }
-            if (k0 + TILE > a.Skv || (a.causal && (k0 + TILE - 1 > wq0 ||
-                    (a.window > 0 && k0 < wq_last - a.window + 1)))) {
-                const int dq = (int)(k0 - r0);      // kpos - qpos at c = 0
-                const int lim = (int)(a.Skv - k0 < TILE ? a.Skv - k0 : TILE);
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int c = j * 8 + (lane % 4) * 2 + (e & 1);
-                        const int d = dq + c - (e < 2 ? 0 : 8);
-                        if (a.causal && (d > 0 || (a.window > 0 &&
-                                                   -d >= a.window)))
-                            sc[j * 4 + e] = mask2;
-                        if (c >= lim) sc[j * 4 + e] = -INFINITY;  // p = 0
-                    }
-                }
-            }
-            float mx0 = -INFINITY, mx1 = -INFINITY;
+            for (int i = 0; i < 32; ++i) sc[i] *= sl2;
+        }
+        if (k0 + TILE > a.Skv || (a.causal && (k0 + TILE - 1 > q0 ||
+                (a.window > 0 && k0 < q_last - a.window + 1)))) {
+            const int dq = (int)(k0 - r0);      // kpos - qpos at c = 0
+            const int lim = (int)(a.Skv - k0 < TILE ? a.Skv - k0 : TILE);
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-                mx0 = fmaxf(mx0, fmaxf(sc[j * 4], sc[j * 4 + 1]));
-                mx1 = fmaxf(mx1, fmaxf(sc[j * 4 + 2], sc[j * 4 + 3]));
-            }
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-            const float corr0 = ex2(m0 - mn0), corr1 = ex2(m1 - mn1);
-            float ps0 = 0.f, ps1 = 0.f;
-            uint32_t pa[4][4];   // the A operand of P V, one k16 step a row
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    // registers 8kk + 2r and + 1: row r0 for even r, else r1
-                    const int i0 = 8 * kk + 2 * r;
-                    const float mr = (r & 1) ? mn1 : mn0;
-                    const float p0 = ex2(sc[i0] - mr);
-                    const float p1 = ex2(sc[i0 + 1] - mr);
-                    if (r & 1) ps1 += p0 + p1; else ps0 += p0 + p1;
-                    pa[kk][r] = pack_bf16(p0, p1);
+                for (int e = 0; e < 4; ++e) {
+                    const int c = j * 8 + (lane % 4) * 2 + (e & 1);
+                    const int d = dq + c - (e < 2 ? 0 : 8);
+                    if (a.causal && (d > 0 || (a.window > 0 &&
+                                               -d >= a.window)))
+                        sc[j * 4 + e] = mask2;
+                    if (c >= lim) sc[j * 4 + e] = -INFINITY;  // p = 0
                 }
             }
-            ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
-            ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
-            ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
-            ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
-            l0 = l0 * corr0 + ps0;
-            l1 = l1 * corr1 + ps1;
-            m0 = mn0;
-            m1 = mn1;
+        }
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            mx0 = fmaxf(mx0, fmaxf(sc[j * 4], sc[j * 4 + 1]));
+            mx1 = fmaxf(mx1, fmaxf(sc[j * 4 + 2], sc[j * 4 + 3]));
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float corr0 = ex2(m0 - mn0), corr1 = ex2(m1 - mn1);
+        float ps0 = 0.f, ps1 = 0.f;
+        uint32_t pa[4][4];   // the A operand of P V, one k16 step a row
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                // registers 8kk + 2r and + 1: row r0 for even r, else r1
+                const int i0 = 8 * kk + 2 * r;
+                const float mr = (r & 1) ? mn1 : mn0;
+                const float p0 = ex2(sc[i0] - mr);
+                const float p1 = ex2(sc[i0 + 1] - mr);
+                if (r & 1) ps1 += p0 + p1; else ps0 += p0 + p1;
+                pa[kk][r] = pack_bf16(p0, p1);
+            }
+        }
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+        ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+        ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+        l0 = l0 * corr0 + ps0;
+        l1 = l1 * corr1 + ps1;
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                acc[c][j * 4 + 0] *= corr0;
+                acc[c][j * 4 + 1] *= corr0;
+                acc[c][j * 4 + 2] *= corr1;
+                acc[c][j * 4 + 3] *= corr1;
+            }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
             for (int c = 0; c < NC; ++c)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    acc[c][j * 4 + 0] *= corr0;
-                    acc[c][j * 4 + 1] *= corr0;
-                    acc[c][j * 4 + 2] *= corr1;
-                    acc[c][j * 4 + 3] *= corr1;
-                }
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-                for (int c = 0; c < NC; ++c)
-                    wgmma_rs_n64(acc[c], pa[kk],
-                                 desc(vt + c * CHUNK + kk * 16 * 64,
-                                      1024, 1024));
-            wgmma_commit();
-            wgmma_wait();
-        }
+                wgmma_rs_n64(acc[c], pa[kk],
+                             desc(vt + c * CHUNK + kk * 16 * 64,
+                                  1024, 1024));
+        wgmma_commit();
+        wgmma_wait();
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with s
     }
@@ -657,7 +642,7 @@ static int encode(CUtensorMap* out, const void* ptr, int64_t batch,
     return 0;
 }
 
-template <int HD, int NWG>
+template <int HD>
 static int launch(const AttnArgs& a, const void* q, const void* k,
                   const void* v, void* o, cudaStream_t stream) {
     Maps maps;
@@ -667,15 +652,15 @@ static int launch(const AttnArgs& a, const void* q, const void* k,
     if (err) return err;
     constexpr int NC = HD / 64;
     constexpr int ST = stages(HD);
-    const size_t smem = 1024 + (size_t)(NWG + 2 * ST) * NC * CHUNK_BYTES +
+    const size_t smem = 1024 + (size_t)(1 + 2 * ST) * NC * CHUNK_BYTES +
                         (2 * ST + 1) * sizeof(uint64_t);
     cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_tc<HD, NWG>,
+        flash_attention_tc<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((unsigned)((a.S + NWG * TILE - 1) / (NWG * TILE)),
-              (unsigned)a.H, (unsigned)a.B);
-    flash_attention_tc<HD, NWG><<<grid, NWG * 128 + 32, smem, stream>>>(
+    dim3 grid((unsigned)((a.S + TILE - 1) / TILE), (unsigned)a.H,
+              (unsigned)a.B);
+    flash_attention_tc<HD><<<grid, 128 + 32, smem, stream>>>(
         maps, a, (__nv_bfloat16*)o);
     return (int)cudaGetLastError();
 }
@@ -684,14 +669,8 @@ static int dispatch(const AttnArgs& a, const void* q, const void* k,
                     const void* v, void* o, cudaStream_t stream) {
     if (a.Skv == 0)                  // nothing to attend to: zeros
         return (int)cudaMemsetAsync(o, 0, a.B * a.S * a.H * a.hd * 2, stream);
-    const bool two = a.block_q == 128;
-    if (a.block_q != 64 && !two) return (int)cudaErrorInvalidValue;
-    if (a.hd == 64)
-        return two ? launch<64, 2>(a, q, k, v, o, stream)
-                   : launch<64, 1>(a, q, k, v, o, stream);
-    if (a.hd == 128)
-        return two ? launch<128, 2>(a, q, k, v, o, stream)
-                   : launch<128, 1>(a, q, k, v, o, stream);
+    if (a.hd == 64) return launch<64>(a, q, k, v, o, stream);
+    if (a.hd == 128) return launch<128>(a, q, k, v, o, stream);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -713,8 +692,8 @@ static int dispatch(const AttnArgs& a, const void* q, const void* k,
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o share it); bfloat16 with hd
-// 64 or 128 takes the tensor-core kernel at args->block_q query rows a
-// block, everything else the CUDA-core kernel
+// 64 or 128 takes the tensor-core kernel, everything else the CUDA-core
+// kernel
 int flash_attention(const AttnArgs* args, int dtype, const void* q,
                     const void* k, const void* v, void* o, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;

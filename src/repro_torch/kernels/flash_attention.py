@@ -5,7 +5,7 @@ CUDA kernels in ``csrc/flash_attention.cu`` replace the Pallas ``_kernel``
 (one block per (batch, head, query tile), a loop over 64-row kv tiles in
 shared memory, float32 online softmax; see the source's note for what
 bounds them).  bfloat16 with a head dim in ``TC_HEAD_DIMS`` runs on the
-tensor cores (wgmma, TMA tiles, ``DEFAULT_BLOCK_Q`` query rows a block);
+tensor cores (wgmma, TMA tiles, 64 query rows a block);
 float32 and the other head dims run on the CUDA cores.
 ``flash_attention`` launches them for CUDA tensors and takes the plain
 version, ``ref.attention_ref``, only for CPU tensors.  It keeps a plain
@@ -28,11 +28,6 @@ from repro_torch.kernels.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernel's instantiations
 TC_HEAD_DIMS = (64, 128)                 # bfloat16 on the tensor cores
-# query rows a tensor-core block owns: one consumer warpgroup (64) or two
-# sharing each K/V tile (128); chip_smoke.py times both, and 64 was the
-# faster at every shape it times (PERF.md)
-BLOCK_Q = (64, 128)
-DEFAULT_BLOCK_Q = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535                      # CUDA's bound on gridDim.y and .z
 
@@ -43,7 +38,7 @@ class _AttnArgs(ctypes.Structure):
                 ("KV", ctypes.c_int64), ("hd", ctypes.c_int64),
                 ("causal", ctypes.c_int), ("window", ctypes.c_int),
                 ("has_cap", ctypes.c_int), ("cap", ctypes.c_float),
-                ("scale", ctypes.c_float), ("block_q", ctypes.c_int)]
+                ("scale", ctypes.c_float)]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -60,18 +55,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, hd); k, v: (B, Skv, KV, hd) -> (B, S, H, hd) in q's
     dtype.  CUDA tensors launch the kernel on the current stream without
     syncing; CPU tensors take ``attention_ref``."""
-    return flash_attention_blocks(q, k, v, None, causal=causal,
-                                  window=window, attn_softcap=attn_softcap)
-
-
-def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, block_q: Optional[int], *,
-                           causal: bool = True, window: Optional[int] = None,
-                           attn_softcap: Optional[float] = None
-                           ) -> torch.Tensor:
-    """``flash_attention`` with the tensor-core kernel's query rows a block
-    given (``block_q`` in ``BLOCK_Q``; None takes ``DEFAULT_BLOCK_Q``), so
-    both geometries can be timed; ignored by the CUDA-core kernel."""
     B, S, H, hd = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or \
             k.shape[3] != hd or H % k.shape[2]:
@@ -91,14 +74,10 @@ def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
                          f"{HEAD_DIMS}), H={H}, B={B}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
-    tc = q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
-    if block_q is None:
-        block_q = DEFAULT_BLOCK_Q
-    if tc and (block_q not in BLOCK_Q or
-               any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError(f"flash_attention tensor-core kernel takes "
-                         f"block_q in {BLOCK_Q} and 16-byte aligned q, k, "
-                         f"v (block_q={block_q})")
+    if q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention tensor-core kernel takes 16-byte "
+                         "aligned q, k, v")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -106,12 +85,12 @@ def flash_attention_blocks(q: torch.Tensor, k: torch.Tensor,
                      0 if window is None else int(window),
                      int(attn_softcap is not None),
                      0.0 if attn_softcap is None else float(attn_softcap),
-                     hd ** -0.5, block_q)
+                     hd ** -0.5)
     lib = load_library("flash_attention")
     check_launch(lib.flash_attention(
         ctypes.addressof(args), DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), stream(q.device)), "flash_attention")
-    flash_attention.launches += 1        # one counter for every geometry
+    flash_attention.launches += 1
     return out
 
 

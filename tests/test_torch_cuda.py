@@ -124,7 +124,6 @@ def test_flash_attention_matches_plain(dev, dtype, tol, B, S, Skv, H, KV,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("block_q", [None, 64, 128])
 @pytest.mark.parametrize("B,S,Skv,H,KV,hd,opts", [
     (4, 256, 256, 15, 5, 64, {}),
     (1, 100, 100, 15, 5, 64, dict(window=24, attn_softcap=30.0)),
@@ -134,15 +133,15 @@ def test_flash_attention_matches_plain(dev, dtype, tol, B, S, Skv, H, KV,
     (1, 64, 96, 4, 1, 128, dict(causal=False)),
     (3, 1, 1, 2, 1, 64, {}),
 ])
-def test_flash_attention_tensor_cores_match_plain(dev, block_q, B, S, Skv,
-                                                  H, KV, hd, opts):
-    """bfloat16 at hd 64 and 128 takes the wgmma/TMA kernel, at each block
-    geometry: ragged S and Skv, window and softcap, non-causal."""
+def test_flash_attention_tensor_cores_match_plain(dev, B, S, Skv, H, KV,
+                                                  hd, opts):
+    """bfloat16 at hd 64 and 128 takes the wgmma/TMA kernel: ragged S and
+    Skv, window and softcap, non-causal."""
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
     k = torch.randn((B, Skv, KV, hd), generator=g, device=dev).bfloat16()
     v = torch.randn((B, Skv, KV, hd), generator=g, device=dev).bfloat16()
-    got = fa.flash_attention_blocks(q, k, v, block_q, **opts)
+    got = fa.flash_attention(q, k, v, **opts)
     want = ref.attention_ref(q, k, v, **opts)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
