@@ -14,9 +14,12 @@ Phases (any failure exits nonzero; there is no CPU path):
              hash_join.cu, merge_join.cu) with nvcc, one process per
              source, all started together;
 3. parity  — each CUDA kernel against its plain torch version on the card:
-             scan_argmin at both launch geometries over every shipped
+             scan_argmin at both launch geometries over every shipped DB
              surface x objective, the 10M-row scaled_cluster(100_000, 100)
-             grid and a ragged grid, Q in {1, 8, 65}, an all-OOM case;
+             grid (Q in {1, 8, 65}) and grids whose container sizes (7,
+             100, 10 explicit values) do not divide the scan's tiles and
+             whose last tile is ragged (Q in {1, 8, 63, 64, 65}), an
+             all-OOM case and a tie plateau across tile boundaries;
              neighbor_step with 26 starts; ensemble_climb (Q requests x 26
              starts in one launch) over every surface on the ragged grid
              (max_iters 200), on the 10M-row grid (Q=2, max_iters 2000: its
@@ -47,8 +50,10 @@ Phases (any failure exits nonzero; there is no CPU path):
              512}, float32 and bfloat16, plus window+softcap and
              non-causal cases) within 1e-5 (float32) / 2e-2 (bfloat16) of
              attention_ref; selective_scan at falcon-mamba-7b's width
-             (D=8192, N=16, B=4, S in {16, 100, 512}, with and without h0)
-             within 1e-4 of selective_scan_ref (allclose, atol = rtol);
+             (D=8192, B in {1, 4}, S in {1, 16, 31, 32, 33, 100, 512}
+             across the 32-step chunk edge, every N the kernel takes, with
+             and without h0, float32 and bfloat16) within 1e-4 of
+             selective_scan_ref (allclose, atol = rtol);
 7. serve   — launch.serve.serve for smollm-360m and falcon-mamba-7b at full
              width and depth, seeded random parameters on the card, 8
              requests, 4 slots, prompt 256, 32 new tokens: in float32
@@ -63,8 +68,12 @@ Phases (any failure exits nonzero; there is no CPU path):
              never calls it) in alternating rounds, each timed eagerly and
              as replays of a CUDA graph (device-bound, no host launch cost);
              the built library's SASS must show HGMMA in the tensor-core
-             kernel; selective_scan at B=1, S=4096, D=8192,
-             N=16 against selective_scan_ref;
+             kernel; selective_scan at B=1, S=4096 and at the serve shape
+             (B=4, S=256), D=8192, N=16, against selective_scan_ref; the
+             SASS instruction counts of the scan's per-row body and of
+             K8's per-step body (cuobjdump --dump-sass) and, with the SM
+             clock read under load (nvidia-smi), an estimate of the share
+             of the card's issue rate each kernel takes;
 9. joins   — ops.bhj_join and ops.smj_join at TPC-H SF 100 (row counts from
              tpch_schema(100)), data made on the card from a seeded
              generator: lineitem x supplier on suppkey (BHJ, 600M probes
@@ -103,14 +112,19 @@ Phases (any failure exits nonzero; there is no CPU path):
              requests, a sharding planner and a TPC-H RAQO session, plans
              equal to solo planning; the roofline scan's time.
 
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+Every kernel's device time over its own path's launches (torch.profiler
+over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
+record as path_ms / path_launches, and path_source says how it was read
+("torch.profiler", or CUDA events around the wrapper's calls where the
+profiler dropped launches: an upper bound).  The last two lines are the
+kernels' JSON record and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -128,6 +142,7 @@ H100_HBM_BYTES_S = 3.35e12     # HBM3, H100 SXM
 # (every add, mul, IEEE division, logf, max, compare counted as one; the
 # strict-< fold adds one) — a lower bound: a division is ~10 instructions
 SURFACE_OPS = {"regression": 18, "regression+oom": 20, "smj": 23, "bhj": 15}
+ROWS_PER_THREAD = 8            # plan_scan.cu: a scan thread's rows
 OBJECTIVE_OPS = {"time": 0, "money": 5, "sla": 5}
 FOLD_OPS = 1
 
@@ -165,6 +180,32 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+# the same surfaces in the DB scan's hoisted form (plan_scan.cu
+# scan_db_kernel): per (row, request) only what needs both (SMJ two
+# divisions, a max, a multiply and two adds; BHJ a compare and a select;
+# the regression five adds and the floor's max, its OOM mask a compare and
+# a select), per (request, dim-0 value) SMJ's and BHJ's quotients, per row
+# the request-free terms
+HOISTED_ROW_OPS = {"regression": 6, "regression+oom": 8, "smj": 6, "bhj": 2}
+HOISTED_QN_OPS = {"regression": 0, "regression+oom": 0, "smj": 8, "bhj": 13}
+HOISTED_R_OPS = {"regression": 8, "regression+oom": 9, "smj": 3, "bhj": 1}
+
+
+def scan_ops(surface, dims, Q: int):
+    """FP32 operations of a DB scan of ``Q`` requests over the grid
+    ``dims``, counted two ways: (each row's whole surface, the hoisted
+    form)."""
+    kind = surface.kind
+    if kind == "regression" and surface.oom:
+        kind = "regression+oom"
+    rows = math.prod(d.size for d in dims)
+    per_row = OBJECTIVE_OPS[surface.objective] + FOLD_OPS
+    return (rows * Q * surface_ops(surface),
+            rows * Q * (HOISTED_ROW_OPS[kind] + per_row) +
+            dims[0].size * Q * HOISTED_QN_OPS[kind] +
+            rows * HOISTED_R_OPS[kind])
+
+
 def surface_ops(surface) -> int:
     kind = surface.kind
     if kind == "regression" and surface.oom:
@@ -195,29 +236,97 @@ def time_ms(fn, reps: int, torch) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def profile_kernels(torch, fn, reps: int, kernels: dict) -> dict:
+    """One torch.profiler trace of ``reps`` calls of ``fn``: for each key
+    of ``kernels`` (a tuple of kernel name substrings), the device time of
+    those kernels' launches in ms and the number of launches it holds."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for key, names in kernels.items():
+        rows = [e for e in events if any(n in e.key for n in names)]
+        # self time: a kernel's own, never its parent op's again
+        out[key] = (sum(getattr(e, "self_device_time_total",
+                                getattr(e, "device_time_total", 0))
+                        for e in rows) / 1e3, sum(e.count for e in rows))
+    return out
+
+
 def device_ms(torch, fn, reps: int, kernel: str,
               launches: Optional[int] = None):
     """Device time of one launch of ``kernel`` (a name substring) over
     ``reps`` calls of ``fn``, or of one call's ``launches`` of it, from
     torch.profiler; None when the profiler records no device time for it,
     or not ``reps`` x ``launches`` launches (it can drop events)."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    # self time: a kernel's own, never its parent op's again
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "device_time_total", 0)) for e in rows)
-    count = sum(e.count for e in rows)
+    total, count = profile_kernels(torch, fn, reps, {0: (kernel,)})[0]
     if launches is not None:
         if count != reps * launches:
             return None
         count = reps
-    return total / count / 1e3 if count and total else None
+    return total / count if count and total else None
+
+
+class _Timed:
+    """A kernel wrapper that records CUDA events around each of its calls
+    (its launch counter stays the wrapped function's)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.events = torch, fn, []
+
+    def __call__(self, *args, **kwargs):
+        e0 = self.torch.cuda.Event(enable_timing=True)
+        e1 = self.torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = self.fn(*args, **kwargs)
+        e1.record()
+        self.events.append((e0, e1))
+        return out
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+
+def path_ms(torch, fn, kernels: dict) -> dict:
+    """The device time of each kernel's launches in one run of the path
+    ``fn`` (just run, so warm): ``kernels`` maps a key to (kernel name
+    substrings, the launches the path makes, (module, wrapper name)).
+    From one torch.profiler trace; where it holds another count of a
+    kernel (it can drop events) the profile is taken once more, and then
+    CUDA events around the wrapper's calls on one more run time it (the
+    wrapper's small tensor operations included, so an upper bound).  0.0
+    for a kernel the path does not launch.  Returns {key: (ms, how)}."""
+    out = {k: (0.0, "no launches") for k, v in kernels.items() if v[1] == 0}
+    for _ in range(2):
+        todo = {k: v for k, v in kernels.items() if k not in out}
+        if not todo:
+            return out
+        got = profile_kernels(torch, fn, 1,
+                              {k: v[0] for k, v in todo.items()})
+        for key, (total, count) in got.items():
+            if count == todo[key][1] and total:
+                out[key] = (total, "torch.profiler")
+    todo = {k: v for k, v in kernels.items() if k not in out}
+    timed = {k: _Timed(torch, getattr(*wrapper))
+             for k, (_, _, wrapper) in todo.items()}
+    for k, t in timed.items():
+        setattr(*todo[k][2], t)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for k, t in timed.items():
+            setattr(*todo[k][2], t.fn)
+    for k, t in timed.items():
+        out[k] = (sum(a.elapsed_time(b) for a, b in t.events),
+                  "CUDA events around the wrapper's calls (the profiler "
+                  "dropped launches)")
+    return out
 
 
 def cuda_graph(torch, fn, calls: int):
@@ -233,6 +342,71 @@ def cuda_graph(torch, fn, calls: int):
         for _ in range(calls):
             fn()
     return graph
+
+
+def sm_clock_mhz(torch, fn) -> Optional[float]:
+    """The SM clock in MHz (nvidia-smi) read while ``fn`` runs on the card
+    back to back, so the clock under that load; None if unread."""
+    import threading
+    got = []
+
+    def read():
+        time.sleep(0.3)
+        got.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True).stdout)
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    while reader.is_alive():
+        fn()
+    torch.cuda.synchronize()
+    try:
+        return float(got[0].split()[0])
+    except (IndexError, ValueError):
+        return None
+
+
+def issue_share(torch, warp_instrs: float, ms: float, mhz):
+    """The share of the card's issue rate (4 warp-instructions a clock an
+    SM) that ``warp_instrs`` warp-instructions in ``ms`` take at ``mhz``:
+    an estimate, as the count is static SASS times the loop's trips."""
+    if mhz is None:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return warp_instrs / (sms * 4 * mhz * 1e3 * ms)
+
+
+def sass_functions(path) -> dict:
+    """{mangled name: [(address, instruction)]} of a built library's SASS
+    (cuobjdump --dump-sass)."""
+    sass = subprocess.run(["cuobjdump", "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    line = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        out[name.strip()] = [(int(m.group(1), 16), m.group(2).strip())
+                             for m in line.finditer(body)]
+    return out
+
+
+def sass_loop(instrs, marker: str):
+    """The innermost loop (a backward branch's span) that holds ``marker``:
+    (its instruction count, how many of them contain ``marker``), or None.
+    An IEEE division's slow path and other calls lie outside the loop and
+    are not counted."""
+    best = None
+    for addr, ins in instrs:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [i for a, i in instrs if int(m.group(1), 16) <= a <= addr]
+        hits = sum(marker in i for i in body)
+        if hits and (best is None or len(body) < best[0]):
+            best = (len(body), hits)
+    return best
 
 
 def plan_signature(jp):
@@ -299,31 +473,51 @@ def model_kernel_parity(torch, dev):
               f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} {dt} "
               f"{opts}: max_abs_err {e} above {ATTN_TOL[dt]}")
         note("flash_attention", dt, e)
-    D, N = SCAN_WIDTH
-    for S in (16, 100, 512):
-        for dt in ("float32", "bfloat16"):
-            for with_h0 in (False, True):
-                dtype = getattr(torch, dt)
-                u = torch.randn((4, S, D), generator=g, device=dev).to(dtype)
-                dtv = torch.nn.functional.softplus(
-                    torch.randn((4, S, D), generator=g, device=dev) - 1)
-                A = -torch.exp(torch.randn((D, N), generator=g, device=dev)
-                               * 0.3)
-                Bm = torch.randn((4, S, N), generator=g, device=dev).to(dtype)
-                Cm = torch.randn((4, S, N), generator=g, device=dev).to(dtype)
-                h0 = torch.randn((4, D, N), generator=g, device=dev) \
-                    if with_h0 else None
-                y, h = ms.selective_scan(u, dtv, A, Bm, Cm, h0)
-                yr, hr = ref.selective_scan_ref(u, dtv, A, Bm, Cm, h0)
-                torch.cuda.synchronize()
-                ey, oky = allclose_err(y, yr, SCAN_TOL)
-                eh, okh = allclose_err(h, hr, SCAN_TOL)
-                check(oky and okh, f"selective_scan S={S} {dt} h0={with_h0}: "
-                      f"max_abs_err y {ey} h {eh} above {SCAN_TOL}")
-                note("selective_scan", dt, max(ey, eh))
-    print(f"model parity: {len(cases)} flash_attention and 12 "
-          f"selective_scan cases within tolerance; max_abs_err {err}",
-          flush=True)
+    # K8 at falcon-mamba-7b's width: B in {1, 4}, S across the 32-step
+    # chunk edge, every N the kernel instantiates, with and without h0;
+    # then narrower channels: 201 (a masked last block, 4-byte copies, and
+    # bfloat16 upcast), 204 (4-byte copies) and 4096 (8 lanes a channel)
+    shapes = [(B, SCAN_WIDTH[0], S) for B in (1, 4)
+              for S in (1, 16, 31, 32, 33, 100, 512)]
+    shapes += [(B, D, S) for B, D in ((2, 201), (2, 204), (1, 4096))
+               for S in (1, 33, 100)]
+    n_scan = 0
+    lane_counts = set()
+    for B, D, S in shapes:
+        for N in ms.STATE_SIZES:
+            lane_counts.add(ms.lanes(B, D, N))
+            for dt in ("float32", "bfloat16"):
+                for with_h0 in (False, True):
+                    dtype = getattr(torch, dt)
+                    u = torch.randn((B, S, D), generator=g,
+                                    device=dev).to(dtype)
+                    dtv = torch.nn.functional.softplus(torch.randn(
+                        (B, S, D), generator=g, device=dev) - 1)
+                    A = -torch.exp(torch.randn((D, N), generator=g,
+                                               device=dev) * 0.3)
+                    Bm = torch.randn((B, S, N), generator=g,
+                                     device=dev).to(dtype)
+                    Cm = torch.randn((B, S, N), generator=g,
+                                     device=dev).to(dtype)
+                    h0 = torch.randn((B, D, N), generator=g,
+                                     device=dev) if with_h0 else None
+                    y, h = ms.selective_scan(u, dtv, A, Bm, Cm, h0)
+                    yr, hr = ref.selective_scan_ref(u, dtv, A, Bm, Cm,
+                                                    h0)
+                    torch.cuda.synchronize()
+                    ey, oky = allclose_err(y, yr, SCAN_TOL)
+                    eh, okh = allclose_err(h, hr, SCAN_TOL)
+                    check(oky and okh,
+                          f"selective_scan B={B} S={S} D={D} N={N} {dt} "
+                          f"h0={with_h0}: max_abs_err y {ey} h {eh} "
+                          f"above {SCAN_TOL}")
+                    note("selective_scan", dt, max(ey, eh))
+                    n_scan += 1
+    check(lane_counts == set(ms.LANES),
+          f"selective_scan ran at lane counts {lane_counts}, not {ms.LANES}")
+    print(f"model parity: {len(cases)} flash_attention and {n_scan} "
+          f"selective_scan cases within tolerance (lanes a channel "
+          f"{sorted(lane_counts)}); max_abs_err {err}", flush=True)
     return err
 
 
@@ -375,18 +569,29 @@ def serve_phase(torch):
               f"launches {launches}; first tokens "
               f"{[run['tokens'][r][:4] for r in sorted(run['tokens'])][:2]}",
               flush=True)
-        out[arch] = (run, launches)
+        # the device time of the main path's launches of its kernel
+        kernel = {"smollm-360m": "flash_attention",
+                  "falcon-mamba-7b": "selective_scan"}[arch]
+        module = fa if kernel == "flash_attention" else ms
+        dev_ms, how = path_ms(torch, lambda: serve(cfg, **SERVE), {
+            kernel: ((kernel + "_",), launches[kernel],
+                     (module, kernel))})[kernel]
+        print(f"serve {arch} {cfg.dtype}: {kernel} device time on the path "
+              f"{dev_ms} ms over {launches[kernel]} launches ({how})",
+              flush=True)
+        out[arch] = (run, launches, dev_ms, how)
         torch.cuda.empty_cache()
     check(out["smollm-360m"][1]["flash_attention"] > 0 and
           out["falcon-mamba-7b"][1]["selective_scan"] > 0,
           f"a model kernel never launched on its main path: "
-          f"{ {a: l for a, (_, l) in out.items()} }")
+          f"{ {a: v[1] for a, v in out.items()} }")
     return out
 
 
 def model_times(torch, dev, err, served):
     """Phase 8: each model kernel at a long-prefill shape against its plain
     version, its bound and (attention) torch's fused call."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
@@ -457,7 +662,6 @@ def model_times(torch, dev, err, served):
           f"{fa_plain:.3f} ms; scaled_dot_product_attention {fa_lib:.4f} "
           f"ms; bound {fa_bound:.4f} ms ({fa_by})", flush=True)
     # the tensor-core kernel must really issue wgmma (SASS HGMMA)
-    from repro_torch.kernels import build
     sass = subprocess.run(
         ["cuobjdump", "--dump-sass", str(build.library_path(
             "flash_attention"))], capture_output=True, text=True,
@@ -471,24 +675,68 @@ def model_times(torch, dev, err, served):
           f"{sorted(tc.values())}, none in the CUDA-core kernel "
           f"({sum(n for f, n in funcs.items() if f not in tc)})",
           flush=True)
+    # K8 at B=1, S=4096 and at the serve shape (B=4, S=256), bf16 u/B/C
+    # with h0 as the model's prefill passes it
     D, N = SCAN_WIDTH
-    u = torch.randn((1, S, D), generator=g, device=dev).to(bf16)
-    dtv = torch.nn.functional.softplus(
-        torch.randn((1, S, D), generator=g, device=dev) - 1)
-    A = -torch.exp(torch.randn((D, N), generator=g, device=dev) * 0.3)
-    Bm = torch.randn((1, S, N), generator=g, device=dev).to(bf16)
-    Cm = torch.randn((1, S, N), generator=g, device=dev).to(bf16)
-    ss_ms = time_ms(lambda: ms.selective_scan(u, dtv, A, Bm, Cm), 20, torch)
-    ss_plain = time_ms(lambda: ref.selective_scan_ref(u, dtv, A, Bm, Cm), 2,
+    ss, k8_inputs = {}, {}
+    for B, Sx in ((1, S), SERVE_ATTN):
+        u = torch.randn((B, Sx, D), generator=g, device=dev).to(bf16)
+        dtv = torch.nn.functional.softplus(
+            torch.randn((B, Sx, D), generator=g, device=dev) - 1)
+        A = -torch.exp(torch.randn((D, N), generator=g, device=dev) * 0.3)
+        Bm = torch.randn((B, Sx, N), generator=g, device=dev).to(bf16)
+        Cm = torch.randn((B, Sx, N), generator=g, device=dev).to(bf16)
+        h0 = torch.randn((B, D, N), generator=g, device=dev)
+        y, h = ms.selective_scan(u, dtv, A, Bm, Cm, h0)
+        yr, hr = ref.selective_scan_ref(u, dtv, A, Bm, Cm, h0)
+        ey, oky = allclose_err(y, yr, SCAN_TOL)
+        eh, okh = allclose_err(h, hr, SCAN_TOL)
+        check(oky and okh, f"selective_scan B={B} S={Sx}: max_abs_err y "
+              f"{ey} h {eh} above {SCAN_TOL}")
+        err["selective_scan"]["bfloat16"] = max(
+            err["selective_scan"]["bfloat16"], ey, eh)
+        del y, h, yr, hr
+        k_ms = time_ms(lambda: ms.selective_scan(u, dtv, A, Bm, Cm, h0), 20,
                        torch)
-    # reads u (bf16), dt (f32), A, B and C (bf16); writes y and h_last
-    # (f32); per (t, d): dt*u, and per (t, d, n): dt*A, exp, two
-    # multiplies and an add for h, a multiply and an add for y
-    ss_bytes = S * D * (2 + 4 + 4) + D * N * 4 * 2 + 2 * S * N * 2
-    ss_bound, ss_by = bound_ms(ss_bytes, S * D * (7 * N + 1))
-    print(f"time selective_scan B=1 S={S} D={D} N={N} bf16 u/B/C: "
-          f"{ss_ms:.4f} ms; plain {ss_plain:.3f} ms; bound {ss_bound:.4f} ms "
-          f"({ss_by})", flush=True)
+        plain = time_ms(lambda: ref.selective_scan_ref(u, dtv, A, Bm, Cm,
+                                                       h0), 2, torch)
+        # reads u (bf16), dt (f32), A, h0, B and C (bf16); writes y and
+        # h_last (f32); per (t, d): dt*u, and per (t, d, n): dt*A, exp, two
+        # multiplies and an add for h, a multiply and an add for y
+        n_bytes = B * Sx * D * (2 + 4 + 4) + D * N * 4 + 2 * B * D * N * 4 \
+            + 2 * B * Sx * N * 2
+        bnd, by = bound_ms(n_bytes, B * Sx * D * (7 * N + 1))
+        ss[B, Sx] = (k_ms, plain, bnd, by)
+        k8_inputs[B, Sx] = (u, dtv, A, Bm, Cm, h0)
+        print(f"time selective_scan B={B} S={Sx} D={D} N={N} bf16 u/B/C, "
+              f"h0, {ms.lanes(B, D, N)} lanes a channel: {k_ms:.4f} ms; "
+              f"plain {plain:.3f} ms; bound {bnd:.4f} ms ({by})", flush=True)
+    ss_ms, ss_plain, ss_bound, ss_by = ss[1, S]
+    # SASS: the time loop of the bf16 N=16 kernels these shapes launch (one
+    # MUFU.EX2 a state update, N / G updates a lane and step)
+    fns = sass_functions(build.library_path("mamba_scan"))
+    for G in sorted({ms.lanes(B, D, N) for B, _ in ss}):
+        fn = [f for f in fns
+              if f"selective_scan_kernelI13__nv_bfloat16Li{N}ELi{G}E" in f]
+        loop = sass_loop(fns[fn[0]], "MUFU.EX2") if fn else None
+        check(loop is not None, f"no time loop in the G={G} kernel's SASS")
+        steps = loop[1] // (N // G)
+        print(f"SASS selective_scan bf16 N={N} G={G}: time loop {loop[0]} "
+              f"instructions for {steps} steps of {N // G} updates a lane: "
+              f"{loop[0] / steps:.1f} a step, {loop[0] / loop[1]:.1f} an "
+              f"update", flush=True)
+        for (B, Sx), (k_ms, _, _, _) in ss.items():
+            if ms.lanes(B, D, N) != G:
+                continue
+            x = k8_inputs[B, Sx]
+            mhz = sm_clock_mhz(torch, lambda: ms.selective_scan(*x))
+            warps = B * D * G / 32 * Sx * loop[0] / steps
+            share = issue_share(torch, warps, k_ms, mhz)
+            print(f"issue selective_scan B={B} S={Sx}: {warps:.4g} warp-"
+                  f"instructions (SASS time loop x steps) in {k_ms:.4f} ms "
+                  f"at an SM clock of {mhz} MHz read under this load: "
+                  f"{share} of the card's issue rate (an estimate)",
+                  flush=True)
     csrc = "src/repro_torch/kernels/csrc/"
     return [
         {"name": "flash_attention", "route": "cuda",
@@ -497,14 +745,18 @@ def model_times(torch, dev, err, served):
          "launches": served["smollm-360m"][1]["flash_attention"],
          "max_abs_err": max(err["flash_attention"].values()), "ms": fa_ms,
          "plain_ms": fa_plain, "bound_ms": fa_bound, "bound_by": fa_by,
-         "library_ms": fa_lib},
+         "library_ms": fa_lib, "path_ms": served["smollm-360m"][2],
+         "path_launches": served["smollm-360m"][1]["flash_attention"],
+         "path_source": served["smollm-360m"][3]},
         {"name": "selective_scan", "route": "cuda",
          "source": csrc + "mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:27",
          "launches": served["falcon-mamba-7b"][1]["selective_scan"],
          "max_abs_err": max(err["selective_scan"].values()), "ms": ss_ms,
          "plain_ms": ss_plain, "bound_ms": ss_bound, "bound_by": ss_by,
-         "library_ms": None},
+         "library_ms": None, "path_ms": served["falcon-mamba-7b"][2],
+         "path_launches": served["falcon-mamba-7b"][1]["selective_scan"],
+         "path_source": served["falcon-mamba-7b"][3]},
     ]
 
 
@@ -653,6 +905,17 @@ def join_phase(torch, dev, sf: int = JOIN_SF):
           f"plain versions at TPC-H SF {sf} (SMJ miss share {miss:.4f})"
           f" and in {n_edge} edge cases; launches {launches}", flush=True)
 
+    # the device time of the main path's one launch of each (the hash
+    # join's build and probe kernels together)
+    path = path_ms(torch, lambda: (ops.bhj_join(*bhj), ops.smj_join(*smj)),
+                   {"hash_join": (("hash_build_kernel", "hash_probe_kernel"),
+                                  2 * launches["hash_join"],
+                                  (hj, "hash_join")),
+                    "merge_join": (("merge_join_kernel",),
+                                   launches["merge_join"],
+                                   (mj, "merge_join"))})
+    print(f"joins on their path: {path} (ms of device time over "
+          f"{launches} launches)", flush=True)
     hj_ms = time_ms(lambda: ops.bhj_join(*bhj), 10, torch)
     hj_plain = time_ms(lambda: ref.hash_join_ref(*bhj), 3, torch)
     mj_ms = time_ms(lambda: ops.smj_join(*smj), 10, torch)
@@ -681,13 +944,19 @@ def join_phase(torch, dev, sf: int = JOIN_SF):
          "replaces": "src/repro/kernels/hash_join.py:28",
          "launches": launches["hash_join"], "max_abs_err": err["hash_join"],
          "ms": hj_ms, "plain_ms": hj_plain, "bound_ms": hj_bound,
-         "bound_by": hj_by, "library_ms": None},
+         "bound_by": hj_by, "library_ms": None,
+         "path_ms": path["hash_join"][0],
+         "path_launches": launches["hash_join"],
+         "path_source": path["hash_join"][1]},
         {"name": "merge_join", "route": "cuda",
          "source": csrc + "merge_join.cu",
          "replaces": "src/repro/kernels/merge_join.py:28",
          "launches": launches["merge_join"],
          "max_abs_err": err["merge_join"], "ms": mj_ms, "plain_ms": mj_plain,
-         "bound_ms": mj_bound, "bound_by": mj_by, "library_ms": mj_lib},
+         "bound_ms": mj_bound, "bound_by": mj_by, "library_ms": mj_lib,
+         "path_ms": path["merge_join"][0],
+         "path_launches": launches["merge_join"],
+         "path_source": path["merge_join"][1]},
     ]
 
 
@@ -885,10 +1154,15 @@ def sharded_phase(torch, dev):
     check(launches > 0 and ps.scan_argmin.launches == 0,
           f"the sharded main path did not go through K4 alone: "
           f"{launches} K4 and {ps.scan_argmin.launches} K1/K2 launches")
+    k4_path, k4_how = path_ms(torch, lambda: plan(ps.CudaPlanBackend(
+        devices=[dev] * SHARDED_MAIN)), {"k4": (
+            ("scan_db_kernel", "scan_argmin_kernel"), launches,
+            (ps, "scan_argmin_sharded"))})["k4"]
     print(f"K4 main path: RAQO.plan_queries of the {len(qs)} TPC-H queries "
           f"on CudaPlanBackend(devices=[cuda]*{SHARDED_MAIN}) in "
           f"{sharded_s:.3f} s (unsharded {solo_s:.3f} s), plans equal; "
-          f"scan_argmin_sharded launches {launches}", flush=True)
+          f"scan_argmin_sharded launches {launches}, device time "
+          f"{k4_path} ms over them ({k4_how})", flush=True)
 
     n_gpu = torch.cuda.device_count()
     if n_gpu > 1:
@@ -913,7 +1187,7 @@ def sharded_phase(torch, dev):
         smj, dims, p60, SHARDED_MAIN), 2, torch)
     rows = big.grid_size()
     bound, by = bound_ms(60 * smj.n_params * 4 + 60 * 8,
-                         rows * 60 * surface_ops(smj))
+                         scan_ops(smj, dims, 60)[1])
     print(f"time scan_argmin_sharded sim/SMJ/time rows={rows} Q=60: "
           + "; ".join(f"D={D} {ms:.4f} ms" for D, ms in k4_ms.items())
           + f"; single-launch scan_argmin {one_ms:.4f} ms; plain (D="
@@ -925,7 +1199,9 @@ def sharded_phase(torch, dev):
             "replaces": "src/repro/kernels/plan_scan.py:367",
             "launches": launches, "max_abs_err": 0.0,
             "ms": k4_ms[SHARDED_MAIN], "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "path_ms": k4_path, "path_launches": launches,
+            "path_source": k4_how}
 
 
 def decision(planner_call):
@@ -1143,14 +1419,26 @@ def main() -> int:
               "sim": cm.simulator_cost_models()}
     surfaces = [(f"{src}/{impl}/{obj}", cm.Surface(m[impl], obj))
                 for src, m in models.items() for impl in ("SMJ", "BHJ")
-                for obj in ("time", "money")]
-    surfaces += [(f"{src}/{impl}/sla", cm.Surface(models[src][impl], "sla"))
-                 for src, impl in (("sim", "SMJ"), ("paper", "BHJ"))]
+                for obj in ("time", "money", "sla")]
+    # the DB scan's tiles are whole values of dim 0 x dim 1, at most
+    # ps.TILE_ROWS rows: 100 and 7 container sizes do not divide a tile,
+    # 2,013, 4,286 and 20,011 values of dim 0 leave a ragged last one, and
+    # 5,000 container sizes are more than a tile, so a tile is a window
+    # of dim 1
     grids = {"scaled_100000x100": scaled_cluster(100_000, 100),
              "ragged": ClusterConditions(dims=(
                  ResourceDim("num_containers", 1, 29_998, 7),
                  ResourceDim("container_gb", 1, 64,
-                             values=(1, 2, 3, 5, 8, 13, 21, 34, 55, 64))))}
+                             values=(1, 2, 3, 5, 8, 13, 21, 34, 55, 64)))),
+             "2013x100": ClusterConditions(dims=(
+                 ResourceDim("num_containers", 1, 2_013),
+                 ResourceDim("container_gb", 1, 100))),
+             "20011x7": ClusterConditions(dims=(
+                 ResourceDim("num_containers", 1, 20_011),
+                 ResourceDim("container_gb", 1, 7))),
+             "3x5000": ClusterConditions(dims=(
+                 ResourceDim("num_containers", 1, 3),
+                 ResourceDim("container_gb", 1, 5_000)))}
     max_err = {"scan_argmin": 0.0, "neighbor_step": 0.0,
                "ensemble_climb": 0.0}
     n_cases = 0
@@ -1210,9 +1498,12 @@ def main() -> int:
     for gname, cluster in grids.items():
         dims = ps.grid_dims(cluster, dev)
         for sname, surface in surfaces:
-            for Q in (1, 8, 65):
+            for Q in ((1, 8, 65) if gname == "scaled_100000x100" else
+                      (1, 8, 63, 64, 65)):
                 same_scan(f"{sname} {gname}", surface, dims,
                           params_for(surface, Q))
+            if gname not in ("scaled_100000x100", "ragged"):
+                continue
             sizes = [d.size for d in dims]
             cur = np.stack([rng.integers(0, s, 26) for s in sizes], 1)
             cur[0], cur[1] = (0, 0), (sizes[0] - 1, sizes[1] - 1)
@@ -1267,6 +1558,14 @@ def main() -> int:
     rc, rf = same_scan("all-OOM", oom, dims, p)
     check(bool(torch.isinf(rc).all()) and bool((rf == -1).all()),
           "all-OOM scan found a feasible configuration")
+    # a tie plateau across tile boundaries: 2000 ss - nc clamped at the
+    # 1e-3 floor ties every row from nc >= 2000 ss on, over many tiles
+    ties = cm.Surface(cm.RegressionModel(
+        "ties", np.array([2000.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0])), "time")
+    ss = rng.uniform(0.01, 9.0, 65)
+    p = torch.tensor(np.stack([ss, ss], 1), dtype=torch.float32, device=dev)
+    for gname, cluster in grids.items():
+        same_scan(f"ties {gname}", ties, ps.grid_dims(cluster, dev), p)
     print(f"parity: {n_cases} kernel/plain cases bit-equal in "
           f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}",
           flush=True)
@@ -1329,6 +1628,15 @@ def main() -> int:
           f"a kernel of the main path never launched: {launches}")
     check(launches["neighbor_step"] == 0,
           f"the ensemble climb still stepped from the host: {launches}")
+    # each kernel's device time over the main path's own launches
+    scan_names = ("scan_db_kernel", "scan_argmin_kernel")
+    main_path = path_ms(torch, lambda: plan_all(ps.CudaPlanBackend()), {
+        name: (names, launches[name], (ps, name)) for name, names in (
+            ("scan_argmin", scan_names),
+            ("neighbor_step", ("neighbor_step_kernel",)),
+            ("ensemble_climb", ("ensemble_climb_kernel",)))})
+    print(f"main path device time (ms over the launches above): "
+          f"{main_path}", flush=True)
 
     # the §VII-C grid through the climb kernel: timed, not compared (the
     # plain climb would take ~1e5 host steps a request there)
@@ -1372,9 +1680,12 @@ def main() -> int:
     dims = ps.grid_dims(big, dev)
     p = params_for(surface, Q)
     rows = big.grid_size()
-    # reads the (Q, P) float32 params, writes (Q,) 64-bit keys
+    # reads the (Q, P) float32 params, writes (Q,) 64-bit keys; the bound
+    # counts the hoisted form's operations (the row form's beside it)
+    row_ops, hoisted_ops = scan_ops(surface, dims, Q)
     scan_bound, scan_by = bound_ms(Q * surface.n_params * 4 + Q * 8,
-                                   rows * Q * surface_ops(surface))
+                                   hoisted_ops)
+    row_bound = bound_ms(Q * surface.n_params * 4 + Q * 8, row_ops)[0]
     rule = cuda_be.q_per_block(Q)
     geo_ms = {qb: time_ms(lambda qb=qb: ps.scan_argmin(surface, dims, p, qb),
                           10, torch)
@@ -1385,7 +1696,34 @@ def main() -> int:
         print(f"time scan_argmin sim/SMJ/time rows={rows} Q={Q} "
               f"q_per_block={qb}{' (rule)' if qb == rule else ''}: "
               f"{ms:.4f} ms; plain {scan_plain:.3f} ms; bound "
-              f"{scan_bound:.4f} ms ({scan_by})", flush=True)
+              f"{scan_bound:.4f} ms ({scan_by}, hoisted form; "
+              f"{row_bound:.4f} ms counting each row's whole surface)",
+              flush=True)
+    # SASS: the request loop of each main-path DB scan (8 rows a thread
+    # and one warp reduction an iteration)
+    for fn, instrs in sass_functions(
+            build.library_path("plan_scan")).items():
+        m = re.search(r"scan_db_kernelILi(\d)ELi0ELb(\d)E", fn)
+        if not m:
+            continue
+        loop = sass_loop(instrs, "SHFL")
+        check(loop is not None, f"no request loop found in {fn}'s SASS")
+        surf = {0: "regression", 1: "smj", 2: "bhj"}[int(m.group(1))]
+        print(f"SASS scan_db_kernel {surf}{'+oom' if m.group(2) == '1' else ''}"
+              f"/time: request loop {loop[0]} instructions for "
+              f"{ROWS_PER_THREAD} rows and one warp reduction, "
+              f"{loop[0] / ROWS_PER_THREAD:.1f} a row", flush=True)
+        if surf == "smj" and m.group(2) == "0":
+            qb = min(Q, ps.UNROLL_Q)
+            mhz = sm_clock_mhz(torch, lambda: ps.scan_argmin(surface, dims,
+                                                             p, qb))
+            warps = rows / (32 * ROWS_PER_THREAD) * Q * loop[0]
+            share = issue_share(torch, warps, geo_ms[qb], mhz)
+            print(f"issue scan_argmin sim/SMJ/time rows={rows} Q={Q} "
+                  f"q_per_block={qb}: {warps:.4g} warp-instructions (SASS "
+                  f"request loop x trips) in {geo_ms[qb]:.4f} ms at an SM "
+                  f"clock of {mhz} MHz read under this load: {share} of "
+                  f"the card's issue rate (an estimate)", flush=True)
     S = 26
     cur = torch.tensor(np.stack([rng.integers(0, d.size, S)
                                  for d in ens_dims], 1), device=dev)
@@ -1472,19 +1810,27 @@ def main() -> int:
          "launches": launches["scan_argmin"],
          "max_abs_err": max_err["scan_argmin"], "ms": geo_ms[rule],
          "plain_ms": scan_plain, "bound_ms": scan_bound,
-         "bound_by": scan_by, "library_ms": None},
+         "bound_by": scan_by, "library_ms": None,
+         "path_ms": main_path["scan_argmin"][0],
+         "path_launches": launches["scan_argmin"],
+         "path_source": main_path["scan_argmin"][1]},
         {"name": "neighbor_step", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/plan_scan.py:290",
          "launches": launches["neighbor_step"],
          "max_abs_err": max_err["neighbor_step"], "ms": nb_ms,
          "plain_ms": nb_plain, "bound_ms": nb_bound,
-         "bound_by": nb_by, "library_ms": None},
+         "bound_by": nb_by, "library_ms": None,
+         "path_ms": main_path["neighbor_step"][0],
+         "path_launches": launches["neighbor_step"],
+         "path_source": main_path["neighbor_step"][1]},
         {"name": "ensemble_climb", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/plan_scan.py:290",
          "launches": launches["ensemble_climb"],
          "max_abs_err": max_err["ensemble_climb"], "ms": cl_ms,
          "plain_ms": cl_plain, "bound_ms": cl_bound, "bound_by": cl_by,
-         "library_ms": None},
+         "library_ms": None, "path_ms": main_path["ensemble_climb"][0],
+         "path_launches": launches["ensemble_climb"],
+         "path_source": main_path["ensemble_climb"][1]},
     ]
     print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s", flush=True)
 

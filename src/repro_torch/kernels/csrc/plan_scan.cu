@@ -2,14 +2,15 @@
 //
 // scan_argmin    replaces the reference's Pallas kernels _scan_kernel (K1),
 //                _scan_many_unrolled_kernel (K2) and _scan_kernel_dyn (K4)
-//                (src/repro/kernels/plan_scan.py): decode flat row ids of a
-//                resource grid of 1..MAX_DIMS dimensions into
-//                configurations, evaluate a cost surface for every request,
-//                and keep the first strict minimum per request.  The rows
-//                are a run-time range [row0, row0 + nrows): the whole grid
-//                for K1/K2, one shard's span for K4, so ONE compiled kernel
-//                serves every shard (the reference passed the shard's block
-//                offset in as a traced scalar for the same reason).
+//                (src/repro/kernels/plan_scan.py): evaluate a cost surface
+//                on every configuration of a resource grid of 1..MAX_DIMS
+//                dimensions for every request, and keep the first strict
+//                minimum per request.  The rows are a run-time range [row0,
+//                row0 + nrows): the whole grid for K1/K2, one shard's span
+//                for K4, so ONE compiled kernel serves every shard (the
+//                reference passed the shard's block offset in as a traced
+//                scalar for the same reason).  q_per_block requests share a
+//                block: 1 is K1's geometry, up to MAX_Q_PER_BLOCK K2's.
 // neighbor_step  replaces _neighbor_kernel (K3): one step of the ensemble
 //                hill climb (centre and 2*D +-1 neighbours of every start).
 // ensemble_climb the whole ensemble climb of K3 on the device: Q requests x
@@ -20,32 +21,43 @@
 //                (slot_cost), so their trajectories are the same by
 //                construction.
 //
-// What bounds them: FP32 ALU and SFU work; for ensemble_climb, latency.
-// A climb is a dependent chain (each step starts where the last one moved),
-// so it runs one group of lanes per (request, start): the next power of two
-// >= 2*D + 1 lanes, one neighbour slot (or the centre) a lane, and a
-// shuffle reduction picks the first strict minimum in slot order; an
-// iteration is one surface evaluation plus log2(lanes) shuffle rounds.
-// A scan row reads nothing from device memory (its configuration is decoded from the row id, the request's
-// params sit in shared memory), so the kernels move almost no bytes; each
-// row costs one 32-bit divmod per dimension after the first, a handful of
-// IEEE divisions and, for the SMJ surface, one logf.  The first design
-// keeps it simple: no config array or cost vector ever reaches device
-// memory, every thread folds its rows in registers, and one 64-bit
-// atomicMin per block and request combines the blocks.  The surface kind
-// and the dimension count are template parameters (one instantiation per
-// pair a surface can take, chosen at launch), so a row's decoded values
-// stay in registers and no row branches on the kind.
+// What bounds the scan: instruction issue.  A row reads nothing from device
+// memory (its configuration is decoded from the row id, the requests'
+// params sit in shared memory), so the scan moves almost no bytes; its time
+// is the FP32 and SFU instructions of the surface, and an IEEE division is
+// ~10 of them, logf ~20.  Most of the DB surfaces' work does not depend on
+// the row: SMJ's log2 and its (request, num_containers) quotients, all of
+// BHJ but its OOM mask, the regression's per-request and per-dimension
+// terms.  So the DB surfaces (regression, SMJ, BHJ over (nc, cs)) run
+// scan_db_kernel: a block takes a tile of whole dim-0 values (k values of
+// nc x a window of dim 1, about TILE_ROWS rows, the last tile ragged),
+// computes every request's (request, nc) terms once into shared memory and
+// each row's (nc, cs) terms once into registers, and then evaluates per
+// row and request only what needs both: SMJ two divisions (from six and a
+// logf), BHJ a compare and a select, the regression five adds.  Each
+// hoisted term is computed with exactly the float32 operations and
+// operands of the row expression, and a hoisted partial sum is always a
+// prefix of the expression's left-to-right order, so every cost is the
+// same bits as before.  The objective wrap (money, SLA) stays per row.
+// Table and roofline surfaces (small grids, bound by the wrapper's host
+// work) keep the per-row scan_argmin_kernel.  ensemble_climb is a
+// dependent chain (each step starts where the last one moved), so latency
+// bounds it: it runs one group of lanes per (request, start), the next
+// power of two >= 2*D + 1 lanes, one neighbour slot (or the centre) a
+// lane, and a shuffle reduction picks the first strict minimum in slot
+// order.
 //
 // Order: TPU grids run in order, so the reference carried its (cost, index)
 // accumulator across blocks.  CUDA blocks run in any order, so each thread
-// keeps a strict-< running best over its rows in ascending order, a block
-// reduction takes the lexicographic min of (cost, flat id), and the block
-// result is folded with atomicMin on a key whose high 32 bits are the
-// order-preserving bits of the cost and whose low 32 bits are the GLOBAL
-// flat id: the lowest cost wins and a tie goes to the lowest flat id, which
-// is the first minimum in enumerate_configs order whatever the block order.
-// The same key folds K4's shards (repro_torch/kernels/plan_scan.py).
+// keeps a strict-< running best over its rows in ascending order, each
+// warp reduces every request with shuffles to the lexicographic min of
+// (cost, flat id) and parks it in shared memory, and after ONE barrier a
+// thread per request folds the warps and issues one 64-bit atomicMin on a
+// key whose high 32 bits are the order-preserving bits of the cost and
+// whose low 32 bits are the GLOBAL flat id: the lowest cost wins and a tie
+// goes to the lowest flat id, which is the first minimum in
+// enumerate_configs order whatever the block order or tiling.  The same
+// key folds K4's shards (repro_torch/kernels/plan_scan.py).
 //
 // Arithmetic: built with -fmad=false and IEEE division, so every float32
 // operation rounds as the plain PyTorch version's does on the card.  Each
@@ -64,6 +76,9 @@
 #define MAX_Q_PER_BLOCK 64
 #define ROWS_PER_THREAD 8
 #define SCAN_THREADS 256
+#define SCAN_WARPS (SCAN_THREADS / 32)
+#define TILE_ROWS (SCAN_THREADS * ROWS_PER_THREAD)
+#define DB_TILE_K 32               // dim-0 values a DB tile holds at most
 
 enum { SURF_REGRESSION = 0, SURF_SMJ = 1, SURF_BHJ = 2, SURF_TABLE = 3,
        SURF_TRAIN = 4, SURF_PREFILL = 5, SURF_DECODE = 6 };
@@ -123,62 +138,126 @@ __device__ __forceinline__ float value_of(const Dim& d, int64_t idx) {
     return (float)v;                                 // round to nearest
 }
 
-// RegressionModel.cost_grid: the linear form, floor clamp, OOM mask
-__device__ __forceinline__ float regression(const float* c, int oom,
-                                            float ss, float nc, float cs) {
-    float v = c[0] * ss + c[1] * (ss * ss);
-    v = v + c[2] * cs;
-    v = v + c[3] * (cs * cs);
-    v = v + c[4] * nc;
-    v = v + c[5] * (nc * nc);
-    v = v + c[6] * (cs * nc);
-    float out = max_nan(v, c[7]);
-    if (oom && ss > c[8] * cs) out = INFINITY;
-    return out;
+// The DB surfaces over (nc, cs), split by what each term depends on: per
+// request (per_q), per (request, nc) (per_qn, QN terms), per (nc, cs) (row),
+// and what needs the row and the request (cost).  Each term is the
+// Python expression's own operation on its own operands, and every partial
+// sum is a prefix of the expression's left-to-right order.  db_cost puts
+// them together for one row (neighbor_step, ensemble_climb); scan_db_kernel
+// hoists each out of its loops; so both compute each surface with the same
+// float32 operations, by construction.
+template <int KIND> struct DbTerms;
+
+// HiveSimulator.smj_grid with ls = max(ls, ss),
+// c = (startup, net_gbps, sort_const, disk_gbps * 80, probe_gbps):
+// ((c0 + shuffle) + sort) + merge with
+// sort = (((c2 * total) * lg) * spill) / (c3 * nc) and
+// spill = max(per_c / max(cs * 0.5, 1e-3), 1)
+template <> struct DbTerms<SURF_SMJ> {
+    static constexpr int QN = 3;                 // c0 + shuffle, per_c, merge
+    struct Row { float c3nc, half_cs; };
+    __device__ static float per_q(const float* c, float ss, float ls) {
+        float total = ss + max_nan(ls, ss);
+        float lg = logf(max_nan(total * 8.0f, 2.0f)) /
+                   0.693147182464599609375f;
+        return c[2] * total * lg;
+    }
+    __device__ static void per_qn(const float* c, float ss, float ls,
+                                  float nc, float* t) {
+        float total = ss + max_nan(ls, ss);
+        t[0] = c[0] + total / (c[1] * nc);
+        t[1] = total / nc;
+        t[2] = total / (c[4] * nc);
+    }
+    __device__ static Row row(const Surface& s, float nc, float cs) {
+        return {s.c[3] * nc, max_nan(cs * 0.5f, 1e-3f)};
+    }
+    template <bool>
+    __device__ static float cost(const Surface&, float, float pq,
+                                 const float* t, const Row& r) {
+        float spill = max_nan(t[1] / r.half_cs, 1.0f);
+        float sort = pq * spill / r.c3nc;
+        return t[0] + sort + t[2];
+    }
+};
+
+// HiveSimulator.bhj_grid with ls = max(ls, ss),
+// c = (startup, net_gbps, build_gbps, probe_gbps, bhj_mem_frac):
+// everything but the OOM mask is per (request, nc)
+template <> struct DbTerms<SURF_BHJ> {
+    static constexpr int QN = 1;                 // the cost before the mask
+    struct Row { float mem; };
+    __device__ static float per_q(const float*, float, float) { return 0.f; }
+    __device__ static void per_qn(const float* c, float ss, float ls,
+                                  float nc, float* t) {
+        float big = max_nan(ls, ss);
+        float broadcast = ss * nc / (c[1] * nc) + ss / c[1] * 0.1f;
+        float build = ss / c[2];
+        float probe = big / (c[3] * nc);
+        t[0] = c[0] + broadcast + build + probe;
+    }
+    __device__ static Row row(const Surface& s, float, float cs) {
+        return {s.c[4] * cs};
+    }
+    template <bool>
+    __device__ static float cost(const Surface&, float ss, float,
+                                 const float* t, const Row& r) {
+        return ss > r.mem ? INFINITY : t[0];
+    }
+};
+
+// RegressionModel.cost_grid: c0 ss + c1 ss^2 per request, then the cs, nc
+// and cs * nc terms added in order, the floor and the OOM mask
+template <> struct DbTerms<SURF_REGRESSION> {
+    static constexpr int QN = 0;
+    struct Row { float c2cs, c3cs2, c4nc, c5nc2, c6csnc, oom_cs; };
+    __device__ static float per_q(const float* c, float ss, float) {
+        return c[0] * ss + c[1] * (ss * ss);
+    }
+    __device__ static void per_qn(const float*, float, float, float,
+                                  float*) {}
+    __device__ static Row row(const Surface& s, float nc, float cs) {
+        const float* c = s.c;
+        return {c[2] * cs, c[3] * (cs * cs), c[4] * nc, c[5] * (nc * nc),
+                c[6] * (cs * nc), c[8] * cs};
+    }
+    template <bool OOM>
+    __device__ static float cost(const Surface& s, float ss, float pq,
+                                 const float*, const Row& r) {
+        float v = pq + r.c2cs;
+        v = v + r.c3cs2;
+        v = v + r.c4nc;
+        v = v + r.c5nc2;
+        v = v + r.c6csnc;
+        float out = max_nan(v, s.c[7]);
+        if (OOM && ss > r.oom_cs) out = INFINITY;
+        return out;
+    }
+};
+
+// the objective's wrap of a time t (Surface.objective, p[2] the SLA target)
+__device__ __forceinline__ float objective(int obj, float t, float nc,
+                                           float cs, const float* p) {
+    if (obj == OBJ_TIME) return t;
+    // monetary_cost: exec_time_s / 3600.0 * cs * nc * 0.05
+    float money = t / 3600.0f * cs * nc * 0.05f;
+    if (obj == OBJ_MONEY) return isfinite(t) ? money : INFINITY;
+    return t <= p[2] ? money : INFINITY;
 }
 
-// HiveSimulator.smj_grid with ls = max(ls, ss)
-// c = (startup, net_gbps, sort_const, disk_gbps * 80, probe_gbps)
-__device__ __forceinline__ float smj(const float* c, float ss, float ls,
-                                     float nc, float cs) {
-    float big = max_nan(ls, ss);
-    float total = ss + big;
-    float shuffle = total / (c[1] * nc);
-    float per_c = total / nc;
-    float spill = max_nan(per_c / max_nan(cs * 0.5f, 1e-3f), 1.0f);
-    float lg = logf(max_nan(total * 8.0f, 2.0f)) / 0.693147182464599609375f;
-    float sort = c[2] * total * lg * spill / (c[3] * nc);
-    float merge = total / (c[4] * nc);
-    return c[0] + shuffle + sort + merge;
-}
-
-// HiveSimulator.bhj_grid with ls = max(ls, ss)
-// c = (startup, net_gbps, build_gbps, probe_gbps, bhj_mem_frac)
-__device__ __forceinline__ float bhj(const float* c, float ss, float ls,
-                                     float nc, float cs) {
-    float big = max_nan(ls, ss);
-    float broadcast = ss * nc / (c[1] * nc) + ss / c[1] * 0.1f;
-    float build = ss / c[2];
-    float probe = big / (c[3] * nc);
-    float out = c[0] + broadcast + build + probe;
-    return ss > c[4] * cs ? INFINITY : out;
-}
-
-// the DB surfaces over (nc, cs), wrapped in their objective
+// one row of a DB surface, wrapped in its objective
 template <int KIND>
 __device__ __forceinline__ float db_cost(const Surface& s, const float* p,
                                          float nc, float cs) {
+    using T = DbTerms<KIND>;
     float ss = p[0], ls = p[1];
-    float t;
-    if constexpr (KIND == SURF_REGRESSION)
-        t = regression(s.c, s.oom, ss, nc, cs);
-    else if constexpr (KIND == SURF_SMJ) t = smj(s.c, ss, ls, nc, cs);
-    else t = bhj(s.c, ss, ls, nc, cs);
-    if (s.objective == OBJ_TIME) return t;
-    // monetary_cost: exec_time_s / 3600.0 * cs * nc * 0.05
-    float money = t / 3600.0f * cs * nc * 0.05f;
-    if (s.objective == OBJ_MONEY) return isfinite(t) ? money : INFINITY;
-    return t <= p[2] ? money : INFINITY;             // SLA: p[2] = target
+    float tqn[T::QN > 0 ? T::QN : 1];
+    T::per_qn(s.c, ss, ls, nc, tqn);
+    const float pq = T::per_q(s.c, ss, ls);
+    const typename T::Row r = T::row(s, nc, cs);
+    float t = s.oom ? T::template cost<true>(s, ss, pq, tqn, r)
+                    : T::template cost<false>(s, ss, pq, tqn, r);
+    return objective(s.objective, t, nc, cs, p);
 }
 
 // ---------------------------- roofline surfaces ---------------------------- //
@@ -312,13 +391,51 @@ __device__ __forceinline__ void take_min(float& c, uint32_t& f,
     if (oc < c || (oc == c && of < f)) { c = oc; f = of; }
 }
 
+// the block's end of a scan: every warp has parked its (cost, flat) min of
+// each of the nq requests in red_*[warp][q]; after one barrier a thread per
+// request folds the warps in order and issues the request's one atomicMin
+__device__ __forceinline__ void fold_block(
+        float (*red_c)[MAX_Q_PER_BLOCK], uint32_t (*red_f)[MAX_Q_PER_BLOCK],
+        int64_t nq, unsigned long long* out) {
+    __syncthreads();
+    for (int q = threadIdx.x; q < nq; q += SCAN_THREADS) {
+        float best = red_c[0][q];
+        uint32_t best_f = red_f[0][q];
+#pragma unroll
+        for (int w = 1; w < SCAN_WARPS; ++w)
+            take_min(best, best_f, red_c[w][q], red_f[w][q]);
+        if (best < INFINITY) {
+            unsigned long long key =
+                ((unsigned long long)ordered_bits(best) << 32) | best_f;
+            atomicMin(out + q, key);
+        }
+    }
+}
+
+// a warp's (cost, flat) min of one request, parked in red_*[warp][q]
+__device__ __forceinline__ void warp_min(
+        float best, uint32_t best_f, int q,
+        float (*red_c)[MAX_Q_PER_BLOCK], uint32_t (*red_f)[MAX_Q_PER_BLOCK]) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        float oc = __shfl_down_sync(0xFFFFFFFFu, best, off);
+        uint32_t of = __shfl_down_sync(0xFFFFFFFFu, best_f, off);
+        take_min(best, best_f, oc, of);
+    }
+    if ((threadIdx.x & 31) == 0) {
+        red_c[threadIdx.x >> 5][q] = best;
+        red_f[threadIdx.x >> 5][q] = best_f;
+    }
+}
+
+// the per-row scan of any surface (tables and rooflines)
 template <int KIND, int ND>
 __global__ void __launch_bounds__(SCAN_THREADS)
 scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
                    unsigned long long* __restrict__ out) {
     __shared__ float sp[MAX_Q_PER_BLOCK * MAX_PARAMS];
-    __shared__ float red_c[SCAN_THREADS / 32];
-    __shared__ uint32_t red_f[SCAN_THREADS / 32];
+    __shared__ float red_c[SCAN_WARPS][MAX_Q_PER_BLOCK];
+    __shared__ uint32_t red_f[SCAN_WARPS][MAX_Q_PER_BLOCK];
 
     const int64_t q0 = (int64_t)blockIdx.y * a.q_per_block;
     int64_t nq = a.n_queries - q0;
@@ -332,8 +449,7 @@ scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
     // of the grid) is ragged
     int64_t end = a.row0 + a.nrows;
     if (end > a.total) end = a.total;
-    const int64_t tile = a.row0 +
-        (int64_t)blockIdx.x * SCAN_THREADS * ROWS_PER_THREAD;
+    const int64_t tile = a.row0 + (int64_t)blockIdx.x * TILE_ROWS;
     float v[ROWS_PER_THREAD][ND];
     uint32_t flat[ROWS_PER_THREAD];
     int n_rows = 0;
@@ -360,8 +476,7 @@ scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
     }
     __syncthreads();
 
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int64_t q = 0; q < nq; ++q) {
+    for (int q = 0; q < nq; ++q) {
         const float* p = sp + q * P;
         float best = INFINITY;
         uint32_t best_f = 0xFFFFFFFFu;
@@ -373,29 +488,105 @@ scan_argmin_kernel(ScanArgs a, const float* __restrict__ params,
                 if (c < best) { best = c; best_f = flat[k]; }  // strict <
             }
         }
-        for (int off = 16; off > 0; off >>= 1) {
-            float oc = __shfl_down_sync(0xFFFFFFFFu, best, off);
-            uint32_t of = __shfl_down_sync(0xFFFFFFFFu, best_f, off);
-            take_min(best, best_f, oc, of);
-        }
-        if (lane == 0) { red_c[warp] = best; red_f[warp] = best_f; }
-        __syncthreads();
-        if (warp == 0) {
-            best = lane < SCAN_THREADS / 32 ? red_c[lane] : INFINITY;
-            best_f = lane < SCAN_THREADS / 32 ? red_f[lane] : 0xFFFFFFFFu;
-            for (int off = 16; off > 0; off >>= 1) {
-                float oc = __shfl_down_sync(0xFFFFFFFFu, best, off);
-                uint32_t of = __shfl_down_sync(0xFFFFFFFFu, best_f, off);
-                take_min(best, best_f, oc, of);
-            }
-            if (lane == 0 && best < INFINITY) {
-                unsigned long long key =
-                    ((unsigned long long)ordered_bits(best) << 32) | best_f;
-                atomicMin(out + q0 + q, key);
-            }
-        }
-        __syncthreads();             // red_* is reused by the next request
+        warp_min(best, best_f, q, red_c, red_f);
     }
+    fold_block(red_c, red_f, nq, out + q0);
+}
+
+// ------------------------- the DB surfaces' scan ---------------------------- //
+// A tile: k consecutive dim-0 (nc) values x a window of w dim-1 (cs) values,
+// k * w <= TILE_ROWS, k <= DB_TILE_K; block x is window x % n_w of dim-0
+// group x / n_w.  first / n0: the dim-0 values the row range touches.
+struct DbTile {
+    int64_t first, n0;
+    int k, w, n_w;
+};
+
+// OOM: the regression's memory mask is on (RegressionModel.oom_frac)
+template <int KIND, int OBJ, bool OOM>
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_db_kernel(ScanArgs a, DbTile t, const float* __restrict__ params,
+               unsigned long long* __restrict__ out) {
+    using T = DbTerms<KIND>;
+    constexpr int QN = T::QN > 0 ? T::QN : 1;
+    __shared__ float sp[MAX_Q_PER_BLOCK * MAX_PARAMS];
+    __shared__ float spq[MAX_Q_PER_BLOCK];
+    __shared__ float sqn[MAX_Q_PER_BLOCK * DB_TILE_K * QN];
+    __shared__ float red_c[SCAN_WARPS][MAX_Q_PER_BLOCK];
+    __shared__ uint32_t red_f[SCAN_WARPS][MAX_Q_PER_BLOCK];
+
+    const int64_t q0 = (int64_t)blockIdx.y * a.q_per_block;
+    int64_t nq = a.n_queries - q0;
+    if (nq > a.q_per_block) nq = a.q_per_block;
+    const int P = a.s.n_params;
+    const float* pg = params + q0 * P;
+
+    const int64_t s1 = a.dim[1].size;
+    const int64_t i0 = t.first + (int64_t)(blockIdx.x / t.n_w) * t.k;
+    const int64_t j0 = (int64_t)(blockIdx.x % t.n_w) * t.w;
+    const int kn = (int)min((int64_t)t.k, t.first + t.n0 - i0);
+    const int wn = (int)min((int64_t)t.w, s1 - j0);
+
+    // the block's hoisted terms, from the params in device memory (the
+    // shared copy is not ready before the barrier)
+    for (int i = threadIdx.x; i < nq * P; i += SCAN_THREADS) sp[i] = pg[i];
+    for (int q = threadIdx.x; q < nq; q += SCAN_THREADS)
+        spq[q] = T::per_q(a.s.c, pg[q * P], pg[q * P + 1]);
+    if constexpr (T::QN > 0) {
+        for (int e = threadIdx.x; e < nq * kn; e += SCAN_THREADS) {
+            const int q = e / kn, kk = e - q * kn;
+            T::per_qn(a.s.c, pg[q * P], pg[q * P + 1],
+                      value_of(a.dim[0], i0 + kk),
+                      sqn + (q * DB_TILE_K + kk) * QN);
+        }
+    }
+
+    // this thread's rows: tile rows tid, tid + SCAN_THREADS, ..., the cs
+    // window fastest, so flat ids ascend and a warp's rows are neighbours;
+    // rows outside [row0, end) (a shard's edges) are masked
+    int64_t end = a.row0 + a.nrows;
+    if (end > a.total) end = a.total;
+    typename T::Row rv[ROWS_PER_THREAD];
+    float ncv[ROWS_PER_THREAD], csv[ROWS_PER_THREAD];
+    int kkv[ROWS_PER_THREAD];
+    uint32_t flat[ROWS_PER_THREAD];
+    uint32_t live = 0;
+#pragma unroll
+    for (int k = 0; k < ROWS_PER_THREAD; ++k) {
+        const int i = k * SCAN_THREADS + threadIdx.x;
+        const int kk = i / wn, ci = i - kk * wn;
+        const int64_t r = (i0 + kk) * s1 + j0 + ci;
+        const bool ok = kk < kn && r >= a.row0 && r < end;
+        kkv[k] = ok ? kk : 0;
+        flat[k] = (uint32_t)r;
+        ncv[k] = ok ? value_of(a.dim[0], i0 + kk) : 0.0f;
+        csv[k] = ok ? value_of(a.dim[1], j0 + ci) : 0.0f;
+        rv[k] = T::row(a.s, ncv[k], csv[k]);
+        live |= (uint32_t)ok << k;
+    }
+    __syncthreads();
+
+    for (int q = 0; q < nq; ++q) {
+        const float* p = sp + q * P;
+        const float ss = p[0], pq = spq[q];
+        const float* tq = sqn + q * DB_TILE_K * QN;
+        float best = INFINITY;
+        uint32_t best_f = 0xFFFFFFFFu;
+        // every row is evaluated (a masked row's terms are those of
+        // (0, 0)) and a masked one never wins: no branch a row
+#pragma unroll
+        for (int k = 0; k < ROWS_PER_THREAD; ++k) {
+            float c = T::template cost<OOM>(a.s, ss, pq, tq + kkv[k] * QN,
+                                            rv[k]);
+            c = objective(OBJ, c, ncv[k], csv[k], p);
+            if (((live >> k) & 1) && c < best) {      // strict <
+                best = c;
+                best_f = flat[k];
+            }
+        }
+        warp_min(best, best_f, q, red_c, red_f);
+    }
+    fold_block(red_c, red_f, nq, out + q0);
 }
 
 // the cost of slot j of a start at grid indices idx (values v): slots 0 ..
@@ -588,12 +779,60 @@ static bool dispatch(int kind, int nd, A... args) {
     return false;
 }
 
+// the DB surfaces' tile geometry over rows [row0, row0 + nrows)
+static DbTile db_tile(const ScanArgs& a) {
+    const int64_t s1 = a.dim[1].size;
+    int64_t end = a.row0 + a.nrows;
+    if (end > a.total) end = a.total;
+    DbTile t;
+    t.first = a.row0 / s1;
+    t.n0 = (end - 1) / s1 - t.first + 1;
+    t.w = (int)(s1 < TILE_ROWS ? s1 : TILE_ROWS);
+    t.n_w = (int)((s1 + t.w - 1) / t.w);
+    t.k = TILE_ROWS / t.w;
+    if (t.k > DB_TILE_K) t.k = DB_TILE_K;
+    return t;
+}
+
+template <int KIND, int OBJ>
+static void launch_db(unsigned qblocks, cudaStream_t st, const ScanArgs* a,
+                      const float* params, unsigned long long* out) {
+    const DbTile t = db_tile(*a);
+    dim3 grid((unsigned)((t.n0 + t.k - 1) / t.k * t.n_w), qblocks);
+    if constexpr (KIND == SURF_REGRESSION) {
+        if (a->s.oom) {
+            scan_db_kernel<KIND, OBJ, true><<<grid, SCAN_THREADS, 0, st>>>(
+                *a, t, params, out);
+            return;
+        }
+    }
+    scan_db_kernel<KIND, OBJ, false><<<grid, SCAN_THREADS, 0, st>>>(
+        *a, t, params, out);
+}
+
 template <int KIND, int ND>
 struct LaunchScan {
-    static void run(dim3 grid, cudaStream_t st, const ScanArgs* a,
+    static void run(unsigned qblocks, cudaStream_t st, const ScanArgs* a,
                     const float* params, unsigned long long* out) {
-        scan_argmin_kernel<KIND, ND><<<grid, SCAN_THREADS, 0, st>>>(
-            *a, params, out);
+        if constexpr (KIND == SURF_REGRESSION || KIND == SURF_SMJ ||
+                      KIND == SURF_BHJ) {
+            switch (a->s.objective) {
+                case OBJ_MONEY:
+                    launch_db<KIND, OBJ_MONEY>(qblocks, st, a, params, out);
+                    return;
+                case OBJ_SLA:
+                    launch_db<KIND, OBJ_SLA>(qblocks, st, a, params, out);
+                    return;
+                default:
+                    launch_db<KIND, OBJ_TIME>(qblocks, st, a, params, out);
+                    return;
+            }
+        } else {
+            dim3 grid((unsigned)((a->nrows + TILE_ROWS - 1) / TILE_ROWS),
+                      qblocks);
+            scan_argmin_kernel<KIND, ND><<<grid, SCAN_THREADS, 0, st>>>(
+                *a, params, out);
+        }
     }
 };
 
@@ -630,10 +869,9 @@ extern "C" {
 int scan_argmin(const ScanArgs* args, const void* params, void* out,
                 void* stream) {
     const ScanArgs& a = *args;
-    const int64_t rows = (int64_t)SCAN_THREADS * ROWS_PER_THREAD;
-    dim3 grid((unsigned)((a.nrows + rows - 1) / rows),
-              (unsigned)((a.n_queries + a.q_per_block - 1) / a.q_per_block));
-    if (!dispatch<LaunchScan>(a.s.kind, a.n_dims, grid,
+    const unsigned qblocks =
+        (unsigned)((a.n_queries + a.q_per_block - 1) / a.q_per_block);
+    if (!dispatch<LaunchScan>(a.s.kind, a.n_dims, qblocks,
                               (cudaStream_t)stream, args,
                               (const float*)params, (unsigned long long*)out))
         return (int)cudaErrorInvalidValue;

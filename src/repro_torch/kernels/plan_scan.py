@@ -7,11 +7,14 @@ kernels (``csrc/plan_scan.cu``, built by ``kernels/build.py``):
 * ``scan_argmin`` replaces the Pallas ``_scan_kernel`` (K1, one request or
   a ``(query, block)`` grid of stacked requests) and
   ``_scan_many_unrolled_kernel`` (K2, decode a block once and loop its
-  queries).  It decodes flat row ids of the resource grid in-kernel,
-  evaluates the request's cost surface and keeps the first strict minimum
-  per request; no configuration array or cost vector reaches device
-  memory.  ``q_per_block`` sets the launch geometry: 1 is K1's grid, up
-  to ``UNROLL_Q`` is K2's.  ``CudaPlanBackend`` picks K1 for a single
+  queries).  It evaluates the request's cost surface on every
+  configuration of the resource grid in-kernel and keeps the first strict
+  minimum per request; no configuration array or cost vector reaches
+  device memory.  The DB surfaces run a block over a tile of whole values
+  of the first grid dimension and hoist every term that does not depend
+  on the row out of the row loop (bit-equal costs; see the source's
+  note).  ``q_per_block`` sets the launch geometry: 1 is K1's grid, up to
+  ``UNROLL_Q`` is K2's.  ``CudaPlanBackend`` picks K1 for a single
   request and K2 for a stack (``q_per_block = min(Q, UNROLL_Q)``).
 * ``scan_argmin_sharded`` replaces ``_scan_kernel_dyn`` (K4, built by
   ``build_scan_sharded``): the same kernel launched once per shard over a
@@ -82,8 +85,8 @@ MAX_DIMS = 8                # csrc/plan_scan.cu instantiates 1..MAX_DIMS
 UNROLL_Q = 64               # requests per block in the decode-once geometry
 MAX_CONSTS = 16
 MAX_GRID_Y = 65535          # CUDA's bound on gridDim.y
-TILE_ROWS = 256 * 8         # rows a scan block covers (SCAN_THREADS x
-                            # ROWS_PER_THREAD)
+TILE_ROWS = 256 * 8         # rows a scan block covers at most
+                            # (SCAN_THREADS x ROWS_PER_THREAD)
 _SIGN = -(1 << 63)          # flips a packed key's unsigned order to signed
 
 

@@ -50,17 +50,33 @@ def dev():
 GRIDS = [paper_cluster(), ClusterConditions(dims=(
     ResourceDim("nc", 1, 4_001, 5),
     ResourceDim("cs", 1, 34, values=(1, 2, 3, 5, 8, 13, 21, 34))))]
+# the DB scan's tiles: whole dim-0 values x dim 1, at most ps.TILE_ROWS
+# rows; dim-1 sizes 7 and 100 do not divide a tile, 2,001 values of dim 0
+# leave a ragged last tile, and 3 x 5,000 runs windows of dim 1
+TILE_GRIDS = [ClusterConditions(dims=(
+    ResourceDim("nc", 1, 2_001), ResourceDim("cs", 1, 7))),
+    ClusterConditions(dims=(ResourceDim("nc", 1, 2_001),
+                            ResourceDim("cs", 1, 100))),
+    ClusterConditions(dims=(ResourceDim("nc", 1, 3),
+                            ResourceDim("cs", 1, 5_000)))]
 
 
-@pytest.mark.parametrize("objective", ["time", "money", "sla"])
-def test_kernels_bit_equal_plain(dev, objective):
+@pytest.mark.parametrize("objective,grids,queries", [
+    ("time", "base", (1, 9, 70)), ("money", "base", (1, 9, 70)),
+    ("sla", "base", (1, 9, 70)),
+    ("time", "tiles", (1, 8, 63, 64, 65)),
+    ("money", "tiles", (1, 8, 63, 64, 65)),
+    ("sla", "tiles", (1, 8, 63, 64, 65))],
+    ids=["time", "money", "sla", "tiles-time", "tiles-money", "tiles-sla"])
+def test_kernels_bit_equal_plain(dev, objective, grids, queries):
     rng = np.random.default_rng(0)
-    for cluster in GRIDS:
+    for cluster in GRIDS if grids == "base" else TILE_GRIDS:
         dims = ps.grid_dims(cluster, dev)
-        for models in (cm.paper_models(), cm.simulator_cost_models()):
+        for models in (cm.paper_models(), cm.simulator_models(),
+                       cm.simulator_cost_models()):
             for model in models.values():
                 s = cm.Surface(model, objective)
-                for Q in (1, 9, 70):
+                for Q in queries:
                     ss = rng.uniform(0.01, 40, Q)
                     cols = [ss, ss + rng.uniform(0, 100, Q)]
                     if objective == "sla":
@@ -78,6 +94,30 @@ def test_kernels_bit_equal_plain(dev, objective):
                 got = ps.neighbor_step(s, dims, cur, p[:1])
                 want = ps.neighbor_step_ref(s, dims, cur, p[:1])
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if grids == "base":
+        return
+    # all-OOM: the hash side exceeds 70% of every container size
+    dims = ps.grid_dims(TILE_GRIDS[1], dev)
+    p = torch.tensor([[80.0, 300.0] + ([1e9] if objective == "sla" else [])]
+                     * 65, device=dev)
+    bhj = cm.Surface(cm.simulator_cost_models()["BHJ"], objective)
+    for qb in (1, ps.UNROLL_Q):
+        cost, flat = ps.scan_argmin(bhj, dims, p, qb)
+        assert bool(torch.isinf(cost).all()) and bool((flat == -1).all())
+    # a tie plateau across tile boundaries: 2000 ss - nc clamped at the
+    # 1e-3 floor ties every row from nc >= 2000 ss on, over many tiles
+    ties = cm.Surface(cm.RegressionModel(
+        "ties", np.array([2000.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0])),
+        objective)
+    ss = rng.uniform(0.01, 0.9, 65)
+    cols = [ss, ss] + ([np.full(65, 1e9)] if objective == "sla" else [])
+    p = torch.tensor(np.stack(cols, 1), dtype=torch.float32, device=dev)
+    for cluster in TILE_GRIDS:
+        dims = ps.grid_dims(cluster, dev)
+        want = ps.scan_argmin_ref(ties, dims, p)
+        for qb in (1, ps.UNROLL_Q):
+            got = ps.scan_argmin(ties, dims, p, qb)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("rp", ["batched", "ensemble"])
@@ -148,10 +188,23 @@ def test_flash_attention_tensor_cores_match_plain(dev, B, S, Skv, H, KV,
                                rtol=2e-2)
 
 
+# across the 32-step chunk edge, every N the kernel instantiates, with and
+# without h0 (D=200: lanes() gives min(N, 16) lanes a channel)
+SCAN_CHUNK_CASES = [(B, S, 200, N, h0) for B in (1, 4)
+                    for S in (1, 31, 32, 33, 100, 512)
+                    for N in ms.STATE_SIZES for h0 in (False, True)]
+# shapes lanes() maps to fewer lanes than N allows: 2 (B * D = 32K, the
+# serve prefill's B=4, D=8192), 4 (a B=1 prompt) and 8 lanes
+SCAN_LANE_CASES = [(4, 33, 8192, 16, True), (2, 100, 8192, 64, False),
+                   (1, 33, 8192, 16, False), (1, 31, 8192, 32, True),
+                   (1, 33, 4096, 16, True), (2, 32, 2048, 64, False)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D,N,with_h0", [
     (1, 128, 64, 8, False), (2, 100, 200, 16, True), (1, 7, 64, 4, False),
-    (3, 64, 128, 32, True)])
+    (3, 64, 128, 32, True), (2, 45, 201, 16, False),
+    (2, 45, 204, 16, True)] + SCAN_CHUNK_CASES + SCAN_LANE_CASES)
 def test_selective_scan_matches_plain(dev, dtype, B, S, D, N, with_h0):
     g = torch.Generator(device=dev).manual_seed(1)
     u = torch.randn((B, S, D), generator=g, device=dev).to(dtype)

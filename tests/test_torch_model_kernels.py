@@ -124,6 +124,20 @@ def test_selective_scan_with_h0_matches_reference():
     torch.testing.assert_close(h2, hw, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("B,D,N,G", [
+    (1, 8192, 16, 4), (4, 8192, 16, 2), (8, 8192, 16, 2), (1, 256, 16, 16),
+    (1, 64, 4, 4), (2, 4096, 64, 4), (64, 8192, 64, 2), (1, 1, 8, 8)])
+def test_selective_scan_lanes_rule(B, D, N, G):
+    """K8's lanes a channel: the fewest of 2, 4, 8, 16 (at most N) that put
+    FILL_THREADS threads on the card, so falcon-mamba-7b's prefill (B=4,
+    D=8192, N=16) runs 2 lanes a channel and a B=1 prompt 4."""
+    got = tms.lanes(B, D, N)
+    assert got == G and got in tms.LANES and got <= N
+    assert B * D * got >= tms.FILL_THREADS or got == min(N, tms.LANES[-1])
+    smaller = [g for g in tms.LANES if g < got]
+    assert all(B * D * g < tms.FILL_THREADS for g in smaller)
+
+
 def test_wrappers_take_plain_version_on_cpu_without_launching():
     (_, _, _), (q, k, v) = _attn_inputs(1, 16, 4, 2, 16, "float32")
     u, dt, A, Bm, Cm, _ = [torch.from_numpy(a) if a is not None else None
