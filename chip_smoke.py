@@ -82,9 +82,14 @@ Phases (any failure exits nonzero; there is no CPU path):
              orders that Q3's date filter keeps, ~half miss); each
              bit-equal to its plain version there and on small edge cases
              (duplicate keys, negative values, INT_MIN / INT_MAX keys,
-             R = 1, R = 0, S = 0, ragged lengths); times against the plain
-             versions, the byte bound and (SMJ) torch.searchsorted, timed
-             here only;
+             R = 1, R = 0, S = 0, ragged lengths, and join_cases: the hash
+             join's dense array and table, key -1 with value -1 among keys
+             that start at its slot, the merge join's staged and narrowed
+             tiles, tile ranges at the staging budget and one over, all
+             probes equal; each also as slices whose data pointers are off
+             a 16-byte boundary); times against the plain versions, the
+             byte bound (with the GB/s reached) and (SMJ)
+             torch.searchsorted, timed here only;
 10. service — StreamingPlannerService on the streaming bench's schema
              (random_schema(16, seed=0)), simulator models and 100K
              containers x 100 GB through the scan kernel: the bench's
@@ -168,6 +173,9 @@ INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 # compares once; SMJ does one step of 3 per search level, then 2
 HASH_OPS = 10
 SEARCH_STEP_OPS, SEARCH_END_OPS = 3, 2
+# the hash join's kernels, one launch each a call (csrc/hash_join.cu)
+HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
+                "hash_finalize_kernel", "hash_probe_kernel")
 
 STREAM_TABLES = 16             # the streaming bench's random_schema(16, 0)
 STREAM_CLOSED = dict(concurrency=256, n_queries=512, seed=43)   # its FULL
@@ -794,7 +802,11 @@ def join_edge_cases(torch, dev):
     """Phase 9's small cases: each join kernel bit-equal to its plain
     version, and the two hand-checked cases equal to their answers;
     returns the number of kernel/plain comparisons."""
+    import ctypes
+
+    from repro_torch.kernels import build
     from repro_torch.kernels import hash_join as hj
+    from repro_torch.kernels import join_cases as jc
     from repro_torch.kernels import merge_join as mj
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(JOIN_SEED + 1)
@@ -834,6 +846,27 @@ def join_edge_cases(torch, dev):
         p, k, v, _ = cases[name]
         perm = torch.randperm(k.numel(), generator=g, device=dev)
         cases[name + ", unsorted"] = (p, k[perm], v[perm], None)
+
+    def sliced(x):          # x one element into a larger tensor: its data
+        y = torch.zeros(x.numel() + 1, dtype=torch.int32, device=dev)
+        y[1:] = x                          # pointer off a 16-byte boundary
+        return y[1:]
+
+    # each mode of the kernels (join_cases), the build side sorted for both
+    # joins and as it is for the hash join, each also as unaligned slices
+    for name, (p, k, v) in jc.join_cases(JOIN_SEED).items():
+        sk, sv = jc.sorted_build(k, v)
+        p, k, v, sk, sv = (torch.from_numpy(x).to(dev)
+                           for x in (p, k, v, sk, sv))
+        cases[name] = (p, sk, sv, None)
+        cases[name + ", unsorted"] = (p, k, v, None)
+        cases[name + ", unaligned"] = (*(sliced(x) for x in (p, sk, sv)),
+                                       None)
+    sizes = (ctypes.c_int32 * 3)()
+    build.load_library("merge_join").merge_join_sizes(sizes)
+    check(list(sizes) == [mj.TILE, mj.STAGE, mj.SAMPLE],
+          f"merge_join compiled with sizes {list(sizes)}, the wrapper says "
+          f"{[mj.TILE, mj.STAGE, mj.SAMPLE]}")
     n = 0
     for name, (p, k, v, answer) in cases.items():
         pairs = [("hash_join", hj.hash_join, ref.hash_join_ref)]
@@ -848,6 +881,19 @@ def join_edge_cases(torch, dev):
                   f"{want.tolist()[:8]} (answer {answer})")
             n += 1
     return n
+
+
+def join_modes(torch, bhj, smj) -> dict:
+    """The modes the kernels choose on phase 9's inputs (join_cases'
+    rules): the hash join's dense array or table, and how many merge-join
+    tiles stage their build keys in shared memory."""
+    from repro_torch.kernels import join_cases as jc
+    from repro_torch.kernels import merge_join as mj
+    span = jc.tile_spans(smj[0], smj[1])
+    return {"hash_join": "dense array" if jc.takes_dense(bhj[1]) else "table",
+            "merge_join": f"{int((span <= mj.STAGE).sum())} of "
+                          f"{span.numel()} tiles staged (median span "
+                          f"{int(span.median())} build keys)"}
 
 
 def join_phase(torch, dev, sf: int = JOIN_SF):
@@ -900,16 +946,18 @@ def join_phase(torch, dev, sf: int = JOIN_SF):
           f"SMJ: miss share {miss} (expected ~{1 - Q3_SELECTIVITY}) or a "
           f"custkey out of range")
     del got_b, got_s, hits
+    modes = join_modes(torch, bhj, smj)
     n_edge = join_edge_cases(torch, dev)
     print(f"joins (main path): hash_join and merge_join bit-equal to their "
           f"plain versions at TPC-H SF {sf} (SMJ miss share {miss:.4f})"
-          f" and in {n_edge} edge cases; launches {launches}", flush=True)
+          f" and in {n_edge} edge cases; launches {launches}; {modes}",
+          flush=True)
 
-    # the device time of the main path's one launch of each (the hash
-    # join's build and probe kernels together)
+    # the device time of the main path's one call of each: the hash join's
+    # four kernels (min/max, build, finalize, probe) together
     path = path_ms(torch, lambda: (ops.bhj_join(*bhj), ops.smj_join(*smj)),
-                   {"hash_join": (("hash_build_kernel", "hash_probe_kernel"),
-                                  2 * launches["hash_join"],
+                   {"hash_join": (HASH_KERNELS,
+                                  len(HASH_KERNELS) * launches["hash_join"],
                                   (hj, "hash_join")),
                     "merge_join": (("merge_join_kernel",),
                                    launches["merge_join"],
@@ -930,12 +978,16 @@ def join_phase(torch, dev, sf: int = JOIN_SF):
     mj_bound, mj_by = bound_ms(
         8 * S + 8 * R,
         S * (SEARCH_STEP_OPS * R.bit_length() + SEARCH_END_OPS))
+    hj_bytes = 8 * (bhj[0].numel() + bhj[1].numel())
     print(f"time hash_join S={bhj[0].numel()} R={bhj[1].numel()}: "
-          f"{hj_ms:.4f} ms; plain {hj_plain:.3f} ms; bound {hj_bound:.4f} ms "
-          f"({hj_by})", flush=True)
-    print(f"time merge_join S={S} R={R}: {mj_ms:.4f} ms; plain "
-          f"{mj_plain:.3f} ms; torch.searchsorted {mj_lib:.3f} ms; bound "
-          f"{mj_bound:.4f} ms ({mj_by})", flush=True)
+          f"{hj_ms:.4f} ms ({hj_bytes / hj_ms / 1e6:.1f} GB/s of the bound's "
+          f"bytes); plain {hj_plain:.3f} ms; bound {hj_bound:.4f} ms "
+          f"({hj_by}, {H100_HBM_BYTES_S / 1e9:.0f} GB/s)", flush=True)
+    print(f"time merge_join S={S} R={R}: {mj_ms:.4f} ms "
+          f"({8 * (S + R) / mj_ms / 1e6:.1f} GB/s of the bound's bytes); "
+          f"plain {mj_plain:.3f} ms; torch.searchsorted {mj_lib:.3f} ms; "
+          f"bound {mj_bound:.4f} ms ({mj_by}, "
+          f"{H100_HBM_BYTES_S / 1e9:.0f} GB/s)", flush=True)
     del bhj, smj
     torch.cuda.empty_cache()
     csrc = "src/repro_torch/kernels/csrc/"
@@ -947,7 +999,7 @@ def join_phase(torch, dev, sf: int = JOIN_SF):
          "bound_by": hj_by, "library_ms": None,
          "path_ms": path["hash_join"][0],
          "path_launches": launches["hash_join"],
-         "path_source": path["hash_join"][1]},
+         "path_source": path["hash_join"][1], "mode": modes["hash_join"]},
         {"name": "merge_join", "route": "cuda",
          "source": csrc + "merge_join.cu",
          "replaces": "src/repro/kernels/merge_join.py:28",
@@ -956,7 +1008,7 @@ def join_phase(torch, dev, sf: int = JOIN_SF):
          "bound_ms": mj_bound, "bound_by": mj_by, "library_ms": mj_lib,
          "path_ms": path["merge_join"][0],
          "path_launches": launches["merge_join"],
-         "path_source": path["merge_join"][1]},
+         "path_source": path["merge_join"][1], "mode": modes["merge_join"]},
     ]
 
 

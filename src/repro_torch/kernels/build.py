@@ -4,9 +4,9 @@ Each source in ``csrc/`` (``SOURCES``) is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface, on
 first use, and loaded with ``ctypes``.  The libraries land in ``build/``
 beside this file (listed in ``.gitignore``), each named by a hash of its
-source and flags, so an edited source rebuilds and an unchanged one is
-reused.  ``build_all()`` starts one ``nvcc`` per source at once and waits
-for all of them.  Nothing here runs at import: the CPU-only test hosts
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  ``build_all()``
+starts one ``nvcc`` per source at once and waits for all of them.  Nothing here runs at import: the CPU-only test hosts
 import every module and have no ``nvcc``.
 """
 from __future__ import annotations
@@ -64,7 +64,8 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha1(source_path(name).read_bytes() +
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha1(source_path(name).read_bytes() + headers +
                      " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

@@ -15,6 +15,7 @@ the streaming service through the scan kernel must plan as solo planning
 does.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -29,7 +30,9 @@ from repro_torch.core.raqo import RAQO
 from repro_torch.core.schema import random_query, random_schema
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import build
 from repro_torch.kernels import hash_join as hj
+from repro_torch.kernels import join_cases as jc
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import merge_join as mj
 from repro_torch.kernels import plan_scan as ps
@@ -236,8 +239,19 @@ def test_smoke_serve_through_kernels(dev):
     assert after[0] > before[0] and after[1] > before[1]
 
 
+@functools.lru_cache(maxsize=1)
+def _shared_join_cases():
+    return jc.join_cases()
+
+
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
-# name -> (S, R, key range, values' range): random keys from numpy
+# name -> (S, R, key range, values' range): random keys from numpy; then
+# the cases of join_cases, each shaped to reach one mode of the kernels
+# (the hash join's dense array or table, the merge join's staged or
+# narrowed tiles) or one edge: a key range over int32, key -1 with value
+# -1 among keys that start at its slot, clustered and scattered probes,
+# tile ranges at the staging budget and one over, all probes equal, S not
+# a multiple of the 16-byte width
 JOIN_CASES = {
     "pk": (1024, 512, (0, 5000), (0, 1 << 20)),
     "duplicates-negative": (10_007, 3_001, (-300, 300),
@@ -247,32 +261,62 @@ JOIN_CASES = {
     "r1": (257, 1, (0, 3), (-9, 9)),
     "r0": (33, 0, (0, 3), (0, 1)),
     "s0": (0, 64, (0, 100), (0, 100)),
+    **{name: None for name in _shared_join_cases()},
 }
 
 
-@pytest.mark.parametrize("name", sorted(JOIN_CASES))
-def test_join_kernels_equal_plain(dev, name):
+def _join_inputs(name):
+    if JOIN_CASES[name] is None:
+        return _shared_join_cases()[name]
     S, R, (klo, khi), (vlo, vhi) = JOIN_CASES[name]
     rng = np.random.default_rng(7)
     probe = rng.integers(klo, khi, S, dtype=np.int64).astype(np.int32)
     keys = rng.integers(klo, khi, R, dtype=np.int64).astype(np.int32)
     vals = rng.integers(vlo, vhi, R, dtype=np.int64).astype(np.int32)
     probe[: min(S, 3)] = [INT32_MIN, INT32_MAX, 0][: min(S, 3)]
-    p, k, v = (torch.from_numpy(x).to(dev) for x in (probe, keys, vals))
-    sk, order = torch.sort(k, stable=True)
-    sv = v[order]
+    return probe, keys, vals
+
+
+def _on_card(x, dev, offset):
+    """x on the card; with offset 1 a slice one element into a larger
+    tensor, so its data pointer is 4 bytes off a 16-byte boundary."""
+    t = torch.zeros(x.size + offset, dtype=torch.int32, device=dev)
+    t[offset:] = torch.from_numpy(x)
+    return t[offset:]
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_CASES))
+def test_join_kernels_equal_plain(dev, name):
+    probe, keys, vals = _join_inputs(name)
+    S = probe.size
+    sk, sv = jc.sorted_build(keys, vals)
     before = (hj.hash_join.launches, mj.merge_join.launches)
-    for kernel, plain, args in ((hj.hash_join, ref.hash_join_ref, (p, k, v)),
-                                (hj.hash_join, ref.hash_join_ref,
-                                 (p, sk, sv)),
-                                (mj.merge_join, ref.merge_join_ref,
-                                 (p, sk, sv))):
-        got, want = kernel(*args), plain(*args)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.int32 and torch.equal(got, want), name
+    for offset in (0, 1):
+        p, k, v, sk_, sv_ = (_on_card(x, dev, offset)
+                             for x in (probe, keys, vals, sk, sv))
+        assert offset == 0 or S == 0 or p.data_ptr() % 16
+        for kernel, plain, args in ((hj.hash_join, ref.hash_join_ref,
+                                     (p, k, v)),
+                                    (hj.hash_join, ref.hash_join_ref,
+                                     (p, sk_, sv_)),
+                                    (mj.merge_join, ref.merge_join_ref,
+                                     (p, sk_, sv_))):
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), \
+                (name, offset, kernel.__name__)
     launched = S > 0
     assert (hj.hash_join.launches, mj.merge_join.launches) == \
-        (before[0] + 2 * launched, before[1] + launched)
+        (before[0] + 4 * launched, before[1] + 2 * launched)
+
+
+def test_merge_join_sizes_match_the_source(dev):
+    """The wrapper's TILE, STAGE and SAMPLE, which the cases are shaped
+    by, are the sizes the kernel was compiled with."""
+    import ctypes
+    sizes = (ctypes.c_int32 * 3)()
+    build.load_library("merge_join").merge_join_sizes(sizes)
+    assert list(sizes) == [mj.TILE, mj.STAGE, mj.SAMPLE]
 
 
 def test_join_kernels_first_match(dev):

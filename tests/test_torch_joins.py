@@ -14,6 +14,12 @@ match, the rank kernel keeps the last); the port follows the oracles: the
 value of the first matching build row, whatever its sign.
 ``test_pallas_joins_diverge_from_oracles`` pins that fault of the
 reference.
+
+``repro_torch.kernels.join_cases`` holds the cases shaped to reach each
+mode of the CUDA kernels (the hash join's dense array and table, the merge
+join's staged and narrowed tiles); here they run through the port's CPU
+path against the oracles, and through the Pallas kernels where those agree
+with their oracles.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +30,7 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro_torch.kernels import hash_join as hj
+from repro_torch.kernels import join_cases as jc
 from repro_torch.kernels import merge_join as mj
 from repro_torch.kernels import ops, ref
 
@@ -233,3 +240,87 @@ def test_hash_table_size(R, slots):
     """A power of two with load factor at most 1/2 (at R = 1M, 16 MB of
     64-bit slots, which the card's 50 MB L2 holds)."""
     assert hj.table_slots(R) == slots
+
+
+def test_dense_slots():
+    """The dense array takes the table's memory as 32-bit words: twice its
+    slots, so s_suppkey's 1..1M at R = 1M fits (4M words)."""
+    for R in (0, 1, 2, 3, 1_000, 1_000_000):
+        assert hj.dense_slots(R) == 2 * hj.table_slots(R)
+    assert hj.dense_slots(1_000_000) == 1 << 22
+
+
+# --------------- the kernels' modes: join_cases, on the CPU ---------------- #
+
+JOIN_CASES = jc.join_cases()
+
+
+def _pallas_agrees(probe, bkeys, bvals) -> bool:
+    """Where the reference's Pallas joins equal their oracles and take the
+    lengths: distinct build keys, values >= -1, lengths that divide their
+    default tiles (1024 probes, 2048 build rows)."""
+    S, R = probe.size, bkeys.size
+    return (np.unique(bkeys).size == R and bvals.min() >= -1 and
+            (S <= 1024 or S % 1024 == 0) and (R <= 2048 or R % 2048 == 0))
+
+
+# the reference's hash-join oracle compares every probe with every build
+# key; above this many pairs its sort-merge oracle on the stably sorted
+# build side stands in (the same first-row answers: the smaller cases
+# check that the two agree)
+COMPARE_PAIRS = 10 ** 8
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_CASES))
+def test_join_cases_match_oracles(name):
+    """Each case the CUDA kernels' modes are shaped by: the hash join on
+    the build side as it is, the merge join on it stably sorted; both
+    equal to ``repro.kernels.ref``'s oracles."""
+    probe, bkeys, bvals = JOIN_CASES[name]
+    sk, sv = jc.sorted_build(bkeys, bvals)
+    want = _oracle(probe, sk, sv, rref.merge_join_ref)
+    if probe.size * bkeys.size <= COMPARE_PAIRS:
+        np.testing.assert_array_equal(_oracle(probe, bkeys, bvals), want)
+        np.testing.assert_array_equal(_oracle(probe, sk, sv), want)
+    p, k, v = (torch.from_numpy(x) for x in (probe, bkeys, bvals))
+    for fn in (hj.hash_join, ref.hash_join_ref, ops.bhj_join):
+        np.testing.assert_array_equal(fn(p, k, v).numpy(), want)
+    _assert_port_equals(probe, sk, sv, want)
+    if _pallas_agrees(probe, bkeys, bvals):
+        for fn in (rops.bhj_join, rops.smj_join):
+            np.testing.assert_array_equal(
+                np.asarray(fn(jnp.asarray(probe), jnp.asarray(sk),
+                              jnp.asarray(sv))), want)
+
+
+def test_join_cases_reach_every_mode():
+    """The case set reaches the hash join's dense array and table, and the
+    merge join's staged and narrowed tiles, each more than once; and the
+    Pallas kernels run on some of it."""
+    seen = {"hash_join": [], "merge_join": []}
+    for probe, bkeys, _ in JOIN_CASES.values():
+        for op, got in jc.modes(probe, bkeys).items():
+            seen[op] += sorted(got)
+    assert sorted(set(seen["hash_join"])) == ["dense", "hash"]
+    assert sorted(set(seen["merge_join"])) == ["narrowed", "staged"]
+    for op, got in seen.items():
+        assert all(got.count(m) >= 2 for m in set(got)), (op, got)
+    assert sum(_pallas_agrees(*c) for c in JOIN_CASES.values()) >= 3
+
+
+def test_join_case_shapes():
+    """The shapes the cases promise: a -1 key whose first value is -1 among
+    keys that start at its slot; a key range of 2^32; tile ranges of
+    exactly STAGE and STAGE + 1 build keys; an S that is not a multiple of
+    the 16-byte width."""
+    probe, bkeys, bvals = JOIN_CASES["key -1, value -1, colliding keys"]
+    mask = np.uint32(hj.table_slots(bkeys.size) - 1)
+    start = jc.mix32(np.asarray([-1], np.int32)) & mask
+    assert bvals[np.flatnonzero(bkeys == -1)[0]] == -1
+    assert ((jc.mix32(bkeys) & mask) == start).sum() >= 20
+    probe, bkeys, _ = JOIN_CASES["INT_MIN and INT_MAX"]
+    assert int(bkeys.max()) - int(bkeys.min()) + 1 == 2 ** 32
+    probe, bkeys, _ = JOIN_CASES["tile range at the budget, and one over"]
+    spans = jc.tile_spans(torch.from_numpy(probe), torch.from_numpy(bkeys))
+    assert spans.tolist() == [mj.STAGE, mj.STAGE + 1]
+    assert JOIN_CASES["S not a multiple of 4"][0].size % 4
