@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Build and run the PyTorch/CUDA port on one GPU: RAQO planning, model
-serving, the join operators, the streaming planner service, the sharded
-plan scan and the sharding planner through the port's hand-written CUDA
-kernels.
+serving and training, the join operators, the streaming planner service,
+the sharded plan scan and the sharding planner through the port's
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -31,18 +31,19 @@ Phases (any failure exits nonzero; there is no CPU path):
              through the scan kernel ("batched") and the ensemble-climb
              kernel ("ensemble", on 1K containers x 100 GB, where the plain
              version's host climb still runs), then the four TPC-H queries
-             (SF 100, the paper's published models, 100K x 100); every plan
-             must equal the plain version's (TorchPlanBackend float32 on the
-             card), both kernels must have launched and neighbor_step must
-             not have; then "ensemble" at 100K x 100 through the kernel,
-             timed, with the device time of all its climb launches (its
+             (SF 100, the paper's published models, 100K x 100); the plans
+             of the first query of each must equal the plain version's
+             (TorchPlanBackend float32 on the card, that query alone),
+             both kernels must have launched and neighbor_step must not
+             have; then "ensemble" at 100K x 100 through the kernel, timed, with the device time of all its climb launches (its
              plans are not compared: the plain climb would take ~1e5 host
              steps a request);
 5. times   — each kernel at the main path's largest wave shape against its
              plain version and its bound (bytes or FP32 operations); the
              climb at the largest climb group of the 1K and of the 100K
              ensemble run, with its longest chain's iterations and the time
-             of one iteration; at 100K every final index must be a local
+             of one iteration; the 1K group's first 8 requests bit-equal
+             to the plain climb's on them (timed); at 100K every final index must be a local
              minimum of the plain surface (one neighbor_step_ref there, for
              starts that stopped before max_iters) with the kernel's cost;
 6. model kernels against plain, on the card — flash_attention at
@@ -62,6 +63,20 @@ Phases (any failure exits nonzero; there is no CPU path):
              the configs' own bfloat16 through the kernels (tok/s, steps,
              launches; flash_attention must launch on smollm-360m and
              selective_scan on falcon-mamba-7b);
+13. train  — (runs after 7) smollm-360m at full width and depth and falcon-mamba-7b at
+             full width and 8 of its 64 layers: in float32 (smollm B=2,
+             S=256; falcon B=1, S=128, one fixed batch) the model on the
+             kernels (K7 / K8 forward, their analytic backwards) against
+             impl="ref" (autograd through the plain versions): loss within
+             1e-5, every gradient nonzero and within GRAD_TOL (max |diff|
+             over max |g| per tensor), parameters after 3 AdamW steps;
+             then the configs' bfloat16 with float32 masters, 20 steps of
+             make_train_step on SyntheticPipeline batches of 8 x 512 (step
+             ms, tokens/s, peak memory, the loss falling, launches and
+             the kernel's device time on one step); then
+             python -m repro_torch.launch.train on one GPU, whole and
+             crashed at step 8 then resumed from step 5, final losses
+             within LAUNCHER_LOSS_TOL;
 8. times   — flash_attention at B=1, S=4096 and at the serve shape (B=4,
              S=256), smollm's heads, bfloat16, against attention_ref and
              torch's scaled_dot_product_attention (timed here only; the port
@@ -119,7 +134,9 @@ Phases (any failure exits nonzero; there is no CPU path):
 
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
-record as path_ms / path_launches, and path_source says how it was read
+record as path_ms / path_launches (K7 and K8 also train_path_ms /
+train_path_launches over one step of phase 13's timed run), and
+path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.
@@ -130,6 +147,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -152,6 +170,12 @@ OBJECTIVE_OPS = {"time": 0, "money": 5, "sla": 5}
 FOLD_OPS = 1
 
 QUERIES = 8                    # random 5-relation queries (seeds 0..7)
+# the plain planner's comparison runs the first PLAIN_QUERIES queries of
+# each main-path workload (the kernels plan all of them): the plain host
+# climb takes ~20 s a query on the ensemble grid
+PLAIN_QUERIES = 1
+CLIMB_PLAIN_Q = 8              # requests of the main-path climb held
+                               # against the plain climb
 ENSEMBLE_CONTAINERS = 1_000    # the ensemble pass's grid: 1K x 100 GB
 CLIMB_STARTS = 26              # the planners' 2 corners + 24 random starts
 
@@ -177,6 +201,28 @@ SEARCH_STEP_OPS, SEARCH_END_OPS = 3, 2
 HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
                 "hash_finalize_kernel", "hash_probe_kernel")
 
+# phase 13: training at full width; falcon-mamba-7b cut to 8 of its 64
+# layers (float32 masters, grads and Adam moments at full depth are ~112 GB)
+TRAIN = {"smollm-360m": (None, "flash_attention"),
+         "falcon-mamba-7b": (8, "selective_scan")}
+TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128)}  # B, S
+TRAIN_LR = 1e-3                # the float32 check's AdamW steps
+TRAIN_F32_STEPS = 3
+LOSS_TOL = 1e-5                # float32 loss, kernels vs plain, relative
+# float32 gradients, kernels vs plain: max |diff| over max |g| per tensor
+GRAD_TOL = 1e-4
+# float32 parameters after the AdamW steps: each step moves an element by
+# about lr * m / sqrt(v), so an element whose tiny gradient rounds another
+# way moves by another fraction of lr; at most this share of the elements
+# may differ by more than 2% of lr, none by more than 2 lr a step
+PARAM_SHARE_TOL = 1e-4
+TRAIN_BF16 = dict(batch=8, seq=512, steps=20)
+TRAIN_SCHEDULE = (3e-4, 2)     # the trainer's cosine: peak, warmup steps
+LAUNCHER = ["--arch", "smollm-360m", "--steps", "12", "--batch", "8",
+            "--seq", "512", "--ckpt-every", "5"]
+LAUNCHER_FAIL_AT = 8
+LAUNCHER_LOSS_TOL = 1e-3       # final loss, resumed vs whole run, relative
+
 STREAM_TABLES = 16             # the streaming bench's random_schema(16, 0)
 STREAM_CLOSED = dict(concurrency=256, n_queries=512, seed=43)   # its FULL
 STREAM_OPEN = dict(rate=100.0, n=200, seed=11)                  # its OPEN
@@ -186,6 +232,28 @@ STREAM_SAMPLE = 32             # closed-loop tickets checked against solo
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def model_kernels() -> dict:
+    """The model kernels' wrapper modules, by wrapper name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    return {"flash_attention": fa, "selective_scan": ms}
+
+
+def launch_counts() -> dict:
+    """The model kernels' launch counters (ops.reset_launch_counts sets
+    them to 0)."""
+    return {name: getattr(mod, name).launches
+            for name, mod in model_kernels().items()}
 
 
 # the same surfaces in the DB scan's hoisted form (plan_scan.cu
@@ -244,24 +312,35 @@ def time_ms(fn, reps: int, torch) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def profile_kernels(torch, fn, reps: int, kernels: dict) -> dict:
-    """One torch.profiler trace of ``reps`` calls of ``fn``: for each key
-    of ``kernels`` (a tuple of kernel name substrings), the device time of
-    those kernels' launches in ms and the number of launches it holds."""
+def kernel_times(torch, fn, reps: int) -> dict:
+    """One torch.profiler trace of the card's activity over ``reps`` calls
+    of ``fn``: {kernel name: (device ms, launches)} of every kernel (and
+    copy) in it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms, n = out.get(e.name, (0.0, 0))
+        out[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    return out
+
+
+def profile_kernels(torch, fn, reps: int, kernels: dict) -> dict:
+    """One torch.profiler trace of ``reps`` calls of ``fn``: for each key
+    of ``kernels`` (a tuple of kernel name substrings), the device time of
+    those kernels' launches in ms and the number of launches it holds."""
+    rows = kernel_times(torch, fn, reps)
     out = {}
     for key, names in kernels.items():
-        rows = [e for e in events if any(n in e.key for n in names)]
-        # self time: a kernel's own, never its parent op's again
-        out[key] = (sum(getattr(e, "self_device_time_total",
-                                getattr(e, "device_time_total", 0))
-                        for e in rows) / 1e3, sum(e.count for e in rows))
+        hit = [v for k, v in rows.items() if any(n in k for n in names)]
+        out[key] = (sum(ms for ms, _ in hit), sum(n for _, n in hit))
     return out
 
 
@@ -596,7 +675,202 @@ def serve_phase(torch):
     return out
 
 
-def model_times(torch, dev, err, served):
+def train_parity(torch, cfg, B, S):
+    """Phase 13's float32 check: the model on the kernels (impl="cuda",
+    the custom backwards) against impl="ref" (autograd through the plain
+    versions), the same seeded parameters and one fixed batch: the loss,
+    every parameter's gradient (each nonzero) and the parameters after
+    TRAIN_F32_STEPS AdamW steps."""
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
+                                           make_train_step)
+    kernel = TRAIN[cfg.name][1]
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    batch = SyntheticPipeline(f32, B, S, seed=0).batch_at(0)
+    out = {}
+    for impl in ("cuda", "ref"):
+        ops.reset_launch_counts()
+        model = build_model(f32, device="cuda", seed=0, impl=impl)
+        loss, _ = make_loss_fn(model)(batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        launches = launch_counts()[kernel]
+        opt = AdamW(lr=TRAIN_LR)
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt)
+        for _ in range(TRAIN_F32_STEPS):
+            state, _ = step(state, batch)
+        out[impl] = (float(loss.detach()), grads, [p.detach() for p in
+                                          model.parameters()], launches)
+        del model, state, step, opt
+        torch.cuda.empty_cache()
+    (loss, grads, params, launches), (ploss, pgrads, pparams, plaunch) = \
+        out["cuda"], out["ref"]
+    check(launches > 0 and plaunch == 0,
+          f"{cfg.name} float32: {kernel} launched {launches} times on the "
+          f"kernels, {plaunch} on the plain path")
+    rel = abs(loss / ploss - 1)
+    check(math.isfinite(loss) and rel <= LOSS_TOL,
+          f"{cfg.name} float32: loss {loss} vs plain {ploss} (rel {rel})")
+    zero = sum(not bool((g != 0).any()) for g in grads)
+    check(zero == 0, f"{cfg.name} float32: {zero} parameters got an "
+          f"all-zero gradient")
+    gerr = max(float((g - pg).abs().max() / pg.abs().max())
+               for g, pg in zip(grads, pgrads))
+    check(gerr <= GRAD_TOL, f"{cfg.name} float32: gradient max |diff| / "
+          f"max |g| {gerr} > {GRAD_TOL}")
+    diffs = [(p - pp).abs() for p, pp in zip(params, pparams)]
+    pmax = max(float(d.max()) for d in diffs) / TRAIN_LR
+    n = sum(d.numel() for d in diffs)
+    share = sum(int((d > 0.02 * TRAIN_LR).sum()) for d in diffs) / n
+    check(share <= PARAM_SHARE_TOL and pmax <= 2 * TRAIN_F32_STEPS,
+          f"{cfg.name} float32: after {TRAIN_F32_STEPS} steps {share} of "
+          f"the parameters differ by more than 2% of lr (max {pmax} lr)")
+    print(f"train {cfg.name} float32 B={B} S={S} ({cfg.n_layers} layers, "
+          f"{n} parameters): loss {loss} vs plain {ploss} (rel {rel:.3g}); "
+          f"every gradient nonzero; gradient max |diff| / max |g| {gerr:.3g}"
+          f" (limit {GRAD_TOL}); after {TRAIN_F32_STEPS} AdamW steps (lr "
+          f"{TRAIN_LR}) max |diff| {pmax:.4g} lr, {share:.3g} of elements "
+          f"beyond 2% of lr; {kernel} launches {launches}", flush=True)
+
+
+def train_timed(torch, cfg):
+    """Phase 13's main path: TRAIN_BF16["steps"] steps of make_train_step
+    in the config's bfloat16 (float32 masters) on SyntheticPipeline
+    batches; the launch counts are set to 0 just before and read just
+    after.  Returns the kernel's (device ms on one step, how it was read,
+    launches a step)."""
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    kernel = TRAIN[cfg.name][1]
+    B, S, n = TRAIN_BF16["batch"], TRAIN_BF16["seq"], TRAIN_BF16["steps"]
+    model = build_model(cfg, device="cuda", seed=0)
+    opt = AdamW(lr=cosine_schedule(TRAIN_SCHEDULE[0], TRAIN_SCHEDULE[1], n))
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt)
+    pipe = SyntheticPipeline(cfg, B, S, seed=0)
+    batches = [pipe.batch_at(i) for i in range(n)]      # set-up, untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    secs, losses = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))                 # syncs
+        secs.append(time.perf_counter() - t)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{cfg.name} bfloat16: losses {losses[0]} -> {losses[-1]} did not "
+          f"fall")
+    check(launches[kernel] > 0, f"{cfg.name} bfloat16: {kernel} never "
+          f"launched on the training path: {launches}")
+    med = statistics.median(secs[1:]) * 1e3
+    # every token of steps 2..n over their summed time (the first is left
+    # out, as from the median); the median's rate beside it
+    tok_s = B * S * (n - 1) / sum(secs[1:])
+    module = model_kernels()[kernel]
+    per_step = launches[kernel] // n
+    dev_ms, how = path_ms(torch, lambda: step(state, batches[0]), {
+        kernel: ((kernel + "_",), per_step, (module, kernel))})[kernel]
+    # the card's busy time on one more step (a trace of its activity
+    # only) against the median step of the unprofiled run
+    rows = kernel_times(torch, lambda: step(state, batches[0]), 1)
+    busy = sum(ms for ms, _ in rows.values())
+    top = sorted(rows.items(), key=lambda r: -r[1][0])[:6]
+    print(f"train {cfg.name} {cfg.dtype} (main path) B={B} S={S}, "
+          f"{cfg.n_layers} layers, {n} steps: step median "
+          f"{med:.3f} ms (first {secs[0] * 1e3:.1f} ms), {tok_s:.1f} "
+          f"tokens/s over steps 2-{n} ({B * S / (med / 1e3):.1f} at the "
+          f"median), peak memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated), loss step 1 "
+          f"{losses[0]:.4f} -> step {n} {losses[-1]:.4f}; launches "
+          f"{launches}; {kernel} device time on one step {dev_ms} ms over "
+          f"{per_step} launches ({how})", flush=True)
+    print(f"train {cfg.name} {cfg.dtype}: one traced step {busy:.3f} ms of "
+          f"device kernels against the {med:.3f} ms median step (idle "
+          f"share {1 - busy / med:.3f}); top kernels by device time: " +
+          "; ".join(f"{k[:70]} {ms:.3f} ms x{c}" for k, (ms, c) in top),
+          flush=True)
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+    return dev_ms, how, per_step
+
+
+def launcher_check():
+    """Phase 13's launcher: ``python -m repro_torch.launch.train`` on one
+    GPU, whole, then crashed at LAUNCHER_FAIL_AT (exit 1) and resumed from
+    the checkpoint before it (exit 0); the two final losses agree."""
+    import os
+    import tempfile
+    root = Path(__file__).resolve().parent
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES=visible or "0", PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER]
+
+    def run(*extra):
+        t = time.perf_counter()
+        r = subprocess.run(cmd + list(extra), env=env, cwd=root,
+                           capture_output=True, text=True, timeout=600)
+        return r, time.perf_counter() - t
+
+    def final(out):
+        lines = [l for l in out.splitlines() if "done:" in l]
+        check(bool(lines), f"the trainer printed no final line:\n{out}")
+        return float(lines[-1].split("final loss")[-1])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, s1 = run("--ckpt-dir", f"{tmp}/whole")
+        check(whole.returncode == 0, f"trainer exit {whole.returncode}:\n"
+              f"{whole.stdout[-2000:]}{whole.stderr[-3000:]}")
+        shutil.rmtree(f"{tmp}/whole")
+        crash, s2 = run("--ckpt-dir", f"{tmp}/crash", "--fail-at",
+                        str(LAUNCHER_FAIL_AT))
+        check(crash.returncode == 1 and "SIMULATED FAILURE" in crash.stdout,
+              f"--fail-at: exit {crash.returncode}:\n{crash.stdout[-2000:]}"
+              f"{crash.stderr[-3000:]}")
+        resumed, s3 = run("--ckpt-dir", f"{tmp}/crash")
+    every = int(LAUNCHER[LAUNCHER.index("--ckpt-every") + 1])
+    start = LAUNCHER_FAIL_AT // every * every
+    check(resumed.returncode == 0 and
+          f"resumed from step {start}" in resumed.stdout,
+          f"resume: exit {resumed.returncode}:\n{resumed.stdout[-2000:]}"
+          f"{resumed.stderr[-3000:]}")
+    a, b = final(whole.stdout), final(resumed.stdout)
+    rel = abs(a / b - 1)
+    check(rel <= LAUNCHER_LOSS_TOL, f"final loss whole {a} vs resumed {b}")
+    print(f"train launcher ({' '.join(LAUNCHER)}, one GPU): whole run "
+          f"{s1:.1f} s final loss {a}; --fail-at {LAUNCHER_FAIL_AT} exit 1 "
+          f"({s2:.1f} s); resumed from step {start} ({s3:.1f} s) final loss "
+          f"{b} (rel diff {rel:.3g}, limit {LAUNCHER_LOSS_TOL})", flush=True)
+
+
+def train_phase(torch):
+    """Phase 13: training at full width on the card; returns {kernel:
+    (device ms on one step of its timed run, how, launches a step)}."""
+    from repro_torch.configs import get_config
+    t = time.perf_counter()
+    print(f"phase 13 on {card()}", flush=True)
+    out = {}
+    for arch, (layers, kernel) in TRAIN.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        train_parity(torch, cfg, *TRAIN_F32[arch])
+        out[kernel] = train_timed(torch, cfg)
+    launcher_check()
+    print(f"phase 13: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
+def model_times(torch, dev, err, served, trained):
     """Phase 8: each model kernel at a long-prefill shape against its plain
     version, its bound and (attention) torch's fused call."""
     from repro_torch.kernels import build
@@ -755,7 +1029,10 @@ def model_times(torch, dev, err, served):
          "plain_ms": fa_plain, "bound_ms": fa_bound, "bound_by": fa_by,
          "library_ms": fa_lib, "path_ms": served["smollm-360m"][2],
          "path_launches": served["smollm-360m"][1]["flash_attention"],
-         "path_source": served["smollm-360m"][3]},
+         "path_source": served["smollm-360m"][3],
+         "train_path_ms": trained["flash_attention"][0],
+         "train_path_launches": trained["flash_attention"][2],
+         "train_path_source": trained["flash_attention"][1]},
         {"name": "selective_scan", "route": "cuda",
          "source": csrc + "mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:27",
@@ -764,7 +1041,10 @@ def model_times(torch, dev, err, served):
          "plain_ms": ss_plain, "bound_ms": ss_bound, "bound_by": ss_by,
          "library_ms": None, "path_ms": served["falcon-mamba-7b"][2],
          "path_launches": served["falcon-mamba-7b"][1]["selective_scan"],
-         "path_source": served["falcon-mamba-7b"][3]},
+         "path_source": served["falcon-mamba-7b"][3],
+         "train_path_ms": trained["selective_scan"][0],
+         "train_path_launches": trained["selective_scan"][2],
+         "train_path_source": trained["selective_scan"][1]},
     ]
 
 
@@ -1449,11 +1729,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. device ------------------------------------------------------------ #
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind}", flush=True)
 
@@ -1640,9 +1916,10 @@ def main() -> int:
          list(TPCH_QUERIES.values())),
     ]
 
-    def plan_all(backend):
+    def plan_all(backend, depth=None):
         out = {}
         for name, kw, qs in runs:
+            qs = qs[:depth]
             broker = PlanBroker(backend)
             t = time.perf_counter()
             plans = RAQO(backend=backend, broker=broker, **kw
@@ -1657,23 +1934,26 @@ def main() -> int:
     launches = {"scan_argmin": ps.scan_argmin.launches,
                 "neighbor_step": ps.neighbor_step.launches,
                 "ensemble_climb": ps.ensemble_climb.launches}
-    plain = plan_all(TorchPlanBackend(device="cuda", dtype=torch.float32))
+    # the kernels' plans of the first PLAIN_QUERIES queries of each
+    # workload against the plain planner's
+    plain = plan_all(TorchPlanBackend(device="cuda", dtype=torch.float32),
+                     PLAIN_QUERIES)
     for name, kw, qs in runs:
         plans, secs, broker = got[name]
-        pplans, psecs, _ = plain[name]
         check(len(plans) == len(qs) and all(
             jp.plan is not None and math.isfinite(jp.exec_time)
             for jp in plans), f"{name}: missing or infinite plan")
-        check([plan_signature(j) for j in plans] ==
-              [plan_signature(j) for j in pplans],
+        check([plan_signature(j) for j in plans[:PLAIN_QUERIES]] ==
+              [plan_signature(j) for j in plain[name][0]],
               f"{name}: kernel plans differ from the plain version's")
         c = broker.counters_snapshot()
         print(f"main {name}: {len(qs)} queries on "
               f"{kw['cluster'].grid_size()} configs, plan_queries "
-              f"{secs:.3f} s (plain {psecs:.3f} s), waves {c['waves']}, "
-              f"requests {c['requests']}, max wave {c['max_wave']}, "
-              f"float64 re-searches {broker.f64_researches}, plans equal "
-              f"to plain", flush=True)
+              f"{secs:.3f} s, waves {c['waves']}, requests "
+              f"{c['requests']}, max wave {c['max_wave']}, float64 "
+              f"re-searches {broker.f64_researches}; the plans of its "
+              f"first {PLAIN_QUERIES} queries equal the plain version's "
+              f"(plain {plain[name][1]:.3f} s)", flush=True)
     print(f"main launches: {launches} (neighbor_step: the ensemble climb "
           f"no longer steps from the host)", flush=True)
     check(launches["scan_argmin"] > 0 and launches["ensemble_climb"] > 0,
@@ -1797,21 +2077,30 @@ def main() -> int:
     from repro_torch.core.planning_backend import start_indices
     ITERS = 100_000                           # the planners' max_iters
 
-    def climb_time(cl, cdims, Qc, plain: bool):
+    def climb_time(cl, cdims, Qc, plain_q: int = 0):
+        """The climb of Qc requests from the grid's own starts, timed; with
+        ``plain_q``, its first plain_q requests' outputs (each request
+        climbs on its own) bit-equal to the plain climb's on them, whose
+        one call is timed too."""
         starts = torch.tensor(start_indices(cl, None, 24, 0), device=dev)
         pc = params_for(surface, Qc)
         out = ps.ensemble_climb(surface, cdims, starts, pc, ITERS)
         ms = time_ms(lambda: ps.ensemble_climb(surface, cdims, starts, pc,
                                                ITERS), 10, torch)
         pl = None
-        if plain:
+        if plain_q:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            ps.ensemble_climb_ref(surface, cdims, starts, pc, ITERS)
+            ref = ps.ensemble_climb_ref(surface, cdims, starts,
+                                        pc[:plain_q], ITERS)
             e1.record()
             torch.cuda.synchronize()
             pl = e0.elapsed_time(e1)          # one call: ~1e3 host steps
+            check(len(ref) == len(out) and all(
+                torch.equal(o[:plain_q], r) for o, r in zip(out, ref)),
+                f"ensemble_climb Q={Qc} on {cl.grid_size()} configs: its "
+                f"first {plain_q} requests differ from the plain climb")
         S, D = starts.shape
         # reads the starts and params, writes index, cost and three counts
         # per (request, start); costs each start's first centre and every
@@ -1822,7 +2111,8 @@ def main() -> int:
             (int(out[3].sum()) + Qc * S) * surface_ops(surface))
         chain = int(out[2].max())             # the longest start's
         pl_txt = ("not timed (~1e5 host steps a request)" if pl is None
-                  else f"{pl:.3f} ms")
+                  else f"{pl:.3f} ms for its first {plain_q} requests, "
+                       f"their outputs bit-equal")
         print(f"time ensemble_climb sim/SMJ/time Q={Qc} S={S} on "
               f"{cl.grid_size()} configs: {ms:.4f} ms; plain {pl_txt}; "
               f"bound {bnd:.7f} ms ({by}, {int(out[2].sum())} "
@@ -1831,11 +2121,15 @@ def main() -> int:
               f"{ms * 1e6 / max(chain, 1):.1f} ns an iteration", flush=True)
         return pc, out, ms, pl, bnd, by
 
+    # the main path's largest climb group on the ensemble grid, its first
+    # CLIMB_PLAIN_Q requests against the plain climb (~1.6 s of host steps
+    # a request)
     ens = scaled_cluster(ENSEMBLE_CONTAINERS, 100)
+    cl_q = max(1, cuda_be.max_climb_stack)
     _, _, cl_ms, cl_plain, cl_bound, cl_by = climb_time(
-        ens, ens_dims, max(1, cuda_be.max_climb_stack), True)
+        ens, ens_dims, cl_q, min(CLIMB_PLAIN_Q, cl_q))
     Qb = max(1, big_be.max_climb_stack)
-    pb, out = climb_time(big, dims, Qb, False)[:2]
+    pb, out = climb_time(big, dims, Qb)[:2]
     # the long chains, checked without the plain climb: at each final
     # index one plain step finds the kernel's cost, and no strictly better
     # in-grid neighbour where the start stopped before ITERS
@@ -1880,6 +2174,9 @@ def main() -> int:
          "launches": launches["ensemble_climb"],
          "max_abs_err": max_err["ensemble_climb"], "ms": cl_ms,
          "plain_ms": cl_plain, "bound_ms": cl_bound, "bound_by": cl_by,
+         # ms and bound_ms at the main path's largest climb group,
+         # plain_ms over its first plain_requests requests
+         "requests": cl_q, "plain_requests": min(CLIMB_PLAIN_Q, cl_q),
          "library_ms": None, "path_ms": main_path["ensemble_climb"][0],
          "path_launches": launches["ensemble_climb"],
          "path_source": main_path["ensemble_climb"][1]},
@@ -1890,7 +2187,8 @@ def main() -> int:
     t = time.perf_counter()
     err = model_kernel_parity(torch, dev)
     served = serve_phase(torch)
-    kernels += model_times(torch, dev, err, served)
+    trained = train_phase(torch)
+    kernels += model_times(torch, dev, err, served, trained)
     print(f"phases 6-8: {time.perf_counter() - t:.1f} s", flush=True)
 
     # 9-10. the joins and the streaming service ---------------------------- #

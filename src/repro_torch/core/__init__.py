@@ -1,7 +1,8 @@
-"""RAQO core of the port: cost models, Algorithm-1 hill climbing, the
-resource-plan cache, the session planning broker, the Selinger and
-FastRandomized planners behind the ``RAQO`` facade, and the roofline and
-sharding planner of the accelerator domain."""
+"""RAQO core of the port: cost models, rule-based RAQO's decision tree,
+Algorithm-1 hill climbing, the resource-plan cache, the session planning
+broker, the Selinger and FastRandomized planners behind the ``RAQO``
+facade, and the roofline and sharding planner of the accelerator
+domain."""
 from repro_torch.core.cluster import (ClusterConditions,  # noqa: F401
                                       PlanningStats, ResourceDim,
                                       paper_cluster, scaled_cluster)
@@ -12,6 +13,10 @@ from repro_torch.core.cost_model import (CostTable,  # noqa: F401
                                          monetary_cost, paper_models,
                                          simulator_cost_models,
                                          simulator_models)
+from repro_torch.core.decision_tree import (DecisionTree,  # noqa: F401
+                                            default_hive_rule,
+                                            default_spark_rule,
+                                            train_raqo_tree)
 from repro_torch.core.hillclimb import (argmin_grid, brute_force,  # noqa: F401
                                         enumerate_configs, hill_climb,
                                         hill_climb_multi)

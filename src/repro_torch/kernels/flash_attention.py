@@ -12,6 +12,12 @@ version, ``ref.attention_ref``, only for CPU tensors.  It keeps a plain
 launch counter, ``flash_attention.launches``, bumped where a kernel
 launches and nowhere else.
 
+``FlashAttention`` puts it under autograd for training: its forward is
+``flash_attention`` (the kernel on CUDA tensors), its backward
+``attention_backward``, FlashAttention's backward equations in plain
+torch (the reference has no backward kernel: ``jax.grad`` differentiates
+its jnp twin).
+
 Masking is by index (``kpos <= qpos``, ``qpos - kpos < window``), as in
 the Pallas kernel; S and Skv may be ragged (no block-multiple padding).
 """
@@ -95,3 +101,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                       window: Optional[int] = None,
+                       attn_softcap: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v), given its output
+    ``out`` and the output's gradient ``dout``: the softmax recomputed in
+    float32 from q and k, masked by index, then FlashAttention's backward
+    equations (D = rowsum(dout * out), dS = P * (dP - D), through the
+    softcap's tanh).  Each kv head's gradient sums over its group of query
+    heads.  Returned in the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qf = q.float().reshape(B, S, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(B, S, KV, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    if attn_softcap is not None:
+        th = torch.tanh(s / attn_softcap)
+        s = th * attn_softcap
+    mask = None
+    if causal:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        mask = kp <= qp
+        if window is not None:
+            mask &= (qp - kp) < window
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)                         # (B, KV, G, S, Skv)
+    d_row = (do * out.float().reshape(B, S, KV, G, hd)).sum(-1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    ds = torch.einsum("bqkgd,bskd->bkgqs", do, vf)
+    ds = p * (ds - d_row.permute(0, 2, 3, 1)[..., None])
+    if mask is not None:
+        ds = torch.where(mask, ds, 0.0)
+    if attn_softcap is not None:
+        ds = ds * (1 - th * th)
+    ds = ds * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, S, H, hd)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K7 under autograd: ``FlashAttention.apply(q, k, v, causal, window,
+    attn_softcap)``.  Only the forward launches the kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, attn_softcap):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              attn_softcap=attn_softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window,
+                        attn_softcap=attn_softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return attention_backward(q, k, v, out, dout, **ctx.opts) + \
+            (None, None, None)

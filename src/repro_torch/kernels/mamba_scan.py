@@ -12,6 +12,12 @@ xor shuffles and written back as coalesced rows (see the source's note).
 version, ``ref.selective_scan_ref``, only for CPU tensors.  It keeps a
 plain launch counter, ``selective_scan.launches``, bumped where the kernel
 launches and nowhere else.
+
+``SelectiveScan`` puts it under autograd for training: its forward is
+``selective_scan`` (the kernel on CUDA tensors), its backward
+``selective_scan_backward``, the scan's reverse-time adjoint in plain
+torch (the reference has no backward kernel: ``jax.grad`` differentiates
+its jnp twin).
 """
 from __future__ import annotations
 
@@ -127,3 +133,98 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 selective_scan.launches = 0
+
+
+def _chunk_states(dA, dBu, h):
+    """States h_t = dA_t * h_{t-1} + dBu_t of one chunk, time-major
+    (T, B, D, N), from the state ``h`` before it; overwrites ``dBu``."""
+    out = dBu
+    for t in range(out.shape[0]):
+        out[t].addcmul_(dA[t], h)
+        h = out[t]
+    return out
+
+
+def selective_scan_backward(u, dt, A, Bmat, Cmat, h0, dy, dh_last,
+                            chunk: int = 256):
+    """Gradients (du, ddt, dA, dB, dC, dh0) of ``selective_scan`` at its
+    inputs, given the gradients of its outputs y (``dy``) and h_last
+    (``dh_last``): the reverse-time adjoint g_t = C_t dy_t + dA_{t+1}
+    g_{t+1} (dA_t = exp(dt_t A)) over states recomputed in float32,
+    vectorised over (B, D, N).  Time runs in chunks of ``chunk`` steps:
+    one forward pass keeps the state at each chunk's start, then each
+    chunk, last first, recomputes its states and runs its adjoint, so at
+    most (chunk, B, D, N) float32 states live at once.  dh0 is None when
+    h0 is."""
+    Bsz, S, D = u.shape
+    N = A.shape[1]
+    chunk = max(1, min(chunk, S)) if S else 1
+    Af = A.float()
+
+    def inputs(c0, c1):          # time-major float32 slices of one chunk
+        dtc = dt[:, c0:c1].float().transpose(0, 1)              # (T, B, D)
+        dtu = dtc * u[:, c0:c1].float().transpose(0, 1)
+        Bc = Bmat[:, c0:c1].float().transpose(0, 1)             # (T, B, N)
+        dA = torch.exp(dtc[..., None] * Af)                     # (T, B, D, N)
+        dBu = dtu[..., None] * Bc[:, :, None, :]
+        return dtc, dtu, Bc, dA, dBu
+
+    h = torch.zeros((Bsz, D, N), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    bounds = [(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
+    starts = [h]
+    for c0, c1 in bounds[:-1]:
+        _, _, _, dA, dBu = inputs(c0, c1)
+        starts.append(_chunk_states(dA, dBu, starts[-1])[-1].clone())
+        del dA, dBu
+    du = torch.empty((Bsz, S, D), dtype=torch.float32, device=u.device)
+    ddt = torch.empty_like(du)
+    dB = torch.empty((Bsz, S, N), dtype=torch.float32, device=u.device)
+    dC = torch.empty_like(dB)
+    dAm = torch.zeros_like(Af)
+    carry = torch.zeros_like(h) if dh_last is None else dh_last.float()
+    for (c0, c1), start in zip(reversed(bounds), reversed(starts)):
+        dtc, dtu, Bc, dA, dBu = inputs(c0, c1)
+        H = _chunk_states(dA, dBu, start)
+        dyc = dy[:, c0:c1].float().transpose(0, 1)              # (T, B, D)
+        Cc = Cmat[:, c0:c1].float().transpose(0, 1)
+        dC[:, c0:c1] = torch.einsum("tbd,tbdn->tbn", dyc, H).transpose(0, 1)
+        g = dyc[..., None] * Cc[:, :, None, :]                  # C_t dy_t
+        g[-1] += carry
+        for t in range(g.shape[0] - 2, -1, -1):
+            g[t].addcmul_(dA[t + 1], g[t + 1])
+        carry = dA[0] * g[0]
+        # h_{t-1} for each step of the chunk, then d(dt A) = g h_{t-1} dA
+        H = torch.cat([start[None], H[:-1]])
+        w = g * H
+        w *= dA
+        del H, dA
+        gB = torch.einsum("tbdn,tbn->tbd", g, Bc)               # d(dt u)
+        ddt[:, c0:c1] = (torch.einsum("tbdn,dn->tbd", w, Af) +
+                         gB * u[:, c0:c1].float().transpose(0, 1)
+                         ).transpose(0, 1)
+        du[:, c0:c1] = (gB * dtc).transpose(0, 1)
+        dAm += torch.einsum("tbdn,tbd->dn", w, dtc)
+        dB[:, c0:c1] = torch.einsum("tbdn,tbd->tbn", g, dtu).transpose(0, 1)
+        del g, w
+    dh0 = None if h0 is None else carry.to(h0.dtype)
+    return (du.to(u.dtype), ddt.to(dt.dtype), dAm.to(A.dtype),
+            dB.to(Bmat.dtype), dC.to(Cmat.dtype), dh0)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """K8 under autograd: ``SelectiveScan.apply(u, dt, A, Bmat, Cmat, h0,
+    chunk)`` returns (y, h_last); ``chunk`` is the backward's time chunk.
+    Only the forward launches the kernel."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bmat, Cmat, h0, chunk):
+        y, h_last = selective_scan(u, dt, A, Bmat, Cmat, h0)
+        ctx.save_for_backward(u, dt, A, Bmat, Cmat, h0)
+        ctx.chunk = chunk
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        return selective_scan_backward(*ctx.saved_tensors, dy, dh_last,
+                                       chunk=ctx.chunk) + (None,)

@@ -7,6 +7,10 @@ CUDA kernel for CUDA tensors, its plain version for CPU tensors (the
 kernel wrappers decide by the tensors' device).  ``impl="ref"`` asks for
 the plain version explicitly, as the reference's ``impl="ref"`` does;
 ``chip_smoke.py`` uses it to hold the kernels against it on the card.
+The attention and the scan go through their ``torch.autograd.Function``
+(``FlashAttention``, ``SelectiveScan``), so a training step
+differentiates through the kernels' forward; ``impl="ref"``
+differentiates through the plain versions by autograd.
 """
 from __future__ import annotations
 
@@ -34,15 +38,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if impl == "ref":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  attn_softcap=attn_softcap)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               attn_softcap=attn_softcap)
+    return _fa.FlashAttention.apply(q, k, v, causal, window, attn_softcap)
 
 
-def selective_scan(u, dt, A, Bmat, Cmat, h0=None, impl: str = "cuda"):
+def selective_scan(u, dt, A, Bmat, Cmat, h0=None, impl: str = "cuda",
+                   chunk: int = 256):
+    """``chunk``: the time steps the backward recomputes at a time."""
     _check_impl(impl)
     if impl == "ref":
         return ref.selective_scan_ref(u, dt, A, Bmat, Cmat, h0)
-    return _ms.selective_scan(u, dt, A, Bmat, Cmat, h0)
+    return _ms.SelectiveScan.apply(u, dt, A, Bmat, Cmat, h0, chunk)
 
 
 def bhj_join(probe_keys, build_keys, build_vals, *, impl: str = "cuda"):

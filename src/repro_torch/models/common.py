@@ -1,14 +1,17 @@
-"""Shared model building blocks: norms, RoPE, activations, softcap.
+"""Shared model building blocks: norms, RoPE, activations, softcap, and
+the chunked cross-entropy of the training loss.
 
 The port of ``repro.models.common``; the float32 upcasts and downcasts
 sit where the reference has them.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x, scale, eps: float, *, offset: float = 1.0):
@@ -63,3 +66,43 @@ def softplus(x):
     """``jax.nn.softplus``: log(1 + exp(x)) as logaddexp(x, 0), with no
     linear cut-over (torch's ``F.softplus`` returns x above 20)."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _chunk_nll(h, head, lab, m, *, vocab: int, cap):
+    """(sum of masked NLL, mask count) of one sequence chunk, logits in
+    float32 (h.dtype operands, float32 products and sums)."""
+    logits = h.float() @ head.to(h.dtype).float()           # (B, c, V)
+    logits = softcap(logits, cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          lab.clamp(0, vocab - 1)[..., None])[..., 0]
+    mf = m.float()
+    return ((lse - picked) * mf).sum(), mf.sum()
+
+
+def chunked_cross_entropy(hidden, head, labels, *, cfg, chunk: int = 512,
+                          mask=None):
+    """Cross-entropy over a large vocab without materializing (B, S, V) in
+    float32: one sequence chunk at a time, each under
+    ``torch.utils.checkpoint`` when gradients are on, so the backward
+    recomputes a chunk's logits instead of keeping them all.
+
+    hidden: (B, S, d);  head: (d, V);  labels: (B, S) integer, -1 = pad
+    (masked unless ``mask`` says otherwise).  The final softcap applies.
+    Returns (sum_loss, sum_count) as float32 0-d tensors, so callers can
+    combine across microbatches."""
+    S = hidden.shape[1]
+    chunk = max(1, min(chunk, S))
+    fn = functools.partial(_chunk_nll, vocab=cfg.vocab_size,
+                           cap=cfg.final_softcap)
+    if torch.is_grad_enabled():
+        fn = functools.partial(checkpoint, fn, use_reentrant=False)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        lab = labels[:, c0:c0 + chunk]
+        m = (lab >= 0) if mask is None else mask[:, c0:c0 + chunk]
+        t, c = fn(hidden[:, c0:c0 + chunk], head, lab, m)
+        tot = tot + t
+        cnt = cnt + c
+    return tot, cnt

@@ -1,8 +1,9 @@
 """The Model API of the dense and ssm families (the port of
 ``repro.models.model``).
 
-    model = build_model(cfg, device="cuda", seed=0)
+    model = build_model(cfg, plan, device="cuda", seed=0)
     hidden, aux, cache = model.forward(batch)              # full sequence
+    h = model.final_hidden(hidden)                         # train path
     logits, cache = model.prefill(batch, cache_len)
     logits, cache = model.decode_step(cache, inputs, q_pos)
 
@@ -11,7 +12,11 @@ named by the reference's dict keys (``embed``, ``final_ln``,
 ``layers.<i>.attn.wq``, ...), with weights in the reference's ``(in,
 out)`` layout; a Python loop over ``layers`` (an ``nn.ModuleList``) takes
 the place of ``lax.scan``.  ``load_jax_params`` carries the reference's
-parameter tree across.
+parameter tree across.  Parameters are trainable; serving runs under
+``torch.no_grad`` (``runtime.steps``).  With gradients enabled, the
+plan's ``remat`` wraps each layer as the reference's ``_remat`` wraps its
+scan body: ``nothing_saveable`` in ``torch.utils.checkpoint``,
+``dots_saveable`` in a selective checkpoint that keeps matmul outputs.
 
 The cache keeps the reference's layout, layer axis first and batch axis
 second (``CACHE_BATCH_AXIS``): dense ``k``, ``v`` (L, B, S, KV, hd) and
@@ -27,19 +32,23 @@ swa / local_global attention schedules raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import rms_norm, softcap
-from repro_torch.sharding import init_from_defs
+from repro_torch.sharding import (ParallelPlan, init_from_defs,
+                                  single_device_plan)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -78,8 +87,34 @@ def check_supported(cfg: ModelConfig) -> None:
                                   f"ported yet")
 
 
+REMATS = ("none", "nothing_saveable", "dots_saveable")
+# the matmuls whose outputs dots_saveable keeps (jax's dots_saveable keeps
+# every dot_general's); einsum and @ reach these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, plan: ParallelPlan):
+    """``fn`` (a layer) under the plan's rematerialisation policy; the
+    identity for ``"none"`` and whenever gradients are off."""
+    if plan.remat not in REMATS:
+        raise ValueError(f"remat={plan.remat!r}; expected one of {REMATS}")
+    if plan.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if plan.remat == "dots_saveable":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: tensors become frozen
+    """A nested dict of tensors as a module: tensors become trainable
     parameters, dicts sub-trees; indexable by the reference's keys."""
 
     def __init__(self, tree: Dict[str, Any]):
@@ -88,8 +123,7 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -136,20 +170,21 @@ def _build_layer_cache(k, v, positions, cache_size, window, dtype):
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
-                 impl: str = "cuda"):
+    def __init__(self, cfg: ModelConfig, plan: Optional[ParallelPlan] = None,
+                 *, device="cuda", seed: int = 0, impl: str = "cuda"):
         super().__init__()
         check_supported(cfg)
         if impl not in IMPLS:
             raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
         self.cfg = cfg
+        self.plan = plan or single_device_plan()
         self.impl = impl
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         pdt = DTYPES[cfg.param_dtype]
         for k, v in init_from_defs(tf.top_defs(cfg), gen, pdt).items():
-            self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            self.register_parameter(k, nn.Parameter(v))
         self.layers = nn.ModuleList(
             ParamTree(init_from_defs(tf.layer_defs(cfg), gen, pdt))
             for _ in range(cfg.n_layers))
@@ -180,6 +215,9 @@ class Model(nn.Module):
         out = h.float() @ head.to(h.dtype).float()
         return softcap(out, cfg.final_softcap)
 
+    def final_hidden(self, hidden):
+        return rms_norm(hidden, self.final_ln, self.cfg.norm_eps)
+
     # ====================== full-sequence forward ====================== #
     def forward(self, batch, *, build_cache: bool = False,
                 cache_len: Optional[int] = None):
@@ -197,7 +235,9 @@ class Model(nn.Module):
         if cfg.family == "ssm":
             conv, ssm = [], []
             for p in self.layers:
-                x, conv_st, ssm_st = tf.mamba_block(p, x, cfg, impl=self.impl)
+                x, conv_st, ssm_st = remat(functools.partial(
+                    tf.mamba_block, p, cfg=cfg, impl=self.impl,
+                    ssm_chunk=self.plan.ssm_chunk), self.plan)(x)
                 if build_cache:
                     conv.append(conv_st)
                     ssm.append(ssm_st)
@@ -206,7 +246,9 @@ class Model(nn.Module):
         else:
             layer_caches = []
             for p in self.layers:
-                x, kv = tf.dense_block(p, x, cfg, positions, impl=self.impl)
+                x, kv = remat(functools.partial(
+                    tf.dense_block, p, cfg=cfg, positions=positions,
+                    impl=self.impl), self.plan)(x)
                 if build_cache:
                     layer_caches.append(_build_layer_cache(
                         kv[0], kv[1], positions, cache_len, None, self.dtype))
@@ -270,9 +312,10 @@ class Model(nn.Module):
                 "pos": pos}
 
 
-def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0,
-                impl: str = "cuda") -> Model:
-    """A model of ``cfg`` with parameters drawn by ``init_from_defs`` from
-    a generator seeded with ``seed`` on ``device`` (the GPU unless the
-    caller asks for the CPU; without a GPU that raises)."""
-    return Model(cfg, device=device, seed=seed, impl=impl)
+def build_model(cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
+                device="cuda", seed: int = 0, impl: str = "cuda") -> Model:
+    """A model of ``cfg`` under ``plan`` (default ``single_device_plan()``)
+    with parameters drawn by ``init_from_defs`` from a generator seeded
+    with ``seed`` on ``device`` (the GPU unless the caller asks for the
+    CPU; without a GPU that raises)."""
+    return Model(cfg, plan, device=device, seed=seed, impl=impl)

@@ -44,9 +44,11 @@ def selective_scan_step(h, u, dt, A, Bvec, Cvec):
 
 
 def mamba1_mix(p, x, cfg, *, conv_state=None, ssm_state=None,
-               decode: bool = False, impl: str = "cuda"):
+               decode: bool = False, impl: str = "cuda",
+               ssm_chunk: int = 256):
     """Full Mamba1 mixer.  x: (B, S, d_model).  Returns (y, conv_state,
-    ssm_state)."""
+    ssm_state).  ``ssm_chunk``: the time steps the scan's backward
+    recomputes at a time (``ParallelPlan.ssm_chunk``)."""
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     xz = x @ p["in_proj"].to(x.dtype)
     xin, z = torch.split(xz, di, dim=-1)
@@ -63,7 +65,8 @@ def mamba1_mix(p, x, cfg, *, conv_state=None, ssm_state=None,
         y = y[:, None]
     else:
         y, ssm_state = ops.selective_scan(xin, dt, A, Bmat, Cmat,
-                                          h0=ssm_state, impl=impl)
+                                          h0=ssm_state, impl=impl,
+                                          chunk=ssm_chunk)
     y = y + xin.float() * p["D"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"].to(y.dtype)

@@ -160,11 +160,11 @@ def dense_block(p, x, cfg, positions, *, window=None, impl: str = "cuda"):
 
 
 def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
-                decode=False, impl: str = "cuda"):
+                decode=False, impl: str = "cuda", ssm_chunk: int = 256):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     y, conv_state, ssm_state = ssm_mod.mamba1_mix(
         p, h, cfg, conv_state=conv_state, ssm_state=ssm_state,
-        decode=decode, impl=impl)
+        decode=decode, impl=impl, ssm_chunk=ssm_chunk)
     return x + y, conv_state, ssm_state
 
 

@@ -1,0 +1,105 @@
+"""AdamW with decoupled weight decay, global-norm clipping and a schedule
+(the port of ``repro.optim.adamw``; not ``torch.optim.AdamW``, whose
+update order and clipping differ).
+
+The reference's defaults and order: compression -> global-norm clip ->
+float32 moments -> bias correction -> decoupled decay.  Parameters,
+gradients and moments are dicts of tensors keyed by parameter name (a
+model's ``named_parameters()``); ``update`` writes the new parameters and
+moments into those tensors in place with ``torch._foreach_*`` operations
+and returns them, with the metrics as 0-d tensors on the device (no host
+sync).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.optim.compression import GradCompression
+
+Tensors = Dict[str, torch.Tensor]
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor         # () int32
+    m: Tensors                 # float32, keyed like the params
+    v: Tensors
+    err: Optional[Tensors] = None   # gradient-compression error feedback
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor (a dict's values or a
+    sequence), in float32."""
+    leaves = list(tensors.values()) if isinstance(tensors, dict) \
+        else list(tensors)
+    norms = torch._foreach_norm([t.float() for t in leaves])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Union[Callable[[torch.Tensor], torch.Tensor], float] = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: Optional[float] = 1.0
+    compression: Optional[GradCompression] = None
+
+    def init(self, params: Tensors) -> OptState:
+        def zeros():
+            return {k: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+                    for k, p in params.items()}
+        err = self.compression.init(params) if self.compression else None
+        dev = next(iter(params.values())).device if params else None
+        return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                        m=zeros(), v=zeros(), err=err)
+
+    def _lr(self, step: torch.Tensor) -> torch.Tensor:
+        if callable(self.lr):
+            return self.lr(step)
+        return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state: OptState, params: Tensors
+               ) -> Tuple[Tensors, OptState, dict]:
+        step = state.step + 1
+        err = state.err
+        if self.compression is not None and self.compression.enabled:
+            grads, err = self.compression.apply(grads, err)
+        names = list(params)
+        g = [grads[k].float() for k in names]
+        gnorm = global_norm(g)
+        if self.clip_norm is not None:
+            scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+            g = torch._foreach_mul(g, scale)
+        b1, b2 = self.b1, self.b2
+        m = [state.m[k] for k in names]
+        v = [state.v[k] for k in names]
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, torch._foreach_mul(
+            torch._foreach_mul(g, g), 1 - b2))
+        t = step.to(torch.float32)
+        mhat_c = 1.0 / (1 - torch.pow(b1, t))
+        vhat_c = 1.0 / (1 - torch.pow(b2, t))
+        lr = self._lr(step)
+        p = [params[k] for k in names]
+        pf = [x.float() for x in p]
+        den = torch._foreach_mul(v, vhat_c)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_mul(m, mhat_c)
+        torch._foreach_div_(u, den)
+        torch._foreach_add_(u, torch._foreach_mul(pf, self.weight_decay))
+        torch._foreach_mul_(u, lr)
+        new = torch._foreach_sub(pf, u)
+        for x, y in zip(p, new):
+            x.copy_(y)
+        metrics = {"grad_norm": gnorm, "lr": lr}
+        return params, OptState(step=step, m=state.m, v=state.v,
+                                err=err), metrics

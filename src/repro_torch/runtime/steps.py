@@ -1,12 +1,105 @@
-"""Step functions for serving: prefill and decode (the port of
-``repro.runtime.steps``'s ``make_prefill_step`` and ``make_decode_step``;
-the training steps wait for the training slice).  PyTorch runs eagerly, so
-a step is the model call itself, under ``torch.no_grad``."""
+"""Step builders: training loss/step, prefill, decode (the port of
+``repro.runtime.steps``).
+
+PyTorch runs eagerly, so a step is the model call itself: serving's under
+``torch.no_grad``, training's one forward and backward through the model
+(K7 and K8 in the forward on the card, their ``torch.autograd.Function``
+backwards in plain torch) and an in-place AdamW update.
+``make_train_step`` supports gradient accumulation (plan.microbatch > 1):
+float32 gradients summed over the microbatches and averaged, as the
+reference's ``lax.scan`` does.  A train step queues its work and returns
+its metrics as 0-d tensors on the device; the only host syncs are the
+caller's reads of them.
+"""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.models.common import chunked_cross_entropy
+
+
+class TrainState(NamedTuple):
+    params: Dict[str, torch.Tensor]    # the model's named parameters
+    opt_state: Any
+    step: torch.Tensor                 # () int32
+
+
+def make_loss_fn(model):
+    """loss_fn(batch) -> (loss, metrics) through the model's parameters;
+    ``batch`` holds "tokens" and "labels" (numpy or tensors)."""
+    cfg = model.cfg
+
+    def loss_fn(batch):
+        hidden, _, _ = model.forward(batch)
+        h = model.final_hidden(hidden)
+        head = model.embed.T if cfg.tie_embeddings else model.head
+        labels = model._index(batch["labels"])
+        tot, cnt = chunked_cross_entropy(h, head, labels, cfg=cfg)
+        ce = tot / torch.clamp(cnt, min=1.0)
+        return ce, {"ce": ce, "tokens": cnt, "loss": ce}
+
+    return loss_fn
+
+
+def _split_microbatches(batch, n: int):
+    def split(x):
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"global batch {b} % microbatch {n} != 0")
+        m = b // n
+        return [x[i * m:(i + 1) * m] for i in range(n)]
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def make_train_step(model, optimizer):
+    """Returns train_step(state, batch) -> (state, metrics): metrics
+    ``loss``, ``ce``, ``tokens``, ``grad_norm`` and ``lr``."""
+    loss_fn = make_loss_fn(model)
+    plan = model.plan
+
+    def grad_fn(params, batch):
+        with torch.enable_grad():
+            loss, metrics = loss_fn(batch)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        materialize_grads=True)
+        return dict(zip(params, grads)), \
+            {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(state: TrainState, batch):
+        params = state.params
+        if plan.microbatch > 1:
+            grads, metrics = None, None
+            for mb in _split_microbatches(batch, plan.microbatch):
+                g, m = grad_fn(params, mb)
+                if grads is None:
+                    grads = {k: v.float() for k, v in g.items()}
+                    metrics = m
+                else:
+                    for k, v in g.items():
+                        grads[k] += v.float()
+                    metrics = {k: metrics[k] + m[k] for k in metrics}
+            grads = {k: g / plan.microbatch for k, g in grads.items()}
+            metrics = {k: v / plan.microbatch for k, v in metrics.items()}
+        else:
+            grads, metrics = grad_fn(params, batch)
+        _, opt_state, opt_m = optimizer.update(grads, state.opt_state,
+                                               params)
+        metrics.update(opt_m)
+        return TrainState(params, opt_state, state.step + 1), metrics
+
+    return train_step
+
+
+def init_train_state(model, optimizer) -> TrainState:
+    """The model's parameters (drawn from its seed on its device), the
+    optimizer's state beside them, step 0."""
+    params = dict(model.named_parameters())
+    return TrainState(params, optimizer.init(params),
+                      torch.zeros((), dtype=torch.int32,
+                                  device=model.device))
 
 
 def make_prefill_step(model, cache_len: Optional[int] = None):

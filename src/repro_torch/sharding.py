@@ -1,9 +1,13 @@
-"""Parameter definitions: the single source of truth for shapes, logical
-axes and initialisation (the port's part of ``repro.sharding``).
+"""Parameter definitions and the single-device parallel plan (the port's
+part of ``repro.sharding``).
 
-Only ``ParamDef``, ``stack_defs`` and ``init_from_defs`` are ported.  On
-one device the reference's ``ParallelPlan.constrain`` is the identity and
-its ``col_parallel_project`` / ``row_parallel_project`` are ``x @
+``ParamDef``, ``stack_defs`` and ``init_from_defs`` are the single source
+of truth for shapes, logical axes and initialisation.  ``ParallelPlan``
+carries only the fields a single-device step reads (``remat``,
+``microbatch``, ``ssm_chunk``); the reference's sharding rules, mesh and
+tensor-parallel modes wait for the multi-device slice.  On one device the
+reference's ``ParallelPlan.constrain`` is the identity and its
+``col_parallel_project`` / ``row_parallel_project`` are ``x @
 w.astype(x.dtype)``; the model code writes those out directly.  The
 logical axis names are kept so a later multi-GPU slice can map them.
 """
@@ -13,6 +17,24 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelPlan:
+    """A parallelism plan for one (arch x shape), cut to one device."""
+    # per layer: none | nothing_saveable (torch.utils.checkpoint) |
+    # dots_saveable (a selective checkpoint that keeps matmul outputs)
+    remat: str = "nothing_saveable"
+    microbatch: int = 1               # gradient-accumulation steps
+    # time steps the selective scan's backward recomputes at a time
+    ssm_chunk: int = 256
+
+    def with_(self, **kw) -> "ParallelPlan":
+        return dataclasses.replace(self, **kw)
+
+
+def single_device_plan() -> ParallelPlan:
+    return ParallelPlan(remat="none")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,8 @@ the CPU; ``backend="torch"`` is how a caller asks for the CPU.  The same
 holds for serving: ``build_model`` and ``serve`` default to the GPU and
 ``device="cpu"`` / ``--device cpu`` asks for the CPU, and for the
 streaming planner service, whose default broker is the CUDA backend's.
+So does training: ``launch.train`` and ``launch.elastic`` take
+``--device cpu``, and ``init_train_state`` keeps the model's device.
 The port computes attention, the selective scan and the joins in its own
 kernels, never through a library's fused call, sort or search.
 """
@@ -62,7 +64,10 @@ def test_port_import_loads_no_jax():
             "repro_torch.kernels.hash_join, repro_torch.kernels.merge_join, "
             "repro_torch.service, repro_torch.service.admission, "
             "repro_torch.service.traces, repro_torch.launch.mesh, "
-            "repro_torch.core.roofline, repro_torch.core.sharding_planner; "
+            "repro_torch.core.roofline, repro_torch.core.sharding_planner, "
+            "repro_torch.core.decision_tree, repro_torch.optim, "
+            "repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.launch.train, repro_torch.launch.elastic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -151,6 +156,35 @@ def test_serve_and_build_model_raise_without_gpu(no_gpu):
         build_model(get_config("falcon-mamba-7b").smoke())
     # asking for the CPU explicitly works
     assert main(argv + ["--device", "cpu"]) == 0
+
+
+def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path,
+                                                 monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import elastic, train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state
+    cfg = get_config("smollm-360m").smoke()
+    argv = ["--arch", "smollm-360m", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq", "16"]
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        train.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        elastic.main(argv[:5] + ["--ckpt-dir", str(tmp_path / "b")])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        init_train_state(build_model(cfg), AdamW())
+    assert not (tmp_path / "a").exists()
+    # asking for the CPU explicitly works (the supervisor's trainer
+    # subprocess finds the package on PYTHONPATH)
+    monkeypatch.setenv("PYTHONPATH", str(ROOT / "src"))
+    assert train.main(argv + ["--ckpt-dir", str(tmp_path / "a"),
+                              "--device", "cpu"]) == 0
+    assert elastic.main(argv[:5] + ["--ckpt-dir", str(tmp_path / "b"),
+                                    "--device", "cpu", "--", "--batch", "2",
+                                    "--seq", "16"]) == 0
+    state = init_train_state(build_model(cfg, device="cpu"), AdamW())
+    assert state.params["embed"].device.type == "cpu"
 
 
 LIBRARY_KERNELS = ("scaled_dot_product_attention", "flash_attn",
