@@ -49,23 +49,30 @@ Phases (any failure exits nonzero; there is no CPU path):
 6. model kernels against plain, on the card — flash_attention at
              smollm-360m's heads (H=15, KV=5, hd=64, B=4, S in {16, 100,
              512}, float32 and bfloat16, plus window+softcap and
-             non-causal cases) within 1e-5 (float32) / 2e-2 (bfloat16) of
-             attention_ref; selective_scan at falcon-mamba-7b's width
+             non-causal cases; and at qwen3-moe-30b-a3b's H=32, KV=4,
+             hd=128, S in {100, 512}) within 1e-5 (float32) / 2e-2
+             (bfloat16) of attention_ref; selective_scan at falcon-mamba-7b's width
              (D=8192, B in {1, 4}, S in {1, 16, 31, 32, 33, 100, 512}
              across the 32-step chunk edge, every N the kernel takes, with
              and without h0, float32 and bfloat16) within 1e-4 of
              selective_scan_ref (allclose, atol = rtol);
-7. serve   — launch.serve.serve for smollm-360m and falcon-mamba-7b at full
-             width and depth, seeded random parameters on the card, 8
-             requests, 4 slots, prompt 256, 32 new tokens: in float32
-             through the kernels and with impl="ref" (every request's
-             tokens equal, first-wave prefill logits within 1e-3), then in
-             the configs' own bfloat16 through the kernels (tok/s, steps,
-             launches; flash_attention must launch on smollm-360m and
-             selective_scan on falcon-mamba-7b);
-13. train  — (runs after 7) smollm-360m at full width and depth and falcon-mamba-7b at
-             full width and 8 of its 64 layers: in float32 (smollm B=2,
-             S=256; falcon B=1, S=128, one fixed batch) the model on the
+7. serve   — launch.serve.serve for smollm-360m, falcon-mamba-7b and
+             qwen3-moe-30b-a3b at full width and depth, seeded random
+             parameters on the card, 8 requests, 4 slots, prompt 256, 32
+             new tokens: in float32 through the kernels and with
+             impl="ref" (qwen3 at 8 of its 48 layers; every request's
+             tokens equal, first-wave prefill logits within 1e-3; qwen3's
+             router decisions compared: any that differ must be near-ties,
+             and plain then reruns with the kernels' decisions), then in
+             the configs' own bfloat16 through the kernels (qwen3 with
+             bfloat16 parameters; tok/s, steps, launches; flash_attention
+             must launch on smollm-360m and qwen3, selective_scan on
+             falcon-mamba-7b), and qwen3's prefill wave and decode step
+             traced by operator;
+13. train  — (runs after 7) smollm-360m at full width and depth, falcon-mamba-7b at
+             full width and 8 of its 64 layers and qwen3-moe-30b-a3b at
+             full width and 4 of its 48: in float32 (smollm B=2, S=256;
+             falcon B=1, S=128; qwen3 B=2, S=128, one fixed batch) the model on the
              kernels (K7 / K8 forward, their analytic backwards) against
              impl="ref" (autograd through the plain versions): loss within
              1e-5, every gradient nonzero and within GRAD_TOL (max |diff|
@@ -73,7 +80,8 @@ Phases (any failure exits nonzero; there is no CPU path):
              then the configs' bfloat16 with float32 masters, 20 steps of
              make_train_step on SyntheticPipeline batches of 8 x 512 (step
              ms, tokens/s, peak memory, the loss falling, launches and
-             the kernel's device time on one step); then
+             the kernel's device time on one step; qwen3's aux losses at
+             step 20 and one step traced by operator); then
              python -m repro_torch.launch.train on one GPU, whole and
              crashed at step 8 then resumed from step 5, final losses
              within LAUNCHER_LOSS_TOL;
@@ -135,7 +143,8 @@ Phases (any failure exits nonzero; there is no CPU path):
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
 record as path_ms / path_launches (K7 and K8 also train_path_ms /
-train_path_launches over one step of phase 13's timed run), and
+train_path_launches over one step of phase 13's timed run; K7 also
+qwen3-moe-30b-a3b's as moe_path_ms and moe_train_path_ms), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
@@ -144,6 +153,7 @@ kernels' JSON record and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -188,6 +198,22 @@ SCAN_TOL = 1e-4
 LOGIT_TOL = 1e-3               # float32 prefill logits, kernels vs plain
 SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
              device="cuda")
+# phase 7's models: the kernel its main path must launch, the depth of its
+# float32 identity run and its main path's parameter dtype (None: full
+# depth, the config's).  qwen3-moe-30b-a3b's float32 parameters at full
+# depth are 30.5B x 4 B ~ 122 GB, over the card's 80 GB: its identity run
+# takes 8 of 48 layers (~22 GB), and its main path (all 48 layers) holds
+# bfloat16 parameters (~61 GB)
+MOE = "qwen3-moe-30b-a3b"
+SERVE_MODELS = {"smollm-360m": ("flash_attention", None, None),
+                "falcon-mamba-7b": ("selective_scan", None, None),
+                MOE: ("flash_attention", 8, "bfloat16")}
+QWEN_HEADS = (32, 4, 128)      # qwen3-moe-30b-a3b: H, KV, hd (group 8)
+# a router decision (a token's top-k expert set) that differs between the
+# float32 kernels and plain runs is a near-tie when the kernels run's gap
+# between its k-th and (k+1)-th probability is at most this: K7 and plain
+# attention differ by ~1e-7, which moves a probability by far less
+FLIP_GAP = 1e-5
 
 JOIN_SF = 100                  # TPC-H scale factor of phase 9
 JOIN_SEED = 9
@@ -202,10 +228,15 @@ HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
                 "hash_finalize_kernel", "hash_probe_kernel")
 
 # phase 13: training at full width; falcon-mamba-7b cut to 8 of its 64
-# layers (float32 masters, grads and Adam moments at full depth are ~112 GB)
+# layers (float32 masters, grads and Adam moments at full depth are ~112
+# GB), qwen3-moe-30b-a3b to 4 of its 48 (~10 GB of them a layer, ~10 GB
+# for the embedding and head)
 TRAIN = {"smollm-360m": (None, "flash_attention"),
-         "falcon-mamba-7b": (8, "selective_scan")}
-TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128)}  # B, S
+         "falcon-mamba-7b": (8, "selective_scan"),
+         MOE: (4, "flash_attention")}
+TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128),
+             MOE: (2, 128)}                                        # B, S
+MOE_METRICS = ("lb_loss", "z_loss", "drop_frac")
 TRAIN_LR = 1e-3                # the float32 check's AdamW steps
 TRAIN_F32_STEPS = 3
 LOSS_TOL = 1e-5                # float32 loss, kernels vs plain, relative
@@ -547,6 +578,9 @@ def model_kernel_parity(torch, dev):
     cases += [(2, S, 8, 2, 128, "bfloat16", o) for S, o in (
         (200, {}), (300, dict(window=70, attn_softcap=20.0)),
         (130, dict(causal=False)))]
+    # qwen3-moe-30b-a3b's heads: 32 query heads over 4 KV heads (group 8)
+    cases += [(4, S, *QWEN_HEADS, dt, {}) for S in (100, 512)
+              for dt in ("float32", "bfloat16")]
     for B, S, H, KV, hd, dt, opts in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
@@ -608,22 +642,201 @@ def model_kernel_parity(torch, dev):
     return err
 
 
+def print_op_table(torch, label: str, fn, top: int = 20) -> None:
+    """One torch.profiler trace (host and card, with input shapes) of one
+    call of ``fn``, just warmed: the card's busy time and the operators
+    (aten operators by input shapes; kernels launched outside aten by
+    name) that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    events = prof.key_averages(group_by_input_shape=True)
+    # the card's time is its kernels' (and copies'); an aten operator's
+    # self device time is the kernels it launched itself, so the table
+    # holds operators and the kernels launched outside aten (K7, K8)
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and
+               e.key != "Command Buffer Full") / 1e3
+    own = tuple(model_kernels())
+    rows = [(e.key, e.input_shapes, e.self_device_time_total / 1e3, e.count)
+            for e in events if e.self_device_time_total > 0 and (
+                e.key.startswith("aten::") or
+                (e.device_type == DeviceType.CUDA and
+                 any(k in e.key for k in own)))]
+    rows.sort(key=lambda r: -r[2])
+    print(f"ops {label}: {busy:.3f} ms of device kernels; top by device "
+          f"time: " + "; ".join(f"{k[:60]} {shapes} {ms:.3f} ms x{c}"
+                                for k, shapes, ms, c in rows[:top]),
+          flush=True)
+
+
+def moe_serve_ops(torch, cfg) -> None:
+    """Where a moe model's serve main path spends the card's time: one
+    prefill wave of SERVE's slots x prompt, then one decode step, each
+    traced by operator (``print_op_table``)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=SERVE["seed"])
+    B, P = SERVE["slots"], SERVE["prompt_len"]
+    toks = np.random.default_rng(0).integers(2, cfg.vocab_size, (B, P))
+    prefill = make_prefill_step(model, cache_len=P + SERVE["max_new"])
+    decode = make_decode_step(model)
+    _, cache = prefill({"tokens": toks})
+    print_op_table(torch, f"serve {cfg.name} {cfg.dtype}, one prefill wave "
+                   f"{B} x {P}", lambda: prefill({"tokens": toks}))
+    print_op_table(torch, f"serve {cfg.name} {cfg.dtype}, one decode step "
+                   f"B={B}", lambda: decode(cache, {"tokens": toks[:, :1]},
+                                            np.full(B, P)))
+    print(f"ops {cfg.name}: {time.perf_counter() - t:.1f} s", flush=True)
+    del model, cache, prefill, decode
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_path_ms(torch, cfg, kernel: str, launches: int):
+    """The device time of ``kernel``'s launches in one more run of serve's
+    main path: (ms, how it was read).  Serving launches the model kernels
+    in its prefill waves only (decode attention and the decode scan step
+    are plain torch), so torch.profiler traces each prefill wave and
+    nothing else (a trace of a whole run holds ~1e5 decode kernels and
+    takes minutes to read).  Where the traces hold another count of its
+    launches (the profiler can drop events), CUDA events around the
+    wrapper's calls on one more run time it (an upper bound)."""
+    import repro_torch.launch.serve as ls
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if launches == 0:
+        return 0.0, "no launches"
+    make = ls.make_prefill_step
+    got = [0.0, 0]
+
+    def traced(model, cache_len=None):
+        step = make(model, cache_len)
+
+        def run(batch):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = step(batch)
+                torch.cuda.synchronize()
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA and \
+                        kernel + "_" in e.name:
+                    got[0] += e.device_time_total / 1e3
+                    got[1] += 1
+            return out
+        return run
+
+    ls.make_prefill_step = traced
+    try:
+        ls.serve(cfg, **SERVE)
+    finally:
+        ls.make_prefill_step = make
+    if got[1] == launches and got[0]:
+        return got[0], "torch.profiler over the prefill waves"
+    module = model_kernels()[kernel]
+    timed = _Timed(torch, getattr(module, kernel))
+    setattr(module, kernel, timed)
+    try:
+        ls.serve(cfg, **SERVE)
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, kernel, timed.fn)
+    return (sum(a.elapsed_time(b) for a, b in timed.events),
+            f"CUDA events around the wrapper's calls (the profiler held "
+            f"{got[1]} of {launches} launches)")
+
+
+class RouterLog:
+    """Stands in for ``repro_torch.models.moe.route`` while a run lasts:
+    records every call's top-k expert ids and each token's gap between
+    its k-th and (k+1)-th probability; given another run's ids
+    (``replay``), routes by them instead, with gates from this run's own
+    probabilities renormalised as ``route`` does."""
+
+    def __init__(self, torch, replay=None):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.fn = torch, moe, moe.route
+        self.replay, self.ids, self.gaps = replay, [], []
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.fn
+
+    def __call__(self, logits, k):
+        torch = self.torch
+        probs, gates, ids = self.fn(logits, k)
+        if self.replay is not None:
+            ids = self.replay[len(self.ids)].to(ids.device)
+            gates = probs.gather(-1, ids)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        self.ids.append(ids.cpu())
+        self.gaps.append((top[..., k - 1] - top[..., k]).cpu())
+        return probs, gates, ids
+
+
+def router_diff(a: RouterLog, b: RouterLog):
+    """(decisions whose top-k sets differ between the two runs, decisions,
+    the smallest k-th to (k+1)-th gap in run a, run a's gaps at the
+    decisions that differ)."""
+    check(len(a.ids) == len(b.ids), f"the runs routed {len(a.ids)} and "
+          f"{len(b.ids)} times")
+    diff = n = 0
+    flips = []
+    for ia, ib, ga in zip(a.ids, b.ids, a.gaps):
+        d = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        n += d.numel()
+        diff += int(d.sum())
+        flips += ga[d].tolist()
+    return diff, n, min(float(g.min()) for g in a.gaps), flips
+
+
 def serve_phase(torch):
-    """Phase 7: both models at full width and depth, float32 kernels
-    against float32 plain, then the configs' own bfloat16 through the
-    kernels (the main path); returns {arch: (result, launches)}."""
+    """Phase 7: each model of SERVE_MODELS, float32 kernels against
+    float32 plain (qwen3-moe-30b-a3b at 8 of its 48 layers, with its
+    router decisions compared), then the config's own bfloat16 through
+    the kernels at full depth (the main path); returns {arch: (result,
+    launches, device ms of its kernel on the path, how it was read)}."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     out = {}
-    for arch in ("smollm-360m", "falcon-mamba-7b"):
+    for arch, (kernel, f32_layers, param_dtype) in SERVE_MODELS.items():
         cfg = get_config(arch)
-        f32 = dataclasses.replace(cfg, dtype="float32")
+        f32 = dataclasses.replace(cfg, dtype="float32",
+                                  n_layers=f32_layers or cfg.n_layers)
         t = time.perf_counter()
-        got = serve(f32, **SERVE)
-        plain = serve(f32, impl="ref", **SERVE)
+        with RouterLog(torch) as routed:
+            got = serve(f32, **SERVE)
+        with RouterLog(torch) as routed_plain:
+            plain = serve(f32, impl="ref", **SERVE)
+        note = ""
+        if cfg.is_moe:
+            diff, n, gap, flips = router_diff(routed, routed_plain)
+            note = (f"; router decisions (top-{cfg.top_k} sets) differing "
+                    f"from plain {diff} of {n}, smallest k-th to (k+1)-th "
+                    f"probability gap {gap:.4g}")
+            if diff:
+                # near-ties that K7's rounding flipped: plain takes the
+                # kernels' decisions (its own probabilities for the gates)
+                # and must then give the same tokens
+                check(max(flips) <= FLIP_GAP,
+                      f"{arch}: router decisions differ from plain beyond a "
+                      f"near-tie, gaps {sorted(flips)[-5:]} > {FLIP_GAP}")
+                with RouterLog(torch, replay=routed.ids):
+                    plain = serve(f32, impl="ref", **SERVE)
+                note += (f" (gaps there {sorted(flips)}, each <= "
+                         f"{FLIP_GAP}; plain rerun with the kernels' "
+                         f"decisions)")
         logits, plogits = got["first_logits"], plain["first_logits"]
         check(logits.shape == (SERVE["slots"], cfg.vocab_size) and
               bool(logits.isfinite().all()),
@@ -636,40 +849,44 @@ def serve_phase(torch):
               len(got["tokens"]) == SERVE["requests"] and
               all(len(v) == SERVE["max_new"] for v in got["tokens"].values()),
               f"{arch}: float32 tokens differ from the plain version's")
-        print(f"serve {arch} float32: {got['served']} requests, tokens equal "
-              f"to plain (impl='ref'); first-wave logits max_abs_err {e}; "
-              f"kernels {got['tok_s']:.2f} tok/s, plain {plain['tok_s']:.2f} "
-              f"tok/s ({time.perf_counter() - t:.1f} s)", flush=True)
-        del got, plain
+        print(f"serve {arch} float32 ({f32.n_layers} layers): "
+              f"{got['served']} requests, tokens equal to plain "
+              f"(impl='ref'); first-wave logits max_abs_err {e}; kernels "
+              f"{got['tok_s']:.2f} tok/s, plain {plain['tok_s']:.2f} tok/s "
+              f"({time.perf_counter() - t:.1f} s){note}", flush=True)
+        del got, plain, routed, routed_plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        main = dataclasses.replace(cfg,
+                                   param_dtype=param_dtype or cfg.param_dtype)
+        t = time.perf_counter()
         ops.reset_launch_counts()
-        run = serve(cfg, **SERVE)
-        launches = {"flash_attention": fa.flash_attention.launches,
-                    "selective_scan": ms.selective_scan.launches}
+        run = serve(main, **SERVE)
+        launches = launch_counts()
         check(run["served"] == SERVE["requests"] and
               bool(run["first_logits"].isfinite().all()),
-              f"{arch}: bfloat16 serve did not finish all requests")
-        print(f"serve {arch} {cfg.dtype} (main path): {run['served']} "
+              f"{arch}: {cfg.dtype} serve did not finish all requests")
+        print(f"serve {arch} {cfg.dtype}, {main.param_dtype} parameters, "
+              f"{cfg.n_layers} layers (main path): {run['served']} "
               f"requests, {run['steps']} decode steps, {run['tok_s']:.2f} "
               f"tok/s, {run['seconds']:.3f} s; prefill {run['prefill_waves']}"
               f" waves {run['prefill_s']:.3f} s; decode "
               f"{run['decode_s'] / run['steps'] * 1e3:.3f} ms/step; "
               f"launches {launches}; first tokens "
-              f"{[run['tokens'][r][:4] for r in sorted(run['tokens'])][:2]}",
+              f"{[run['tokens'][r][:4] for r in sorted(run['tokens'])][:2]}"
+              f" ({time.perf_counter() - t:.1f} s with the model's build)",
               flush=True)
-        # the device time of the main path's launches of its kernel
-        kernel = {"smollm-360m": "flash_attention",
-                  "falcon-mamba-7b": "selective_scan"}[arch]
-        module = fa if kernel == "flash_attention" else ms
-        dev_ms, how = path_ms(torch, lambda: serve(cfg, **SERVE), {
-            kernel: ((kernel + "_",), launches[kernel],
-                     (module, kernel))})[kernel]
+        t = time.perf_counter()
+        dev_ms, how = serve_path_ms(torch, main, kernel, launches[kernel])
         print(f"serve {arch} {cfg.dtype}: {kernel} device time on the path "
-              f"{dev_ms} ms over {launches[kernel]} launches ({how})",
-              flush=True)
+              f"{dev_ms} ms over {launches[kernel]} launches ({how}; "
+              f"{time.perf_counter() - t:.1f} s)", flush=True)
         out[arch] = (run, launches, dev_ms, how)
+        gc.collect()
         torch.cuda.empty_cache()
-    check(out["smollm-360m"][1]["flash_attention"] > 0 and
-          out["falcon-mamba-7b"][1]["selective_scan"] > 0,
+        if cfg.is_moe:
+            moe_serve_ops(torch, main)
+    check(all(v[1][SERVE_MODELS[a][0]] > 0 for a, v in out.items()),
           f"a model kernel never launched on its main path: "
           f"{ {a: v[1] for a, v in out.items()} }")
     return out
@@ -678,9 +895,11 @@ def serve_phase(torch):
 def train_parity(torch, cfg, B, S):
     """Phase 13's float32 check: the model on the kernels (impl="cuda",
     the custom backwards) against impl="ref" (autograd through the plain
-    versions), the same seeded parameters and one fixed batch: the loss,
-    every parameter's gradient (each nonzero) and the parameters after
-    TRAIN_F32_STEPS AdamW steps."""
+    versions), the same seeded parameters and one fixed batch: the loss
+    (and a moe model's aux losses), every parameter's gradient (each
+    nonzero) and the parameters after TRAIN_F32_STEPS AdamW steps.  The
+    kernels run's gradients and parameters wait on the host while the
+    plain run takes the card, and are compared a tensor at a time."""
     from repro_torch.data import SyntheticPipeline
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -692,39 +911,54 @@ def train_parity(torch, cfg, B, S):
     batch = SyntheticPipeline(f32, B, S, seed=0).batch_at(0)
     out = {}
     for impl in ("cuda", "ref"):
+        keep = (lambda t: t.detach().cpu()) if impl == "cuda" else \
+            (lambda t: t.detach())
         ops.reset_launch_counts()
         model = build_model(f32, device="cuda", seed=0, impl=impl)
-        loss, _ = make_loss_fn(model)(batch)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
+        loss, metrics = make_loss_fn(model)(batch)
+        grads = [keep(g) for g in torch.autograd.grad(
+            loss, list(model.parameters()))]
         launches = launch_counts()[kernel]
         opt = AdamW(lr=TRAIN_LR)
         state = init_train_state(model, opt)
         step = make_train_step(model, opt)
         for _ in range(TRAIN_F32_STEPS):
             state, _ = step(state, batch)
-        out[impl] = (float(loss.detach()), grads, [p.detach() for p in
-                                          model.parameters()], launches)
-        del model, state, step, opt
+        aux = {k: float(metrics[k].detach()) for k in MOE_METRICS
+               if k in metrics}
+        out[impl] = (float(loss.detach()), aux, grads,
+                     [keep(p) for p in model.parameters()], launches)
+        del model, state, step, opt, loss, metrics
+        gc.collect()
         torch.cuda.empty_cache()
-    (loss, grads, params, launches), (ploss, pgrads, pparams, plaunch) = \
-        out["cuda"], out["ref"]
+    (loss, aux, grads, params, launches), \
+        (ploss, paux, pgrads, pparams, plaunch) = out["cuda"], out["ref"]
     check(launches > 0 and plaunch == 0,
           f"{cfg.name} float32: {kernel} launched {launches} times on the "
           f"kernels, {plaunch} on the plain path")
     rel = abs(loss / ploss - 1)
     check(math.isfinite(loss) and rel <= LOSS_TOL,
           f"{cfg.name} float32: loss {loss} vs plain {ploss} (rel {rel})")
-    zero = sum(not bool((g != 0).any()) for g in grads)
+    for k in ("lb_loss", "z_loss"):
+        if k in aux:
+            check(abs(aux[k] / paux[k] - 1) <= LOSS_TOL,
+                  f"{cfg.name} float32: {k} {aux[k]} vs plain {paux[k]}")
+    zero, gerr = 0, 0.0
+    for g, pg in zip(grads, pgrads):
+        g = g.to(pg.device)
+        zero += not bool((g != 0).any())
+        gerr = max(gerr, float((g - pg).abs().max() / pg.abs().max()))
     check(zero == 0, f"{cfg.name} float32: {zero} parameters got an "
           f"all-zero gradient")
-    gerr = max(float((g - pg).abs().max() / pg.abs().max())
-               for g, pg in zip(grads, pgrads))
     check(gerr <= GRAD_TOL, f"{cfg.name} float32: gradient max |diff| / "
           f"max |g| {gerr} > {GRAD_TOL}")
-    diffs = [(p - pp).abs() for p, pp in zip(params, pparams)]
-    pmax = max(float(d.max()) for d in diffs) / TRAIN_LR
-    n = sum(d.numel() for d in diffs)
-    share = sum(int((d > 0.02 * TRAIN_LR).sum()) for d in diffs) / n
+    pmax, n, beyond = 0.0, 0, 0
+    for p, pp in zip(params, pparams):
+        d = (p.to(pp.device) - pp).abs()
+        pmax = max(pmax, float(d.max()) / TRAIN_LR)
+        n += d.numel()
+        beyond += int((d > 0.02 * TRAIN_LR).sum())
+    share = beyond / n
     check(share <= PARAM_SHARE_TOL and pmax <= 2 * TRAIN_F32_STEPS,
           f"{cfg.name} float32: after {TRAIN_F32_STEPS} steps {share} of "
           f"the parameters differ by more than 2% of lr (max {pmax} lr)")
@@ -733,7 +967,11 @@ def train_parity(torch, cfg, B, S):
           f"every gradient nonzero; gradient max |diff| / max |g| {gerr:.3g}"
           f" (limit {GRAD_TOL}); after {TRAIN_F32_STEPS} AdamW steps (lr "
           f"{TRAIN_LR}) max |diff| {pmax:.4g} lr, {share:.3g} of elements "
-          f"beyond 2% of lr; {kernel} launches {launches}", flush=True)
+          f"beyond 2% of lr; {kernel} launches {launches}" +
+          (f"; aux {aux} vs plain {paux}" if aux else ""), flush=True)
+    del out, grads, pgrads, params, pparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def train_timed(torch, cfg):
@@ -798,7 +1036,13 @@ def train_timed(torch, cfg):
           f"share {1 - busy / med:.3f}); top kernels by device time: " +
           "; ".join(f"{k[:70]} {ms:.3f} ms x{c}" for k, (ms, c) in top),
           flush=True)
+    if cfg.is_moe:
+        print(f"train {cfg.name} {cfg.dtype}: step {n} " + ", ".join(
+            f"{k} {float(m[k]):.6g}" for k in MOE_METRICS), flush=True)
+        print_op_table(torch, f"train {cfg.name} {cfg.dtype}, one step",
+                       lambda: step(state, batches[0]))
     del model, state, step, opt
+    gc.collect()
     torch.cuda.empty_cache()
     return dev_ms, how, per_step
 
@@ -853,8 +1097,9 @@ def launcher_check():
 
 
 def train_phase(torch):
-    """Phase 13: training at full width on the card; returns {kernel:
-    (device ms on one step of its timed run, how, launches a step)}."""
+    """Phase 13: training at full width on the card; returns {arch:
+    (its kernel's device ms on one step of its timed run, how, launches a
+    step)}."""
     from repro_torch.configs import get_config
     t = time.perf_counter()
     print(f"phase 13 on {card()}", flush=True)
@@ -864,7 +1109,7 @@ def train_phase(torch):
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         train_parity(torch, cfg, *TRAIN_F32[arch])
-        out[kernel] = train_timed(torch, cfg)
+        out[arch] = train_timed(torch, cfg)
     launcher_check()
     print(f"phase 13: {time.perf_counter() - t:.1f} s", flush=True)
     return out
@@ -1030,9 +1275,17 @@ def model_times(torch, dev, err, served, trained):
          "library_ms": fa_lib, "path_ms": served["smollm-360m"][2],
          "path_launches": served["smollm-360m"][1]["flash_attention"],
          "path_source": served["smollm-360m"][3],
-         "train_path_ms": trained["flash_attention"][0],
-         "train_path_launches": trained["flash_attention"][2],
-         "train_path_source": trained["flash_attention"][1]},
+         "train_path_ms": trained["smollm-360m"][0],
+         "train_path_launches": trained["smollm-360m"][2],
+         "train_path_source": trained["smollm-360m"][1],
+         # qwen3-moe-30b-a3b's own paths (its serve main path at 48
+         # layers, one step of its 4-layer training run)
+         "moe_path_ms": served[MOE][2],
+         "moe_path_launches": served[MOE][1]["flash_attention"],
+         "moe_path_source": served[MOE][3],
+         "moe_train_path_ms": trained[MOE][0],
+         "moe_train_path_launches": trained[MOE][2],
+         "moe_train_path_source": trained[MOE][1]},
         {"name": "selective_scan", "route": "cuda",
          "source": csrc + "mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:27",
@@ -1042,9 +1295,9 @@ def model_times(torch, dev, err, served, trained):
          "library_ms": None, "path_ms": served["falcon-mamba-7b"][2],
          "path_launches": served["falcon-mamba-7b"][1]["selective_scan"],
          "path_source": served["falcon-mamba-7b"][3],
-         "train_path_ms": trained["selective_scan"][0],
-         "train_path_launches": trained["selective_scan"][2],
-         "train_path_source": trained["selective_scan"][1]},
+         "train_path_ms": trained["falcon-mamba-7b"][0],
+         "train_path_launches": trained["falcon-mamba-7b"][2],
+         "train_path_source": trained["falcon-mamba-7b"][1]},
     ]
 
 

@@ -5,7 +5,7 @@ module in ``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (the exact
 published configuration) on the ``ModelConfig`` dataclass below, so
 ``--arch`` ids are the reference's.  ``ModelConfig.smoke()`` derives the
 reduced same-family config of the CPU tests.  ``models.model.build_model``
-runs the dense and ssm families; the others raise there.
+runs the dense, moe and ssm families; the others raise there.
 """
 from __future__ import annotations
 

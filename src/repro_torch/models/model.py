@@ -1,4 +1,4 @@
-"""The Model API of the dense and ssm families (the port of
+"""The Model API of the dense, moe and ssm families (the port of
 ``repro.models.model``).
 
     model = build_model(cfg, plan, device="cuda", seed=0)
@@ -27,8 +27,10 @@ token's state into the cache tensors in place and returns the same dict.
 Prefill attention masks by index (the flash-attention kernel's
 semantics), which equals the reference's position mask for the
 ``arange(S)`` positions it builds itself; a batch that carries its own
-``"positions"`` raises.  The moe, hybrid, vlm and audio families and the
-swa / local_global attention schedules raise ``NotImplementedError``.
+``"positions"`` raises.  ``forward``'s aux holds a moe model's
+``lb_loss``, ``z_loss`` and ``drop_frac``, each the mean over the layers
+(empty for the other families).  The hybrid, vlm and audio families and
+the swa / local_global attention schedules raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,12 +72,11 @@ def resolve_device(device) -> torch.device:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if cfg.is_moe or cfg.family not in ("dense", "ssm"):
-        fam = "moe" if cfg.is_moe else cfg.family
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: the {fam} family is not ported yet (the port runs "
-            f"the dense and ssm families)")
-    if cfg.family == "dense" and cfg.attention != "full":
+            f"{cfg.name}: the {cfg.family} family is not ported yet (the "
+            f"port runs the dense, moe and ssm families)")
+    if cfg.family in ("dense", "moe") and cfg.attention != "full":
         raise NotImplementedError(
             f"{cfg.name}: attention={cfg.attention!r} is not ported yet "
             f"(the port runs full attention)")
@@ -231,7 +232,7 @@ class Model(nn.Module):
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         cache_len = cache_len or S
-        cache = None
+        cache, aux = None, {}
         if cfg.family == "ssm":
             conv, ssm = [], []
             for p in self.layers:
@@ -244,21 +245,26 @@ class Model(nn.Module):
             if build_cache:
                 cache = {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
         else:
-            layer_caches = []
+            layer_caches, layer_aux = [], []
             for p in self.layers:
-                x, kv = remat(functools.partial(
-                    tf.dense_block, p, cfg=cfg, positions=positions,
-                    impl=self.impl), self.plan)(x)
+                x, kv, aux_l = remat(functools.partial(
+                    tf.dense_block, p, cfg=cfg, plan=self.plan,
+                    positions=positions, impl=self.impl), self.plan)(x)
                 if build_cache:
                     layer_caches.append(_build_layer_cache(
                         kv[0], kv[1], positions, cache_len, None, self.dtype))
+                if aux_l is not None:
+                    layer_aux.append(aux_l)
             if build_cache:
                 ck, cv, sp = zip(*layer_caches)
                 cache = {"k": torch.stack(ck), "v": torch.stack(cv),
                          "slot_pos": torch.stack(sp)}
+            if layer_aux:
+                aux = {k: torch.stack([a[k] for a in layer_aux]).mean()
+                       for k in layer_aux[0]}
         if build_cache:
             cache["pos"] = positions[:, -1] + 1
-        return x, {}, cache
+        return x, aux, cache
 
     # ============================ prefill ============================== #
     def prefill(self, batch, cache_len: Optional[int] = None):
@@ -285,7 +291,8 @@ class Model(nn.Module):
         else:
             for i, p in enumerate(self.layers):
                 layer_cache = {k: cache[k][i] for k in ("k", "v", "slot_pos")}
-                x, _ = tf.dense_block_decode(p, x, cfg, layer_cache, q_pos)
+                x, _ = tf.dense_block_decode(p, x, cfg, self.plan,
+                                             layer_cache, q_pos)
         cache["pos"] = q_pos + 1
         logits = self.logits(x)[:, 0]
         return logits, cache

@@ -1,4 +1,4 @@
-"""Decoder blocks of the dense and ssm families, and their parameter
+"""Decoder blocks of the dense, moe and ssm families, and their parameter
 definitions (the port of ``repro.models.transformer``).
 
 ``model_defs`` gives the reference's parameter tree with its stacked
@@ -10,8 +10,9 @@ Block functions take ``p`` as anything indexable by the reference's keys
 projections are ``x @ w.astype(x.dtype)``, written out here.
 
 Each block runs in two modes: full sequence (prefill, returning the K/V
-or SSM state for the cache) and one-token decode against a cache.  The
-moe, hybrid, vlm and audio blocks wait for later slices.
+or SSM state for the cache) and one-token decode against a cache.  A moe
+block is a dense block whose MLP is ``moe.moe_ffn``.  The hybrid, vlm and
+audio blocks wait for later slices.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import activate, rms_norm, rope
+from repro_torch.models.moe import moe_ffn
 from repro_torch.sharding import ParamDef, stack_defs
 
 
@@ -49,17 +51,27 @@ def mlp_defs(cfg) -> Dict[str, ParamDef]:
     return out
 
 
-def block_defs(cfg) -> Dict[str, Any]:
+def block_defs(cfg, *, moe: bool = False) -> Dict[str, Any]:
     d = cfg.d_model
     out: Dict[str, Any] = {
         "ln1": ParamDef((d,), (None,), init="zeros"),
         "attn": attn_defs(cfg),
         "ln2": ParamDef((d,), (None,), init="zeros"),
-        "mlp": mlp_defs(cfg),
     }
     if cfg.post_norms:
         out["ln1p"] = ParamDef((d,), (None,), init="zeros")
         out["ln2p"] = ParamDef((d,), (None,), init="zeros")
+    if moe:
+        E, f = cfg.n_experts, cfg.d_ff
+        out["moe"] = {
+            "router": ParamDef((d, E), ("embed", None)),
+            "w1": ParamDef((E, d, f), ("experts", "embed", "ff_expert")),
+            "w3": ParamDef((E, d, f), ("experts", "embed", "ff_expert")),
+            "w2": ParamDef((E, f, d), ("experts", "ff_expert", "embed"),
+                           init="scaled"),
+        }
+    else:
+        out["mlp"] = mlp_defs(cfg)
     return out
 
 
@@ -83,7 +95,9 @@ def mamba_defs(cfg) -> Dict[str, Any]:
 
 def layer_defs(cfg) -> Dict[str, Any]:
     """One layer's parameter definitions for the families this port runs."""
-    return mamba_defs(cfg) if cfg.family == "ssm" else block_defs(cfg)
+    if cfg.family == "ssm":
+        return mamba_defs(cfg)
+    return block_defs(cfg, moe=cfg.is_moe)
 
 
 def top_defs(cfg) -> Dict[str, Any]:
@@ -151,12 +165,27 @@ def mlp_block(p, x, cfg):
     return o
 
 
-def dense_block(p, x, cfg, positions, *, window=None, impl: str = "cuda"):
-    """Full transformer block.  Returns (x_out, kv)."""
+def ffn_block(p, x, cfg, plan):
+    """The block's feed-forward half: the MLP, or the MoE FFN with its
+    aux losses.  Returns (y, aux or None)."""
+    if "moe" not in p:
+        return mlp_block(p, x, cfg), None
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux = moe_ffn(p["moe"], h, cfg, plan)
+    if cfg.post_norms:
+        y = rms_norm(y, p["ln2p"], cfg.norm_eps)
+    return y, aux
+
+
+def dense_block(p, x, cfg, plan, positions, *, window=None,
+                impl: str = "cuda"):
+    """Full transformer block.  Returns (x_out, kv, aux): aux is the MoE
+    layer's losses, None for an MLP block."""
     o, kv = self_attention_block(p, x, cfg, positions, window=window,
                                  impl=impl)
     x = x + o
-    return x + mlp_block(p, x, cfg), kv
+    y, aux = ffn_block(p, x, cfg, plan)
+    return x + y, kv, aux
 
 
 def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
@@ -191,7 +220,7 @@ def attn_block_decode(p, x, cfg, cache, q_pos, *, window=None):
     return o, {"k": ck, "v": cv, "slot_pos": sp}
 
 
-def dense_block_decode(p, x, cfg, cache, q_pos, *, window=None):
+def dense_block_decode(p, x, cfg, plan, cache, q_pos, *, window=None):
     o, cache = attn_block_decode(p, x, cfg, cache, q_pos, window=window)
     x = x + o
-    return x + mlp_block(p, x, cfg), cache
+    return x + ffn_block(p, x, cfg, plan)[0], cache

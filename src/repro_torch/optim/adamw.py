@@ -8,7 +8,10 @@ gradients and moments are dicts of tensors keyed by parameter name (a
 model's ``named_parameters()``); ``update`` writes the new parameters and
 moments into those tensors in place with ``torch._foreach_*`` operations
 and returns them, with the metrics as 0-d tensors on the device (no host
-sync).
+sync).  It updates the parameters a group of tensors at a time, at most
+``GROUP_ELEMENTS`` elements a group (or one larger tensor), so its float32
+temporaries stay that small whatever the model's size; every element's
+arithmetic is the same in any grouping.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import torch
 from repro_torch.optim.compression import GradCompression
 
 Tensors = Dict[str, torch.Tensor]
+
+GROUP_ELEMENTS = 1 << 28       # 1 GiB of float32 per temporary list
 
 
 class OptState(NamedTuple):
@@ -36,6 +41,21 @@ def global_norm(tensors) -> torch.Tensor:
         else list(tensors)
     norms = torch._foreach_norm([t.float() for t in leaves])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _groups(names, params: Tensors):
+    """``names`` cut into consecutive groups of at most ``GROUP_ELEMENTS``
+    elements (a tensor larger than that is a group of its own)."""
+    group, size = [], 0
+    for k in names:
+        n = params[k].numel()
+        if group and size + n > GROUP_ELEMENTS:
+            yield group
+            group, size = [], 0
+        group.append(k)
+        size += n
+    if group:
+        yield group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,35 +91,40 @@ class AdamW:
         if self.compression is not None and self.compression.enabled:
             grads, err = self.compression.apply(grads, err)
         names = list(params)
-        g = [grads[k].float() for k in names]
-        gnorm = global_norm(g)
+        gnorm = global_norm([grads[k] for k in names])
+        scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
-            g = torch._foreach_mul(g, scale)
         b1, b2 = self.b1, self.b2
-        m = [state.m[k] for k in names]
-        v = [state.v[k] for k in names]
-        torch._foreach_mul_(m, b1)
-        torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
-        torch._foreach_mul_(v, b2)
-        torch._foreach_add_(v, torch._foreach_mul(
-            torch._foreach_mul(g, g), 1 - b2))
         t = step.to(torch.float32)
         mhat_c = 1.0 / (1 - torch.pow(b1, t))
         vhat_c = 1.0 / (1 - torch.pow(b2, t))
         lr = self._lr(step)
-        p = [params[k] for k in names]
-        pf = [x.float() for x in p]
-        den = torch._foreach_mul(v, vhat_c)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        u = torch._foreach_mul(m, mhat_c)
-        torch._foreach_div_(u, den)
-        torch._foreach_add_(u, torch._foreach_mul(pf, self.weight_decay))
-        torch._foreach_mul_(u, lr)
-        new = torch._foreach_sub(pf, u)
-        for x, y in zip(p, new):
-            x.copy_(y)
+        for group in _groups(names, params):
+            g = [grads[k].float() for k in group]
+            if scale is not None:
+                g = torch._foreach_mul(g, scale)
+            m = [state.m[k] for k in group]
+            v = [state.v[k] for k in group]
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
+            torch._foreach_mul_(v, b2)
+            torch._foreach_add_(v, torch._foreach_mul(
+                torch._foreach_mul(g, g), 1 - b2))
+            del g
+            p = [params[k] for k in group]
+            pf = [x.float() for x in p]
+            den = torch._foreach_mul(v, vhat_c)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            u = torch._foreach_mul(m, mhat_c)
+            torch._foreach_div_(u, den)
+            del den
+            torch._foreach_add_(u, torch._foreach_mul(pf, self.weight_decay))
+            torch._foreach_mul_(u, lr)
+            new = torch._foreach_sub(pf, u)
+            for x, y in zip(p, new):
+                x.copy_(y)
         metrics = {"grad_norm": gnorm, "lr": lr}
         return params, OptState(step=step, m=state.m, v=state.v,
                                 err=err), metrics

@@ -18,6 +18,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.models.common import chunked_cross_entropy
+from repro_torch.models.moe import moe_aux_total
 
 
 class TrainState(NamedTuple):
@@ -28,17 +29,25 @@ class TrainState(NamedTuple):
 
 def make_loss_fn(model):
     """loss_fn(batch) -> (loss, metrics) through the model's parameters;
-    ``batch`` holds "tokens" and "labels" (numpy or tensors)."""
+    ``batch`` holds "tokens" and "labels" (numpy or tensors).  A moe
+    model's loss adds ``moe_aux_total`` of its aux losses, which join the
+    metrics."""
     cfg = model.cfg
 
     def loss_fn(batch):
-        hidden, _, _ = model.forward(batch)
+        hidden, aux, _ = model.forward(batch)
         h = model.final_hidden(hidden)
         head = model.embed.T if cfg.tie_embeddings else model.head
         labels = model._index(batch["labels"])
         tot, cnt = chunked_cross_entropy(h, head, labels, cfg=cfg)
         ce = tot / torch.clamp(cnt, min=1.0)
-        return ce, {"ce": ce, "tokens": cnt, "loss": ce}
+        loss = ce
+        metrics = {"ce": ce, "tokens": cnt}
+        if cfg.is_moe and aux:
+            loss = loss + moe_aux_total(aux, cfg)
+            metrics.update(aux)
+        metrics["loss"] = loss
+        return loss, metrics
 
     return loss_fn
 
@@ -56,7 +65,8 @@ def _split_microbatches(batch, n: int):
 
 def make_train_step(model, optimizer):
     """Returns train_step(state, batch) -> (state, metrics): metrics
-    ``loss``, ``ce``, ``tokens``, ``grad_norm`` and ``lr``."""
+    ``loss``, ``ce``, ``tokens``, ``grad_norm`` and ``lr`` (and a moe
+    model's ``lb_loss``, ``z_loss`` and ``drop_frac``)."""
     loss_fn = make_loss_fn(model)
     plan = model.plan
 

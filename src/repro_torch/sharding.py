@@ -4,7 +4,8 @@ part of ``repro.sharding``).
 ``ParamDef``, ``stack_defs`` and ``init_from_defs`` are the single source
 of truth for shapes, logical axes and initialisation.  ``ParallelPlan``
 carries only the fields a single-device step reads (``remat``,
-``microbatch``, ``ssm_chunk``); the reference's sharding rules, mesh and
+``microbatch``, ``ssm_chunk`` and the MoE grouping, ``moe_group_size`` and
+``moe_target_groups``); the reference's sharding rules, mesh and
 tensor-parallel modes wait for the multi-device slice.  On one device the
 reference's ``ParallelPlan.constrain`` is the identity and its
 ``col_parallel_project`` / ``row_parallel_project`` are ``x @
@@ -26,6 +27,8 @@ class ParallelPlan:
     # dots_saveable (a selective checkpoint that keeps matmul outputs)
     remat: str = "nothing_saveable"
     microbatch: int = 1               # gradient-accumulation steps
+    moe_group_size: int = 2048        # tokens routed together (a group)
+    moe_target_groups: int = 1        # aim for >= this many groups
     # time steps the selective scan's backward recomputes at a time
     ssm_chunk: int = 256
 

@@ -326,6 +326,52 @@ def test_smoke_serve_through_kernels(dev):
     assert after[0] > before[0] and after[1] > before[1]
 
 
+def test_moe_smoke_train_and_serve_through_kernels(dev):
+    """qwen3-moe-30b-a3b's smoke model in float32 on the card: one train
+    step on K7 equals impl="ref"'s (loss, gradient norm, the aux
+    metrics), serve's tokens equal impl="ref"'s, K7 launched; the MoE
+    FFN on the card equals it on the CPU."""
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.sharding import single_device_plan
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").smoke(),
+                              dtype="float32")
+    batch = {"tokens": np.arange(64).reshape(2, 32) % cfg.vocab_size,
+             "labels": np.arange(1, 65).reshape(2, 32) % cfg.vocab_size}
+    got = {}
+    for impl in ("cuda", "ref"):
+        model = build_model(cfg, device="cuda", seed=1, impl=impl)
+        opt = AdamW(lr=1e-3)
+        before = fa.flash_attention.launches
+        _, m = make_train_step(model, opt)(init_train_state(model, opt),
+                                           batch)
+        assert (fa.flash_attention.launches > before) == (impl == "cuda")
+        got[impl] = {k: float(v) for k, v in m.items()}
+    for k in ("loss", "ce", "lb_loss", "z_loss", "drop_frac"):
+        assert got["cuda"][k] == pytest.approx(got["ref"][k], rel=1e-5), k
+    assert got["cuda"]["grad_norm"] == pytest.approx(
+        got["ref"]["grad_norm"], rel=1e-4)
+    before = fa.flash_attention.launches
+    served = serve(cfg, requests=4, slots=2, max_new=6, device="cuda")
+    plain = serve(cfg, requests=4, slots=2, max_new=6, device="cuda",
+                  impl="ref")
+    assert served["served"] == 4 and served["tokens"] == plain["tokens"]
+    assert fa.flash_attention.launches > before
+    model = build_model(cfg, device="cpu", seed=2)
+    p = {k: v.detach() for k, v in model.layers[0].moe.named_parameters()}
+    x = torch.randn((3, 37, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0))
+    plan = single_device_plan().with_(moe_group_size=16)
+    y, aux = moe_ffn(p, x, cfg, plan)
+    yd, auxd = moe_ffn({k: v.to(dev) for k, v in p.items()}, x.to(dev), cfg,
+                       plan)
+    torch.testing.assert_close(yd.cpu(), y, rtol=1e-5, atol=1e-5)
+    for k in aux:
+        torch.testing.assert_close(auxd[k].cpu(), aux[k], rtol=1e-6, atol=0)
+
+
 @functools.lru_cache(maxsize=1)
 def _shared_join_cases():
     return jc.join_cases()

@@ -59,6 +59,7 @@ def test_port_import_loads_no_jax():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.mamba_scan, repro_torch.models.common, "
             "repro_torch.models.attention, repro_torch.models.ssm, "
+            "repro_torch.models.moe, "
             "repro_torch.models.transformer, repro_torch.models.model, "
             "repro_torch.runtime.steps, repro_torch.launch.serve, "
             "repro_torch.kernels.hash_join, repro_torch.kernels.merge_join, "

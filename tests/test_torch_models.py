@@ -1,15 +1,19 @@
 """The port's model stack against the reference's ``Model`` at smoke size.
 
-For ``smollm-360m`` (dense, GQA, prefill attention through K7) and
+For ``smollm-360m`` (dense, GQA, prefill attention through K7),
+``qwen3-moe-30b-a3b`` (moe, QK-norm, 4 experts top-2 at smoke size) and
 ``falcon-mamba-7b`` (ssm, Mamba1, prefill scan through K8) smoke configs,
 the reference's parameters are carried across with ``load_jax_params`` and
 the same numpy-drawn tokens go through both.  In float32: full-forward
 logits and prefill logits within 1e-4, and 8 teacher-forced decode steps
 within 1e-3 (the tolerances of ``tests/test_decode_consistency.py``; the
 port's attention and scan sum in other orders than the reference's jnp
-twins).  In bfloat16 (the configs' own dtype) the two packages round at
-other places (silu, softplus, the residual adds), so logits of magnitude
-up to ~1.5 agree to 2e-2, the tolerance of the bfloat16 kernel tests.
+twins).  The moe model's aux losses and drop fraction (each the mean
+over its layers) agree within 1e-6 relative (the reference's compiled
+layer scan rounds the drop fraction's mean its own way).  In bfloat16
+(the configs' own dtype) the two packages round at other places (silu,
+softplus, the residual adds), so logits of magnitude up to ~1.5 agree to
+2e-2, the tolerance of the bfloat16 kernel tests.
 """
 import dataclasses
 
@@ -28,7 +32,7 @@ from repro_torch.models.model import (_flatten, build_model, check_supported,
                                       load_jax_params)
 from repro_torch.models.transformer import model_defs
 
-ARCHS = ["smollm-360m", "falcon-mamba-7b"]
+ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b"]
 B, S, P = 2, 24, 16
 
 
@@ -54,11 +58,16 @@ def test_forward_prefill_decode_match_reference(arch):
     rmodel, params, model, toks = _pair(arch)
     jt = jnp.asarray(toks, jnp.int32)
     with torch.no_grad():
-        rh, _, _ = rmodel.forward(params, {"tokens": jt})
+        rh, raux, _ = rmodel.forward(params, {"tokens": jt})
         rlog = np.asarray(rmodel.logits(params, rh))
-        h, _, _ = model.forward({"tokens": toks})
+        h, aux, _ = model.forward({"tokens": toks})
         np.testing.assert_allclose(_np(model.logits(h)), rlog, atol=1e-4,
                                    rtol=1e-4)
+        assert sorted(aux) == sorted(raux)
+        for k in raux:
+            assert float(aux[k]) == pytest.approx(float(raux[k]),
+                                                  rel=1e-6), k
+        assert bool(aux) == (arch == "qwen3-moe-30b-a3b")
 
         rl, rcache = rmodel.prefill(params, {"tokens": jt[:, :P]},
                                     cache_len=S)
@@ -79,8 +88,11 @@ def test_forward_prefill_decode_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_matches_own_forward(arch):
     """The serving invariant on the port alone: prefill + step-by-step
-    decode reproduce its full forward's logits (float32)."""
-    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    decode reproduce its full forward's logits (float32; for the moe
+    model with ample capacity, as tests/test_decode_consistency.py runs
+    it: a shorter prefill drops other slots than the full forward)."""
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32",
+                              capacity_factor=8.0)
     model = build_model(cfg, device="cpu", seed=3)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     with torch.no_grad():
@@ -106,6 +118,33 @@ def test_bf16_forward_matches_reference(arch):
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
 
 
+def test_moe_prefill_decode_matches_reference_forward():
+    """tests/test_decode_consistency.py's qwen3-moe-30b-a3b case across
+    the packages: the port's prefill and decode steps reproduce the
+    reference's full-forward logits (float32, capacity factor 8, so no
+    slot drops)."""
+    arch = "qwen3-moe-30b-a3b"
+    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32",
+                               capacity_factor=8.0)
+    cfg = dataclasses.replace(REGISTRY[arch].smoke(), dtype="float32",
+                              capacity_factor=8.0)
+    rmodel = rbuild(rcfg)
+    params = rmodel.init(jax.random.PRNGKey(0))
+    model = build_model(cfg, device="cpu").load_jax_params(
+        jax.tree_util.tree_map(np.asarray, params))
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(0), (B, S), 0,
+                                         cfg.vocab_size))
+    rh, _, _ = rmodel.forward(params, {"tokens": jnp.asarray(toks)})
+    ref = np.asarray(rmodel.logits(params, rh))
+    with torch.no_grad():
+        logits, cache = model.prefill({"tokens": toks[:, :P]}, cache_len=S)
+        assert np.abs(_np(logits) - ref[:, P - 1]).max() < 1e-4
+        for t in range(P, S):
+            logits, cache = model.decode_step(
+                cache, {"tokens": toks[:, t:t + 1]}, np.full((B,), t))
+            assert np.abs(_np(logits) - ref[:, t]).max() < 1e-3, f"t={t}"
+
+
 def test_load_jax_params_names_and_shapes():
     for arch in ARCHS:
         cfg = REGISTRY[arch].smoke()
@@ -123,22 +162,41 @@ def test_load_jax_params_names_and_shapes():
         own = model.state_dict()
         assert sorted(state) == sorted(own)
         assert all(state[k].shape == own[k].shape for k in own)
-        stacked = params["layers"]["in_proj"] if cfg.family == "ssm" \
-            else params["layers"]["attn"]["wq"]
-        name = "in_proj" if cfg.family == "ssm" else "attn.wq"
-        for i in range(cfg.n_layers):
-            assert np.array_equal(state[f"layers.{i}.{name}"].numpy(),
-                                  np.asarray(stacked)[i])
+        leaves = {"ssm": ["in_proj"], "dense": ["attn.wq"],
+                  "moe": ["attn.wq", "moe.router", "moe.w1", "moe.w2",
+                          "moe.w3"]}[cfg.family]
+        for name in leaves:
+            stacked = params["layers"]
+            for key in name.split("."):
+                stacked = stacked[key]
+            for i in range(cfg.n_layers):
+                assert np.array_equal(state[f"layers.{i}.{name}"].numpy(),
+                                      np.asarray(stacked)[i])
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b",
                                   "llama-3.2-vision-11b", "musicgen-medium",
-                                  "gemma2-9b", "qwen3-moe-30b-a3b"])
+                                  "gemma2-9b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         check_supported(get_config(arch))
     with pytest.raises(NotImplementedError):
         build_model(get_config(arch).smoke(), device="cpu")
+
+
+def test_moe_with_unported_attention_raises():
+    """The moe family runs full attention only: mixtral-8x7b (swa) and
+    qwen3-moe-30b-a3b given swa or local_global raise for the schedule;
+    qwen3-moe-30b-a3b itself builds."""
+    with pytest.raises(NotImplementedError, match="attention='swa'"):
+        check_supported(get_config("mixtral-8x7b"))
+    qwen = get_config("qwen3-moe-30b-a3b")
+    check_supported(qwen)
+    for attention in ("swa", "local_global"):
+        with pytest.raises(NotImplementedError, match="attention="):
+            build_model(dataclasses.replace(qwen.smoke(),
+                                            attention=attention),
+                        device="cpu")
 
 
 def test_forward_refuses_positions():

@@ -173,6 +173,33 @@ def test_adamw_steps_match_reference(compression, clip):
                                               np.asarray(rstate.err[k]))
 
 
+@pytest.mark.parametrize("limit", [1, 60, 70])
+def test_grouped_update_bit_equal_to_one_group(monkeypatch, limit):
+    """The update a few tensors at a time (GROUP_ELEMENTS 1: one tensor a
+    group; 60 and 70: a group of two) leaves parameters and moments bit
+    for bit where one group of every tensor leaves them."""
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(5)
+    p0 = _random_tree(rng)
+    grads = [_random_tree(rng, scale=s) for s in (3.0, 0.5)]
+    out = {}
+    for lim in (1 << 28, limit):
+        monkeypatch.setattr(adamw, "GROUP_ELEMENTS", lim)
+        params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        assert len(list(adamw._groups(list(SHAPES), params))) == \
+            {1 << 28: 1, 1: 3, 60: 2, 70: 2}[lim]
+        opt = AdamW(lr=3e-3)
+        state = opt.init(params)
+        for g in grads:
+            params, state, _ = opt.update(
+                {k: torch.from_numpy(v) for k, v in g.items()}, state,
+                params)
+        out[lim] = (params, state.m, state.v)
+    for a, b in zip(out[1 << 28], out[limit]):
+        for k in SHAPES:
+            assert torch.equal(a[k], b[k]), k
+
+
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_quantizer_and_error_feedback_bit_equal(mode, seed):

@@ -25,7 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.serve import merge_cache, serve
 from repro_torch.models.model import load_jax_params
 
-ARCHS = ["smollm-360m", "falcon-mamba-7b"]
+ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b"]
 DONE = re.compile(r"\[serve\] rid=(\d+) done: \[([0-9, ]*)\]")
 
 
@@ -72,11 +72,13 @@ def test_serve_matches_reference(arch):
     assert got["prefill_waves"] >= 2 and got["first_logits"].shape[0] == 4
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ["smollm-360m", "falcon-mamba-7b"])
 def test_serve_with_slots_equal_to_layers(arch):
     """slots == n_layers (2 at smoke size): the reference's merge would
     scatter along the layer axis; the port merges along the batch axis,
-    so every request decodes as it does with 4 slots."""
+    so every request decodes as it does with 4 slots.  (Not the moe
+    model: its experts' capacity depends on the batch, so a request's
+    tokens with 2 slots are not its tokens with 4, in either package.)"""
     assert get_config(arch).smoke().n_layers == 2
     got = _port_run(arch, 2)
     want = _reference_run(arch, 4)

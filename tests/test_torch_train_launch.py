@@ -22,10 +22,9 @@ def _final(out):
     return [l for l in out.splitlines() if "done" in l][-1]
 
 
-def test_train_crash_resume_identical(tmp_path):
-    """Training with a mid-run crash + resume reaches the same final loss
-    as an uninterrupted run (deterministic data + checkpointing)."""
-    base = ["-m", "repro_torch.launch.train", *SMOKE, "--steps", "20",
+def _crash_resume_identical(tmp_path, arch):
+    base = ["-m", "repro_torch.launch.train", "--arch", arch,
+            *SMOKE[2:], "--steps", "20",
             "--batch", "2", "--seq", "32", "--ckpt-every", "5",
             "--log-every", "20"]
     r1 = _run(base + ["--ckpt-dir", str(tmp_path / "a")])
@@ -39,6 +38,17 @@ def test_train_crash_resume_identical(tmp_path):
     final_a, final_b = _final(r1.stdout), _final(r3.stdout)
     assert final_a.startswith("[train] done: 20 steps, final loss")
     assert final_a.split("loss")[-1] == final_b.split("loss")[-1]
+
+
+def test_train_crash_resume_identical(tmp_path):
+    """Training with a mid-run crash + resume reaches the same final loss
+    as an uninterrupted run (deterministic data + checkpointing)."""
+    _crash_resume_identical(tmp_path, "smollm-360m")
+
+
+def test_moe_train_crash_resume_identical(tmp_path):
+    """The same for the moe family (its aux losses in the loss)."""
+    _crash_resume_identical(tmp_path, "qwen3-moe-30b-a3b")
 
 
 def test_sigterm_checkpoint_then_exit(tmp_path):
