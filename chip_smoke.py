@@ -49,15 +49,18 @@ Phases (any failure exits nonzero; there is no CPU path):
 6. model kernels against plain, on the card — flash_attention at
              smollm-360m's heads (H=15, KV=5, hd=64, B=4, S in {16, 100,
              512}, float32 and bfloat16, plus window+softcap and
-             non-causal cases; and at qwen3-moe-30b-a3b's H=32, KV=4,
-             hd=128, S in {100, 512}) within 1e-5 (float32) / 2e-2
+             non-causal cases; at qwen3-moe-30b-a3b's H=32, KV=4,
+             hd=128, S in {100, 512}; and at zamba2-2.7b's H=32, KV=32,
+             hd=80, S in {100, 512}, plus window+softcap) within 1e-5
+             (float32) / 2e-2
              (bfloat16) of attention_ref; selective_scan at falcon-mamba-7b's width
              (D=8192, B in {1, 4}, S in {1, 16, 31, 32, 33, 100, 512}
              across the 32-step chunk edge, every N the kernel takes, with
              and without h0, float32 and bfloat16) within 1e-4 of
              selective_scan_ref (allclose, atol = rtol);
-7. serve   — launch.serve.serve for smollm-360m, falcon-mamba-7b and
-             qwen3-moe-30b-a3b at full width and depth, seeded random
+7. serve   — launch.serve.serve for smollm-360m, falcon-mamba-7b,
+             qwen3-moe-30b-a3b and zamba2-2.7b at full width and depth,
+             seeded random
              parameters on the card, 8 requests, 4 slots, prompt 256, 32
              new tokens: in float32 through the kernels and with
              impl="ref" (qwen3 at 8 of its 48 layers; every request's
@@ -67,12 +70,15 @@ Phases (any failure exits nonzero; there is no CPU path):
              the configs' own bfloat16 through the kernels (qwen3 with
              bfloat16 parameters; tok/s, steps, launches; flash_attention
              must launch on smollm-360m and qwen3, selective_scan on
-             falcon-mamba-7b), and qwen3's prefill wave and decode step
+             falcon-mamba-7b; on zamba2-2.7b once a group a wave, 18
+             times), and qwen3's and zamba2's prefill wave and decode step
              traced by operator;
 13. train  — (runs after 7) smollm-360m at full width and depth, falcon-mamba-7b at
-             full width and 8 of its 64 layers and qwen3-moe-30b-a3b at
-             full width and 4 of its 48: in float32 (smollm B=2, S=256;
-             falcon B=1, S=128; qwen3 B=2, S=128, one fixed batch) the model on the
+             full width and 8 of its 64 layers, qwen3-moe-30b-a3b at
+             full width and 4 of its 48 and zamba2-2.7b at full width and
+             depth with group-level remat: in float32 (smollm B=2, S=256;
+             falcon B=1, S=128; qwen3 B=2, S=128; zamba2 B=1, S=256, one
+             fixed batch) the model on the
              kernels (K7 / K8 forward, their analytic backwards) against
              impl="ref" (autograd through the plain versions): loss within
              1e-5, every gradient nonzero and within GRAD_TOL (max |diff|
@@ -81,7 +87,7 @@ Phases (any failure exits nonzero; there is no CPU path):
              make_train_step on SyntheticPipeline batches of 8 x 512 (step
              ms, tokens/s, peak memory, the loss falling, launches and
              the kernel's device time on one step; qwen3's aux losses at
-             step 20 and one step traced by operator); then
+             step 20; qwen3's and zamba2's step traced by operator); then
              python -m repro_torch.launch.train on one GPU, whole and
              crashed at step 8 then resumed from step 5, final losses
              within LAUNCHER_LOSS_TOL;
@@ -91,7 +97,9 @@ Phases (any failure exits nonzero; there is no CPU path):
              never calls it) in alternating rounds, each timed eagerly and
              as replays of a CUDA graph (device-bound, no host launch cost);
              the built library's SASS must show HGMMA in the tensor-core
-             kernel; selective_scan at B=1, S=4096 and at the serve shape
+             kernel; the same at zamba2-2.7b's heads (32:32, hd 80, bf16
+             on the CUDA cores) at B=1, S=4096 and B=4, S=256 in 3
+             rounds; selective_scan at B=1, S=4096 and at the serve shape
              (B=4, S=256), D=8192, N=16, against selective_scan_ref; the
              SASS instruction counts of the scan's per-row body and of
              K8's per-step body (cuobjdump --dump-sass) and, with the SM
@@ -144,7 +152,9 @@ Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
 record as path_ms / path_launches (K7 and K8 also train_path_ms /
 train_path_launches over one step of phase 13's timed run; K7 also
-qwen3-moe-30b-a3b's as moe_path_ms and moe_train_path_ms), and
+qwen3-moe-30b-a3b's as moe_path_ms and moe_train_path_ms, zamba2-2.7b's
+as hybrid_path_ms and hybrid_train_path_ms, and its times at hd 80 as
+hd80_*), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
@@ -205,10 +215,16 @@ SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
 # takes 8 of 48 layers (~22 GB), and its main path (all 48 layers) holds
 # bfloat16 parameters (~61 GB)
 MOE = "qwen3-moe-30b-a3b"
+# zamba2-2.7b (the hybrid family): 54 Mamba2 blocks and one shared
+# attention block after every 6, ~2.45B parameters (~9.8 GB in float32),
+# so its identity run and its main path both run at full depth
+HYBRID = "zamba2-2.7b"
 SERVE_MODELS = {"smollm-360m": ("flash_attention", None, None),
                 "falcon-mamba-7b": ("selective_scan", None, None),
-                MOE: ("flash_attention", 8, "bfloat16")}
+                MOE: ("flash_attention", 8, "bfloat16"),
+                HYBRID: ("flash_attention", None, None)}
 QWEN_HEADS = (32, 4, 128)      # qwen3-moe-30b-a3b: H, KV, hd (group 8)
+ZAMBA_HEADS = (32, 32, 80)     # zamba2-2.7b's shared block: H, KV, hd
 # a router decision (a token's top-k expert set) that differs between the
 # float32 kernels and plain runs is a near-tie when the kernels run's gap
 # between its k-th and (k+1)-th probability is at most this: K7 and plain
@@ -230,12 +246,25 @@ HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
 # phase 13: training at full width; falcon-mamba-7b cut to 8 of its 64
 # layers (float32 masters, grads and Adam moments at full depth are ~112
 # GB), qwen3-moe-30b-a3b to 4 of its 48 (~10 GB of them a layer, ~10 GB
-# for the embedding and head)
-TRAIN = {"smollm-360m": (None, "flash_attention"),
-         "falcon-mamba-7b": (8, "selective_scan"),
-         MOE: (4, "flash_attention")}
+# for the embedding and head); zamba2-2.7b at full depth (~39 GB of
+# masters, grads and moments) with the reference's group-level remat
+# (nothing_saveable): without it the SSD's float32 (B, c, c, H)
+# intermediates keep ~1.7 GB a Mamba2 block at 8 x 512.  Values: (layers,
+# None for all; the kernel; the plan's remat)
+TRAIN = {"smollm-360m": (None, "flash_attention", "none"),
+         "falcon-mamba-7b": (8, "selective_scan", "none"),
+         MOE: (4, "flash_attention", "none"),
+         HYBRID: (None, "flash_attention", "nothing_saveable")}
 TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128),
-             MOE: (2, 128)}                                        # B, S
+             MOE: (2, 128), HYBRID: (1, 256)}                      # B, S
+# models whose float32 AdamW steps are each compared from the plain run's
+# state (replayed_steps) instead of along two runs: zamba2-2.7b's float32
+# trajectory at TRAIN_LR is chaotic whatever runs it: plain against plain
+# with every parameter moved by one float32 ulp differs by more than 2%
+# of lr in 57% of the elements after 2 steps and in 90% after 3 (54
+# layers on one H100 80GB HBM3 at 700 W; 12 layers: kernels against plain
+# 11% after 3), while one step from one state differs in 7.9e-6 of them
+REPLAYED = {HYBRID}
 MOE_METRICS = ("lb_loss", "z_loss", "drop_frac")
 TRAIN_LR = 1e-3                # the float32 check's AdamW steps
 TRAIN_F32_STEPS = 3
@@ -581,6 +610,12 @@ def model_kernel_parity(torch, dev):
     # qwen3-moe-30b-a3b's heads: 32 query heads over 4 KV heads (group 8)
     cases += [(4, S, *QWEN_HEADS, dt, {}) for S in (100, 512)
               for dt in ("float32", "bfloat16")]
+    # zamba2-2.7b's shared block: 32:32 heads at head dim 80 (bfloat16 on
+    # the CUDA cores too: the tensor-core kernel takes hd 64 and 128)
+    cases += [(4, S, *ZAMBA_HEADS, dt, {}) for S in (100, 512)
+              for dt in ("float32", "bfloat16")]
+    cases += [(4, 512, *ZAMBA_HEADS, "bfloat16",
+               dict(window=128, attn_softcap=30.0))]
     for B, S, H, KV, hd, dt, opts in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
@@ -675,10 +710,10 @@ def print_op_table(torch, label: str, fn, top: int = 20) -> None:
           flush=True)
 
 
-def moe_serve_ops(torch, cfg) -> None:
-    """Where a moe model's serve main path spends the card's time: one
-    prefill wave of SERVE's slots x prompt, then one decode step, each
-    traced by operator (``print_op_table``)."""
+def serve_ops(torch, cfg) -> None:
+    """Where a serve main path spends the card's time (the moe and hybrid
+    models'): one prefill wave of SERVE's slots x prompt, then one decode
+    step, each traced by operator (``print_op_table``)."""
     from repro_torch.models.model import build_model
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
     t = time.perf_counter()
@@ -866,6 +901,11 @@ def serve_phase(torch):
         check(run["served"] == SERVE["requests"] and
               bool(run["first_logits"].isfinite().all()),
               f"{arch}: {cfg.dtype} serve did not finish all requests")
+        if cfg.family == "hybrid":
+            # the shared block's prefill attention: once a group a wave
+            want = cfg.n_layers // cfg.hybrid_period * run["prefill_waves"]
+            check(launches[kernel] == want, f"{arch}: {kernel} launched "
+                  f"{launches[kernel]} times on the main path, not {want}")
         print(f"serve {arch} {cfg.dtype}, {main.param_dtype} parameters, "
               f"{cfg.n_layers} layers (main path): {run['served']} "
               f"requests, {run['steps']} decode steps, {run['tok_s']:.2f} "
@@ -884,8 +924,8 @@ def serve_phase(torch):
         out[arch] = (run, launches, dev_ms, how)
         gc.collect()
         torch.cuda.empty_cache()
-        if cfg.is_moe:
-            moe_serve_ops(torch, main)
+        if cfg.is_moe or cfg.family == "hybrid":
+            serve_ops(torch, main)
     check(all(v[1][SERVE_MODELS[a][0]] > 0 for a, v in out.items()),
           f"a model kernel never launched on its main path: "
           f"{ {a: v[1] for a, v in out.items()} }")
@@ -897,38 +937,44 @@ def train_parity(torch, cfg, B, S):
     the custom backwards) against impl="ref" (autograd through the plain
     versions), the same seeded parameters and one fixed batch: the loss
     (and a moe model's aux losses), every parameter's gradient (each
-    nonzero) and the parameters after TRAIN_F32_STEPS AdamW steps.  The
-    kernels run's gradients and parameters wait on the host while the
-    plain run takes the card, and are compared a tensor at a time."""
+    nonzero) and the parameters after TRAIN_F32_STEPS AdamW steps (for
+    a model in REPLAYED, after each step taken from the plain run's
+    state: ``replayed_steps``).  The kernels run's gradients and
+    parameters wait on the host while the plain run takes the card, and
+    are compared a tensor at a time."""
     from repro_torch.data import SyntheticPipeline
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW
     from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
                                            make_train_step)
-    kernel = TRAIN[cfg.name][1]
+    kernel, plan = TRAIN[cfg.name][1], train_plan(cfg)
     f32 = dataclasses.replace(cfg, dtype="float32")
     batch = SyntheticPipeline(f32, B, S, seed=0).batch_at(0)
+    replayed = cfg.name in REPLAYED
     out = {}
     for impl in ("cuda", "ref"):
         keep = (lambda t: t.detach().cpu()) if impl == "cuda" else \
             (lambda t: t.detach())
         ops.reset_launch_counts()
-        model = build_model(f32, device="cuda", seed=0, impl=impl)
+        model = build_model(f32, plan, device="cuda", seed=0, impl=impl)
         loss, metrics = make_loss_fn(model)(batch)
         grads = [keep(g) for g in torch.autograd.grad(
             loss, list(model.parameters()))]
         launches = launch_counts()[kernel]
-        opt = AdamW(lr=TRAIN_LR)
-        state = init_train_state(model, opt)
-        step = make_train_step(model, opt)
-        for _ in range(TRAIN_F32_STEPS):
-            state, _ = step(state, batch)
+        params = None
+        if not replayed:
+            opt = AdamW(lr=TRAIN_LR)
+            state = init_train_state(model, opt)
+            step = make_train_step(model, opt)
+            for _ in range(TRAIN_F32_STEPS):
+                state, _ = step(state, batch)
+            params = [keep(p) for p in model.parameters()]
+            del state, step, opt
         aux = {k: float(metrics[k].detach()) for k in MOE_METRICS
                if k in metrics}
-        out[impl] = (float(loss.detach()), aux, grads,
-                     [keep(p) for p in model.parameters()], launches)
-        del model, state, step, opt, loss, metrics
+        out[impl] = (float(loss.detach()), aux, grads, params, launches)
+        del model, loss, metrics
         gc.collect()
         torch.cuda.empty_cache()
     (loss, aux, grads, params, launches), \
@@ -952,26 +998,86 @@ def train_parity(torch, cfg, B, S):
           f"all-zero gradient")
     check(gerr <= GRAD_TOL, f"{cfg.name} float32: gradient max |diff| / "
           f"max |g| {gerr} > {GRAD_TOL}")
-    pmax, n, beyond = 0.0, 0, 0
-    for p, pp in zip(params, pparams):
-        d = (p.to(pp.device) - pp).abs()
-        pmax = max(pmax, float(d.max()) / TRAIN_LR)
-        n += d.numel()
-        beyond += int((d > 0.02 * TRAIN_LR).sum())
-    share = beyond / n
-    check(share <= PARAM_SHARE_TOL and pmax <= 2 * TRAIN_F32_STEPS,
-          f"{cfg.name} float32: after {TRAIN_F32_STEPS} steps {share} of "
-          f"the parameters differ by more than 2% of lr (max {pmax} lr)")
+    del out, grads, pgrads
+    gc.collect()
+    if replayed:
+        share, pmax, n, losses = replayed_steps(torch, f32, plan, batch)
+        limit = 2
+    else:
+        pmax, n, beyond = 0.0, 0, 0
+        for p, pp in zip(params, pparams):
+            d = (p.to(pp.device) - pp).abs()
+            pmax = max(pmax, float(d.max()) / TRAIN_LR)
+            n += d.numel()
+            beyond += int((d > 0.02 * TRAIN_LR).sum())
+        share, limit, losses = beyond / n, 2 * TRAIN_F32_STEPS, None
+        del params, pparams
+    how = (f" (each step from plain's state; losses kernels, plain "
+           f"{losses})" if replayed else "")
+    check(share <= PARAM_SHARE_TOL and pmax <= limit,
+          f"{cfg.name} float32: after {TRAIN_F32_STEPS} steps{how} {share} "
+          f"of the parameters differ by more than 2% of lr (max {pmax} lr)")
     print(f"train {cfg.name} float32 B={B} S={S} ({cfg.n_layers} layers, "
-          f"{n} parameters): loss {loss} vs plain {ploss} (rel {rel:.3g}); "
-          f"every gradient nonzero; gradient max |diff| / max |g| {gerr:.3g}"
-          f" (limit {GRAD_TOL}); after {TRAIN_F32_STEPS} AdamW steps (lr "
-          f"{TRAIN_LR}) max |diff| {pmax:.4g} lr, {share:.3g} of elements "
-          f"beyond 2% of lr; {kernel} launches {launches}" +
+          f"remat {plan.remat}, {n} parameters): loss {loss} vs plain "
+          f"{ploss} (rel {rel:.3g}); every gradient nonzero; gradient max "
+          f"|diff| / max |g| {gerr:.3g} (limit {GRAD_TOL}); after "
+          f"{TRAIN_F32_STEPS} AdamW steps (lr {TRAIN_LR}) max |diff| "
+          f"{pmax:.4g} lr, {share:.3g} of elements beyond 2% of lr{how}; "
+          f"{kernel} launches {launches}" +
           (f"; aux {aux} vs plain {paux}" if aux else ""), flush=True)
-    del out, grads, pgrads, params, pparams
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def replayed_steps(torch, f32, plan, batch):
+    """TRAIN_F32_STEPS AdamW steps of the kernels model and the plain one,
+    the kernels model taking the plain run's parameters and moments
+    before each step, so each step's update is compared from one state:
+    (the largest share over the steps of elements more than 2% of lr
+    apart, the largest difference in lr, elements, [(kernels loss, plain
+    loss)] a step).  Both models and their moments stay on the card."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    runs = {}
+    for impl in ("cuda", "ref"):
+        model = build_model(f32, plan, device="cuda", seed=0, impl=impl)
+        opt = AdamW(lr=TRAIN_LR)
+        runs[impl] = [model, init_train_state(model, opt),
+                      make_train_step(model, opt)]
+    share, pmax, n, losses = 0.0, 0.0, 0, []
+    for _ in range(TRAIN_F32_STEPS):
+        pair = []
+        for run in runs.values():
+            run[1], m = run[2](run[1], batch)
+            pair.append(float(m["loss"]))
+        losses.append(tuple(pair))
+        (_, ks, _), (_, ps, _) = runs["cuda"], runs["ref"]
+        n = beyond = 0
+        with torch.no_grad():
+            for k, p in ps.params.items():
+                d = (ks.params[k] - p).abs()
+                pmax = max(pmax, float(d.max()) / TRAIN_LR)
+                n += d.numel()
+                beyond += int((d > 0.02 * TRAIN_LR).sum())
+            share = max(share, beyond / n)
+            for k, p in ps.params.items():
+                ks.params[k].copy_(p)
+                ks.opt_state.m[k].copy_(ps.opt_state.m[k])
+                ks.opt_state.v[k].copy_(ps.opt_state.v[k])
+        runs["cuda"][1] = ks._replace(
+            opt_state=ks.opt_state._replace(step=ps.opt_state.step.clone()),
+            step=ps.step.clone())
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return share, pmax, n, losses
+
+
+def train_plan(cfg):
+    """Phase 13's single-device plan for ``cfg``: TRAIN's remat."""
+    from repro_torch.sharding import single_device_plan
+    return single_device_plan().with_(remat=TRAIN[cfg.name][2])
 
 
 def train_timed(torch, cfg):
@@ -985,9 +1091,9 @@ def train_timed(torch, cfg):
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.runtime.steps import init_train_state, make_train_step
-    kernel = TRAIN[cfg.name][1]
+    kernel, plan = TRAIN[cfg.name][1], train_plan(cfg)
     B, S, n = TRAIN_BF16["batch"], TRAIN_BF16["seq"], TRAIN_BF16["steps"]
-    model = build_model(cfg, device="cuda", seed=0)
+    model = build_model(cfg, plan, device="cuda", seed=0)
     opt = AdamW(lr=cosine_schedule(TRAIN_SCHEDULE[0], TRAIN_SCHEDULE[1], n))
     state = init_train_state(model, opt)
     step = make_train_step(model, opt)
@@ -1023,7 +1129,7 @@ def train_timed(torch, cfg):
     busy = sum(ms for ms, _ in rows.values())
     top = sorted(rows.items(), key=lambda r: -r[1][0])[:6]
     print(f"train {cfg.name} {cfg.dtype} (main path) B={B} S={S}, "
-          f"{cfg.n_layers} layers, {n} steps: step median "
+          f"{cfg.n_layers} layers, remat {plan.remat}, {n} steps: step median "
           f"{med:.3f} ms (first {secs[0] * 1e3:.1f} ms), {tok_s:.1f} "
           f"tokens/s over steps 2-{n} ({B * S / (med / 1e3):.1f} at the "
           f"median), peak memory "
@@ -1039,6 +1145,7 @@ def train_timed(torch, cfg):
     if cfg.is_moe:
         print(f"train {cfg.name} {cfg.dtype}: step {n} " + ", ".join(
             f"{k} {float(m[k]):.6g}" for k in MOE_METRICS), flush=True)
+    if cfg.is_moe or cfg.family == "hybrid":
         print_op_table(torch, f"train {cfg.name} {cfg.dtype}, one step",
                        lambda: step(state, batches[0]))
     del model, state, step, opt
@@ -1104,7 +1211,7 @@ def train_phase(torch):
     t = time.perf_counter()
     print(f"phase 13 on {card()}", flush=True)
     out = {}
-    for arch, (layers, kernel) in TRAIN.items():
+    for arch, (layers, _, _) in TRAIN.items():
         cfg = get_config(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -1112,6 +1219,95 @@ def train_phase(torch):
         out[arch] = train_timed(torch, cfg)
     launcher_check()
     print(f"phase 13: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
+def attn_bound(B: int, S: int, H: int, KV: int, hd: int):
+    """bound_ms of causal bf16 attention: q, k, v read and o written once;
+    4 hd FLOPs (QK^T and PV) per unmasked (q, k) pair and head over the
+    bf16 tensor cores' peak."""
+    pairs = B * S * (S + 1) // 2
+    return bound_ms(2 * B * (2 * S * H * hd + 2 * S * KV * hd),
+                    4 * hd * pairs * H, H100_BF16_FLOPS)
+
+
+def attn_vs_sdpa(torch, q, k, v, rounds: int = ATTN_ROUNDS):
+    """flash_attention against torch's scaled_dot_product_attention (KV
+    heads repeated first; timed here only, the port never calls it) on
+    bf16 causal q, k, v, in alternating rounds: 50 eager calls on CUDA
+    events (the host's launch cost included), then 10 replays of a CUDA
+    graph of 20 calls (device-bound; decides the order).  Prints the
+    rounds; returns the two graph medians (kernel ms, SDPA ms)."""
+    from repro_torch.kernels import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    calls = {"flash_attention": lambda: fa.flash_attention(q, k, v),
+             "sdpa": lambda: sdpa(qt, kt, vt, is_causal=True)}
+    graphs = {n: cuda_graph(torch, fn, 20) for n, fn in calls.items()}
+    eager = {n: [] for n in calls}
+    dev_r = {n: [] for n in calls}
+    for _ in range(rounds):
+        for n, fn in calls.items():
+            eager[n].append(time_ms(fn, 50, torch))
+            dev_r[n].append(time_ms(graphs[n].replay, 10, torch) / 20)
+    del graphs
+
+    def spread(r):
+        return (f"median {statistics.median(r):.6f} ms [" +
+                ", ".join(f"{t:.6f}" for t in r) + "]")
+    a, b = dev_r["flash_attention"], dev_r["sdpa"]
+    wins = sum(x < y for x, y in zip(a, b))
+    order = ("resolved" if max(a) < min(b) or min(a) > max(b) else
+             "unresolved (ranges overlap)")
+    print(f"time flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"bf16 causal, {rounds} alternating rounds, CUDA graph "
+          f"(device-bound): kernel {spread(a)}; "
+          f"scaled_dot_product_attention {spread(b)}; kernel faster in "
+          f"{wins} of {rounds}, ordering {order}; eager (host launch "
+          f"included): kernel {spread(eager['flash_attention'])}; "
+          f"scaled_dot_product_attention {spread(eager['sdpa'])}",
+          flush=True)
+    return statistics.median(a), statistics.median(b)
+
+
+def hd80_times(torch, dev, g, err) -> dict:
+    """Phase 8's K7 at zamba2-2.7b's heads (32:32, hd 80, bf16 on the CUDA
+    cores): at B=1, S=4096 and at the serve shape (B=4, S=256), each held
+    against attention_ref, timed against SDPA (3 rounds: the kernel takes
+    milliseconds at S=4096) beside its bound; plain timed at S=4096."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    H, KV, hd = ZAMBA_HEADS
+    out = {}
+    for B, S in ((1, 4096), SERVE_ATTN):
+        q, k, v = (torch.randn((B, S, n, hd), generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for n in (H, KV, KV))
+        e, ok = allclose_err(fa.flash_attention(q, k, v),
+                             ref.attention_ref(q, k, v),
+                             ATTN_TOL["bfloat16"])
+        check(ok, f"flash_attention hd={hd} B={B} S={S}: max_abs_err {e}")
+        err["flash_attention"]["bfloat16"] = max(
+            err["flash_attention"]["bfloat16"], e)
+        ms, lib = attn_vs_sdpa(torch, q, k, v, rounds=3)
+        bnd, by = attn_bound(B, S, H, KV, hd)
+        key = "hd80" if B == 1 else "hd80_serve"
+        out.update({f"{key}_ms": ms, f"{key}_library_ms": lib,
+                    f"{key}_bound_ms": bnd, f"{key}_bound_by": by})
+        if B == 1:
+            out["hd80_plain_ms"] = time_ms(
+                lambda: ref.attention_ref(q, k, v), 3, torch)
+        print(f"time flash_attention hd={hd} B={B} S={S} H={H} KV={KV} "
+              f"bf16 (CUDA cores): {ms:.4f} ms; scaled_dot_product_"
+              f"attention {lib:.4f} ms ({ms / lib:.2f}x); bound {bnd:.4f} "
+              f"ms ({by})" + (f"; plain {out['hd80_plain_ms']:.3f} ms"
+                              if B == 1 else ""), flush=True)
+        del q, k, v
     return out
 
 
@@ -1135,56 +1331,12 @@ def model_times(torch, dev, err, served, trained):
     err["flash_attention"]["bfloat16"] = max(
         err["flash_attention"]["bfloat16"], e)
     fa_plain = time_ms(lambda: ref.attention_ref(q, k, v), 3, torch)
-    # unmasked (q, k) pairs x (QK^T + PV) x 2 FLOPs per multiply-add
-    pairs = S * (S + 1) // 2
-    fa_bound, fa_by = bound_ms(2 * (2 * S * H * hd + 2 * S * KV * hd),
-                               4 * hd * pairs * H, H100_BF16_FLOPS)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    fa_ms = fa_lib = None
-
-    def spread(r):
-        return (f"median {statistics.median(r):.6f} ms [" +
-                ", ".join(f"{t:.6f}" for t in r) + "]")
-    for B, Sx in ((1, S), SERVE_ATTN):
-        if B == 1:
-            qx, kx, vx = q, k, v
-        else:
-            qx, kx, vx = (torch.randn((B, Sx, n, hd), generator=g,
+    fa_bound, fa_by = attn_bound(1, S, H, KV, hd)
+    fa_ms, fa_lib = attn_vs_sdpa(torch, q, k, v)
+    B, Sx = SERVE_ATTN
+    attn_vs_sdpa(torch, *(torch.randn((B, Sx, n, hd), generator=g,
                                       device=dev).to(bf16)
-                          for n in (H, KV, KV))
-        # the yardstick: torch's fused attention, KV heads repeated first
-        G = H // KV
-        qt = qx.transpose(1, 2).contiguous()
-        kt = kx.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-        vt = vx.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-        calls = {"flash_attention": lambda: fa.flash_attention(qx, kx, vx),
-                 "sdpa": lambda: sdpa(qt, kt, vt, is_causal=True)}
-        # alternating rounds of each: 50 eager calls on CUDA events (the
-        # host's launch cost included), then 10 replays of a CUDA graph of
-        # 20 calls (device-bound; decides the order)
-        graphs = {n: cuda_graph(torch, fn, 20) for n, fn in calls.items()}
-        eager = {n: [] for n in calls}
-        dev_r = {n: [] for n in calls}
-        for _ in range(ATTN_ROUNDS):
-            for n, fn in calls.items():
-                eager[n].append(time_ms(fn, 50, torch))
-                dev_r[n].append(time_ms(graphs[n].replay, 10, torch) / 20)
-        del graphs
-        med = {n: statistics.median(r) for n, r in dev_r.items()}
-        a, b = dev_r["flash_attention"], dev_r["sdpa"]
-        wins = sum(x < y for x, y in zip(a, b))
-        order = ("resolved" if max(a) < min(b) or min(a) > max(b) else
-                 "unresolved (ranges overlap)")
-        if B == 1:
-            fa_ms, fa_lib = med["flash_attention"], med["sdpa"]
-        print(f"time flash_attention B={B} S={Sx} H={H} KV={KV} hd={hd} "
-              f"bf16 causal, {ATTN_ROUNDS} alternating rounds, CUDA graph "
-              f"(device-bound): kernel {spread(a)}; "
-              f"scaled_dot_product_attention {spread(b)}; kernel faster in "
-              f"{wins} of {ATTN_ROUNDS}, ordering {order}; eager (host "
-              f"launch included): kernel {spread(eager['flash_attention'])}"
-              f"; scaled_dot_product_attention {spread(eager['sdpa'])}",
-              flush=True)
+                          for n in (H, KV, KV)))
     print(f"time flash_attention B=1 S={S}: {fa_ms:.4f} ms; plain "
           f"{fa_plain:.3f} ms; scaled_dot_product_attention {fa_lib:.4f} "
           f"ms; bound {fa_bound:.4f} ms ({fa_by})", flush=True)
@@ -1264,6 +1416,7 @@ def model_times(torch, dev, err, served, trained):
                   f"at an SM clock of {mhz} MHz read under this load: "
                   f"{share} of the card's issue rate (an estimate)",
                   flush=True)
+    hd80 = hd80_times(torch, dev, g, err)
     csrc = "src/repro_torch/kernels/csrc/"
     return [
         {"name": "flash_attention", "route": "cuda",
@@ -1285,7 +1438,18 @@ def model_times(torch, dev, err, served, trained):
          "moe_path_source": served[MOE][3],
          "moe_train_path_ms": trained[MOE][0],
          "moe_train_path_launches": trained[MOE][2],
-         "moe_train_path_source": trained[MOE][1]},
+         "moe_train_path_source": trained[MOE][1],
+         # zamba2-2.7b's own paths (its shared block's prefill attention
+         # in its serve main path and one step of its training run)
+         "hybrid_path_ms": served[HYBRID][2],
+         "hybrid_path_launches": served[HYBRID][1]["flash_attention"],
+         "hybrid_path_source": served[HYBRID][3],
+         "hybrid_train_path_ms": trained[HYBRID][0],
+         "hybrid_train_path_launches": trained[HYBRID][2],
+         "hybrid_train_path_source": trained[HYBRID][1],
+         # K7 at zamba2's heads (hd 80, bf16 on the CUDA cores), B=1,
+         # S=4096 and the serve shape
+         **hd80},
         {"name": "selective_scan", "route": "cuda",
          "source": csrc + "mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:27",

@@ -5,7 +5,7 @@
 //   flash_attention_tc    bfloat16 with hd in {64, 128}: the tensor cores
 //                         (wgmma), tiles brought in by TMA;
 //   flash_attention_kernel float32 (any head dim) and bfloat16 with hd in
-//                         {16, 32, 256}: float32 FMAs on the CUDA cores.
+//                         {16, 32, 80, 256}: float32 FMAs on the CUDA cores.
 //
 // Both replace the reference's Pallas kernel _kernel in
 // src/repro/kernels/flash_attention.py (grid (B, H, nq, nkv), whose minor kv
@@ -683,6 +683,7 @@ static int dispatch(const AttnArgs& a, const void* q, const void* k,
         case 16: return launch<T, 16>(a, q, k, v, o, stream);
         case 32: return launch<T, 32>(a, q, k, v, o, stream);
         case 64: return launch<T, 64>(a, q, k, v, o, stream);
+        case 80: return launch<T, 80>(a, q, k, v, o, stream);
         case 128: return launch<T, 128>(a, q, k, v, o, stream);
         case 256: return launch<T, 256>(a, q, k, v, o, stream);
         default: return (int)cudaErrorInvalidValue;

@@ -6,7 +6,9 @@ CUDA kernels in ``csrc/flash_attention.cu`` replace the Pallas ``_kernel``
 shared memory, float32 online softmax; see the source's note for what
 bounds them).  bfloat16 with a head dim in ``TC_HEAD_DIMS`` runs on the
 tensor cores (wgmma, TMA tiles, 64 query rows a block);
-float32 and the other head dims run on the CUDA cores.
+float32 and the other head dims run on the CUDA cores, bfloat16 at
+zamba2's head dim 80 among them (the tensor-core kernel works in
+64-column chunks of the head dim).
 ``flash_attention`` launches them for CUDA tensors and takes the plain
 version, ``ref.attention_ref``, only for CPU tensors.  It keeps a plain
 launch counter, ``flash_attention.launches``, bumped where a kernel
@@ -32,7 +34,7 @@ from repro_torch.kernels.build import (check_launch, load_library, on_cuda,
                                        stream)
 from repro_torch.kernels.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernel's instantiations
 TC_HEAD_DIMS = (64, 128)                 # bfloat16 on the tensor cores
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535                      # CUDA's bound on gridDim.y and .z

@@ -1,4 +1,4 @@
-"""The Model API of the dense, moe and ssm families (the port of
+"""The Model API of the dense, moe, ssm and hybrid families (the port of
 ``repro.models.model``).
 
     model = build_model(cfg, plan, device="cuda", seed=0)
@@ -9,28 +9,42 @@
 
 Batches are ``{"tokens": (B, S) integer}``.  Parameters live in the module,
 named by the reference's dict keys (``embed``, ``final_ln``,
-``layers.<i>.attn.wq``, ...), with weights in the reference's ``(in,
-out)`` layout; a Python loop over ``layers`` (an ``nn.ModuleList``) takes
-the place of ``lax.scan``.  ``load_jax_params`` carries the reference's
-parameter tree across.  Parameters are trainable; serving runs under
-``torch.no_grad`` (``runtime.steps``).  With gradients enabled, the
-plan's ``remat`` wraps each layer as the reference's ``_remat`` wraps its
-scan body: ``nothing_saveable`` in ``torch.utils.checkpoint``,
-``dots_saveable`` in a selective checkpoint that keeps matmul outputs.
+``layers.<i>.attn.wq``, ``shared_attn.attn.wq``, ...), with weights in the
+reference's ``(in, out)`` layout; a Python loop over ``layers`` (an
+``nn.ModuleList``) takes the place of ``lax.scan``.  ``load_jax_params``
+carries the reference's parameter tree across.  Parameters are
+trainable; serving runs under ``torch.no_grad`` (``runtime.steps``).
+With gradients enabled, the plan's ``remat`` wraps each layer (a
+hybrid's each group) as the reference's ``_remat`` wraps its scan body:
+``nothing_saveable`` in ``torch.utils.checkpoint``, ``dots_saveable`` in
+a selective checkpoint that keeps matmul outputs.
 
-The cache keeps the reference's layout, layer axis first and batch axis
-second (``CACHE_BATCH_AXIS``): dense ``k``, ``v`` (L, B, S, KV, hd) and
-``slot_pos`` (L, B, S); ssm ``conv`` (L, B, K-1, d_inner) and ``ssm``
-(L, B, d_inner, N) float32; ``pos`` (B,).  ``decode_step`` writes the new
-token's state into the cache tensors in place and returns the same dict.
+A hybrid model (zamba2) runs its L Mamba2 blocks in groups of ``k =
+hybrid_period``, each group followed by the one ``shared_attn`` block
+(full attention through K7 in prefill); the same shared parameters serve
+all L / k groups, and autograd sums their gradients.  The ssm family runs
+Mamba1 or Mamba2 blocks by ``ssm_version``.
+
+The cache is a flat dict whose leaves have a leading layer (or group)
+axis and the batch axis second (``CACHE_BATCH_AXIS``): dense ``k``,
+``v`` (L, B, S, KV, hd) and ``slot_pos`` (L, B, S); ssm ``conv`` (L, B,
+K-1, d_inner) and ``ssm`` (L, B, d_inner, N), Mamba2's (L, B, H, P, N),
+float32; hybrid ``conv`` and ``ssm`` over its L Mamba2 blocks as in the
+ssm family, and the shared block's ``k``, ``v``, ``slot_pos`` over its
+L / k groups, (L / k, B, ...); ``pos`` (B,).  The hybrid's layout is not
+the reference's ((L / k, k, B, ...) Mamba leaves, a nested ``attn``
+dict): flat names of one batch axis each are what ``serve.merge_cache``
+scatters along.  ``decode_step`` writes the new token's state into the
+cache tensors in place and returns the same dict.
 
 Prefill attention masks by index (the flash-attention kernel's
 semantics), which equals the reference's position mask for the
 ``arange(S)`` positions it builds itself; a batch that carries its own
 ``"positions"`` raises.  ``forward``'s aux holds a moe model's
 ``lb_loss``, ``z_loss`` and ``drop_frac``, each the mean over the layers
-(empty for the other families).  The hybrid, vlm and audio families and
-the swa / local_global attention schedules raise ``NotImplementedError``.
+(empty for the other families).  The vlm and audio families, the swa /
+local_global attention schedules and a hybrid of Mamba1 blocks raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,8 +68,8 @@ from repro_torch.sharding import (ParallelPlan, init_from_defs,
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# the batch axis of every cache leaf (merging a prefill wave into the live
-# cache scatters along it)
+# the batch axis of every cache leaf of every family (merging a prefill
+# wave into the live cache scatters along it)
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "slot_pos": 1, "conv": 1, "ssm": 1,
                     "pos": 0}
 
@@ -72,15 +86,19 @@ def resolve_device(device) -> torch.device:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (the "
-            f"port runs the dense, moe and ssm families)")
+            f"port runs the dense, moe, ssm and hybrid families)")
     if cfg.family in ("dense", "moe") and cfg.attention != "full":
         raise NotImplementedError(
             f"{cfg.name}: attention={cfg.attention!r} is not ported yet "
             f"(the port runs full attention)")
-    if cfg.family == "ssm" and cfg.ssm_version != 1:
+    if cfg.family == "hybrid" and cfg.ssm_version != 2:
+        raise NotImplementedError(
+            f"{cfg.name}: a hybrid of ssm_version={cfg.ssm_version} blocks "
+            f"is not ported (the port's hybrid runs Mamba2 blocks)")
+    if cfg.family == "ssm" and cfg.ssm_version not in (1, 2):
         raise NotImplementedError(
             f"{cfg.name}: ssm_version={cfg.ssm_version} is not ported yet")
     if not cfg.embed_inputs:
@@ -143,13 +161,17 @@ def _flatten(tree, prefix: str = ""):
 
 def load_jax_params(tree) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree (array leaves, layer leaves stacked
-    ``(L, ...)`` under ``"layers"``) as a state dict of ``Model``, with
-    the layers unstacked into ``layers.<i>.<path>``; CPU tensors."""
+    ``(L, ...)`` under ``"layers"``, or ``(L / k, k, ...)`` beside a
+    hybrid's ``"shared_attn"``) as a state dict of ``Model``, with the
+    layers unstacked into ``layers.<i>.<path>`` (group g's j-th block is
+    layer ``g * k + j``) and ``shared_attn.*`` as it is; CPU tensors."""
+    stacked = 2 if "shared_attn" in tree else 1
     out: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(tree):
         arr = np.asarray(leaf)
         if name.startswith("layers."):
             path = name[len("layers."):]
+            arr = arr.reshape((-1,) + arr.shape[stacked:])
             for i in range(arr.shape[0]):
                 out[f"layers.{i}.{path}"] = torch.from_numpy(
                     np.array(arr[i]))
@@ -185,7 +207,10 @@ class Model(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         pdt = DTYPES[cfg.param_dtype]
         for k, v in init_from_defs(tf.top_defs(cfg), gen, pdt).items():
-            self.register_parameter(k, nn.Parameter(v))
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v))
         self.layers = nn.ModuleList(
             ParamTree(init_from_defs(tf.layer_defs(cfg), gen, pdt))
             for _ in range(cfg.n_layers))
@@ -233,17 +258,27 @@ class Model(nn.Module):
         positions = torch.arange(S, device=self.device).expand(B, S)
         cache_len = cache_len or S
         cache, aux = None, {}
-        if cfg.family == "ssm":
-            conv, ssm = [], []
-            for p in self.layers:
-                x, conv_st, ssm_st = remat(functools.partial(
-                    tf.mamba_block, p, cfg=cfg, impl=self.impl,
-                    ssm_chunk=self.plan.ssm_chunk), self.plan)(x)
+        if cfg.family in ("ssm", "hybrid"):
+            # an ssm model is one group per layer with no shared block
+            k = cfg.hybrid_period if cfg.family == "hybrid" else 1
+            conv, ssm, kvs = [], [], []
+            for g in range(cfg.n_layers // k):
+                x, states, kv = remat(functools.partial(
+                    self._mamba_group, g=g, k=k, positions=positions),
+                    self.plan)(x)
                 if build_cache:
-                    conv.append(conv_st)
-                    ssm.append(ssm_st)
+                    conv += [c for c, _ in states]
+                    ssm += [h for _, h in states]
+                    if kv is not None:
+                        kvs.append(_build_layer_cache(
+                            kv[0], kv[1], positions, cache_len, None,
+                            self.dtype))
             if build_cache:
                 cache = {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
+                if kvs:
+                    ck, cv, sp = zip(*kvs)
+                    cache.update(k=torch.stack(ck), v=torch.stack(cv),
+                                 slot_pos=torch.stack(sp))
         else:
             layer_caches, layer_aux = [], []
             for p in self.layers:
@@ -266,6 +301,21 @@ class Model(nn.Module):
             cache["pos"] = positions[:, -1] + 1
         return x, aux, cache
 
+    def _mamba_group(self, x, *, g: int, k: int, positions):
+        """Group ``g``: Mamba blocks ``g*k .. g*k+k-1``, then a hybrid's
+        shared attention block.  Returns (x, [(conv, ssm) state per
+        block], the shared block's (k, v) or None)."""
+        cfg, states = self.cfg, []
+        for p in self.layers[g * k:(g + 1) * k]:
+            x, conv_st, ssm_st = tf.mamba_block(
+                p, x, cfg, impl=self.impl, ssm_chunk=self.plan.ssm_chunk)
+            states.append((conv_st, ssm_st))
+        kv = None
+        if cfg.family == "hybrid":
+            x, kv, _ = tf.dense_block(self.shared_attn, x, cfg, self.plan,
+                                      positions, impl=self.impl)
+        return x, states, kv
+
     # ============================ prefill ============================== #
     def prefill(self, batch, cache_len: Optional[int] = None):
         hidden, _, cache = self.forward(batch, build_cache=True,
@@ -281,13 +331,21 @@ class Model(nn.Module):
         cfg = self.cfg
         q_pos = self._index(q_pos)
         x = self._embed(inputs)
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
+            k = cfg.hybrid_period if cfg.family == "hybrid" else 1
             for i, p in enumerate(self.layers):
                 x, conv_st, ssm_st = tf.mamba_block(
                     p, x, cfg, conv_state=cache["conv"][i],
                     ssm_state=cache["ssm"][i], decode=True, impl=self.impl)
                 cache["conv"][i] = conv_st
                 cache["ssm"][i] = ssm_st
+                if cfg.family == "hybrid" and (i + 1) % k == 0:
+                    g = i // k
+                    layer_cache = {n: cache[n][g]
+                                   for n in ("k", "v", "slot_pos")}
+                    x, _ = tf.dense_block_decode(self.shared_attn, x, cfg,
+                                                 self.plan, layer_cache,
+                                                 q_pos)
         else:
             for i, p in enumerate(self.layers):
                 layer_cache = {k: cache[k][i] for k in ("k", "v", "slot_pos")}
@@ -303,20 +361,28 @@ class Model(nn.Module):
         cfg, dev, dt = self.cfg, self.device, self.dtype
         L = cfg.n_layers
         pos = torch.zeros((B,), dtype=torch.int64, device=dev)
-        if cfg.family == "ssm":
-            di, N, Kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv - 1
-            return {"conv": torch.zeros((L, B, Kc, di), dtype=dt, device=dev),
-                    "ssm": torch.zeros((L, B, di, N), dtype=torch.float32,
-                                       device=dev),
-                    "pos": pos}
         KV, hd = cfg.n_kv_heads, cfg.head_dim
-        return {"k": torch.zeros((L, B, cache_len, KV, hd), dtype=dt,
-                                 device=dev),
-                "v": torch.zeros((L, B, cache_len, KV, hd), dtype=dt,
-                                 device=dev),
-                "slot_pos": torch.full((L, B, cache_len), -1,
-                                       dtype=torch.int64, device=dev),
-                "pos": pos}
+
+        def kv_cache(n):
+            return {"k": torch.zeros((n, B, cache_len, KV, hd), dtype=dt,
+                                     device=dev),
+                    "v": torch.zeros((n, B, cache_len, KV, hd), dtype=dt,
+                                     device=dev),
+                    "slot_pos": torch.full((n, B, cache_len), -1,
+                                           dtype=torch.int64, device=dev)}
+
+        if cfg.family in ("ssm", "hybrid"):
+            di, N, Kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv - 1
+            state = (di, N) if cfg.ssm_version == 1 else \
+                (cfg.n_ssm_heads, cfg.ssm_head_dim, N)
+            out = {"conv": torch.zeros((L, B, Kc, di), dtype=dt, device=dev),
+                   "ssm": torch.zeros((L, B) + state, dtype=torch.float32,
+                                      device=dev),
+                   "pos": pos}
+            if cfg.family == "hybrid":
+                out.update(kv_cache(L // cfg.hybrid_period))
+            return out
+        return {**kv_cache(L), "pos": pos}
 
 
 def build_model(cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,

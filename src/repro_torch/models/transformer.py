@@ -1,17 +1,20 @@
-"""Decoder blocks of the dense, moe and ssm families, and their parameter
-definitions (the port of ``repro.models.transformer``).
+"""Decoder blocks of the dense, moe, ssm and hybrid families, and their
+parameter definitions (the port of ``repro.models.transformer``).
 
 ``model_defs`` gives the reference's parameter tree with its stacked
-``(L, ...)`` layer leaves; the port's ``Model`` holds one module per layer
-and loops over them in Python where the reference runs ``lax.scan``.
-Block functions take ``p`` as anything indexable by the reference's keys
-(a ``ParamTree`` module or a nested dict).  On one device the reference's
+layer leaves (``(L, ...)``; the hybrid's ``(L / k, k, ...)`` groups of
+``k = hybrid_period`` Mamba2 blocks beside one unstacked ``shared_attn``
+block); the port's ``Model`` holds one module per layer and loops over
+them in Python where the reference runs ``lax.scan``.  Block functions
+take ``p`` as anything indexable by the reference's keys (a ``ParamTree``
+module or a nested dict).  On one device the reference's
 ``plan.constrain`` is the identity and its column/row-parallel
 projections are ``x @ w.astype(x.dtype)``, written out here.
 
 Each block runs in two modes: full sequence (prefill, returning the K/V
 or SSM state for the cache) and one-token decode against a cache.  A moe
-block is a dense block whose MLP is ``moe.moe_ffn``.  The hybrid, vlm and
+block is a dense block whose MLP is ``moe.moe_ffn``; a Mamba block runs
+the Mamba1 or the Mamba2 mixer by ``cfg.ssm_version``.  The vlm and
 audio blocks wait for later slices.
 """
 from __future__ import annotations
@@ -76,32 +79,51 @@ def block_defs(cfg, *, moe: bool = False) -> Dict[str, Any]:
 
 
 def mamba_defs(cfg) -> Dict[str, Any]:
-    """Mamba1 block parameters (``ssm_version == 1``)."""
+    """Mamba block parameters: Mamba1's (``ssm_version == 1``) or
+    Mamba2's."""
     d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    R = cfg.dt_rank
-    return {
+    out: Dict[str, Any] = {
         "ln": ParamDef((d,), (None,), init="zeros"),
         "conv_w": ParamDef((di, K), ("inner", None), init="scaled"),
         "conv_b": ParamDef((di,), ("inner",), init="zeros"),
         "out_proj": ParamDef((di, d), ("inner", "embed"), init="scaled"),
-        "in_proj": ParamDef((d, 2 * di), ("embed", "inner")),
-        "x_proj": ParamDef((di, R + 2 * N), ("inner", None)),
-        "dt_proj": ParamDef((R, di), (None, "inner")),
-        "dt_bias": ParamDef((di,), ("inner",), init="const", const=-4.0),
-        "A_log": ParamDef((di, N), ("inner", None), init="const", const=0.0),
-        "D": ParamDef((di,), ("inner",), init="ones"),
     }
+    if cfg.ssm_version == 1:
+        R = cfg.dt_rank
+        out.update({
+            "in_proj": ParamDef((d, 2 * di), ("embed", "inner")),
+            "x_proj": ParamDef((di, R + 2 * N), ("inner", None)),
+            "dt_proj": ParamDef((R, di), (None, "inner")),
+            "dt_bias": ParamDef((di,), ("inner",), init="const", const=-4.0),
+            "A_log": ParamDef((di, N), ("inner", None), init="const",
+                              const=0.0),
+            "D": ParamDef((di,), ("inner",), init="ones"),
+        })
+    else:
+        H = cfg.n_ssm_heads
+        out.update({
+            "in_proj_xz": ParamDef((d, 2 * di), ("embed", "inner")),
+            "in_proj_bc": ParamDef((d, 2 * N), ("embed", None)),
+            "in_proj_dt": ParamDef((d, H), ("embed", "inner")),
+            "dt_bias": ParamDef((H,), ("inner",), init="const", const=-4.0),
+            "A_log": ParamDef((H,), ("inner",), init="const", const=0.0),
+            "D": ParamDef((H,), ("inner",), init="ones"),
+            "norm": ParamDef((di,), ("inner",), init="zeros"),
+        })
+    return out
 
 
 def layer_defs(cfg) -> Dict[str, Any]:
-    """One layer's parameter definitions for the families this port runs."""
-    if cfg.family == "ssm":
+    """One layer's parameter definitions for the families this port runs
+    (a hybrid's layers are its Mamba2 blocks)."""
+    if cfg.family in ("ssm", "hybrid"):
         return mamba_defs(cfg)
     return block_defs(cfg, moe=cfg.is_moe)
 
 
 def top_defs(cfg) -> Dict[str, Any]:
-    """The parameters outside the layer stack."""
+    """The parameters outside the layer stack (a hybrid's shared
+    attention block among them)."""
     d = cfg.d_model
     out: Dict[str, Any] = {"final_ln": ParamDef((d,), (None,), init="zeros"),
                            "embed": ParamDef((cfg.vocab_size, d),
@@ -109,14 +131,22 @@ def top_defs(cfg) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         out["head"] = ParamDef((d, cfg.vocab_size), ("embed", "vocab"),
                                init="scaled")
+    if cfg.family == "hybrid":
+        out["shared_attn"] = block_defs(cfg)            # one shared block
     return out
 
 
 def model_defs(cfg) -> Dict[str, Any]:
     """Full parameter-definition tree, in the reference's layout (stacked
-    ``(L, ...)`` layer leaves under ``"layers"``)."""
+    ``(L, ...)`` layer leaves under ``"layers"``, a hybrid's ``(L / k, k,
+    ...)``)."""
     out = top_defs(cfg)
-    out["layers"] = stack_defs(layer_defs(cfg), cfg.n_layers)
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_period
+        out["layers"] = stack_defs(stack_defs(layer_defs(cfg), k),
+                                   cfg.n_layers // k)
+    else:
+        out["layers"] = stack_defs(layer_defs(cfg), cfg.n_layers)
     return out
 
 
@@ -190,10 +220,16 @@ def dense_block(p, x, cfg, plan, positions, *, window=None,
 
 def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
                 decode=False, impl: str = "cuda", ssm_chunk: int = 256):
+    """Pre-norm Mamba block: the Mamba1 mixer (its scan through K8 under
+    ``impl``) or the Mamba2 mixer (plain torch), by ``cfg.ssm_version``."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    y, conv_state, ssm_state = ssm_mod.mamba1_mix(
-        p, h, cfg, conv_state=conv_state, ssm_state=ssm_state,
-        decode=decode, impl=impl, ssm_chunk=ssm_chunk)
+    kw = dict(conv_state=conv_state, ssm_state=ssm_state, decode=decode,
+              ssm_chunk=ssm_chunk)
+    if cfg.ssm_version == 1:
+        y, conv_state, ssm_state = ssm_mod.mamba1_mix(p, h, cfg, impl=impl,
+                                                      **kw)
+    else:
+        y, conv_state, ssm_state = ssm_mod.mamba2_mix(p, h, cfg, **kw)
     return x + y, conv_state, ssm_state
 
 

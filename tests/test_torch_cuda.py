@@ -151,6 +151,11 @@ def test_raqo_on_kernels_matches_plain(dev, rp):
     (2, 70, 70, 6, 2, 16, dict(window=24, attn_softcap=30.0)),
     (1, 64, 96, 4, 1, 128, dict(causal=False)),
     (1, 33, 33, 2, 2, 256, {}),
+    # zamba2's head dim 80 (32:32 heads cut to 4:4), bfloat16 on the CUDA
+    # cores too
+    (2, 100, 100, 4, 4, 80, {}),
+    (1, 130, 130, 4, 2, 80, dict(window=40, attn_softcap=30.0)),
+    (1, 50, 77, 4, 4, 80, dict(causal=False)),
 ])
 def test_flash_attention_matches_plain(dev, dtype, tol, B, S, Skv, H, KV,
                                        hd, opts):
@@ -231,7 +236,7 @@ def test_selective_scan_matches_plain(dev, dtype, B, S, D, N, with_h0):
 @pytest.mark.parametrize("B,S,H,KV,hd,opts", [
     (2, 100, 15, 5, 64, {}), (1, 77, 8, 2, 128, dict(window=20)),
     (2, 64, 4, 4, 32, dict(attn_softcap=30.0)),
-    (1, 50, 6, 2, 64, dict(causal=False))])
+    (1, 50, 6, 2, 64, dict(causal=False)), (2, 90, 4, 4, 80, {})])
 def test_flash_attention_autograd_matches_plain(dev, dtype, B, S, H, KV, hd,
                                                 opts):
     """K7 under autograd on the card: the forward launches the kernel, the
@@ -370,6 +375,43 @@ def test_moe_smoke_train_and_serve_through_kernels(dev):
     torch.testing.assert_close(yd.cpu(), y, rtol=1e-5, atol=1e-5)
     for k in aux:
         torch.testing.assert_close(auxd[k].cpu(), aux[k], rtol=1e-6, atol=0)
+
+
+def test_hybrid_smoke_train_and_serve_through_kernels(dev):
+    """zamba2-2.7b's smoke model in float32 on the card: one train step
+    on K7 (the shared block's six invocations) equals impl="ref"'s, and
+    serve's tokens equal impl="ref"'s with 2 and with 4 slots."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("zamba2-2.7b").smoke(),
+                              dtype="float32")
+    batch = {"tokens": np.arange(80).reshape(2, 40) % cfg.vocab_size,
+             "labels": np.arange(1, 81).reshape(2, 40) % cfg.vocab_size}
+    got = {}
+    for impl in ("cuda", "ref"):
+        model = build_model(cfg, device="cuda", seed=1, impl=impl)
+        opt = AdamW(lr=1e-3)
+        before = fa.flash_attention.launches
+        _, m = make_train_step(model, opt)(init_train_state(model, opt),
+                                           batch)
+        launched = fa.flash_attention.launches - before
+        assert launched == (cfg.n_layers // cfg.hybrid_period
+                            if impl == "cuda" else 0)
+        got[impl] = (float(m["loss"]), float(m["grad_norm"]))
+    assert got["cuda"][0] == pytest.approx(got["ref"][0], rel=1e-5)
+    assert got["cuda"][1] == pytest.approx(got["ref"][1], rel=1e-4)
+    before = fa.flash_attention.launches
+    tokens = {}
+    for slots in (2, 4):
+        served = serve(cfg, requests=4, slots=slots, max_new=6,
+                       device="cuda")
+        plain = serve(cfg, requests=4, slots=slots, max_new=6,
+                      device="cuda", impl="ref")
+        assert served["served"] == 4 and served["tokens"] == plain["tokens"]
+        tokens[slots] = served["tokens"]
+    assert tokens[2] == tokens[4]
+    assert fa.flash_attention.launches > before
 
 
 @functools.lru_cache(maxsize=1)

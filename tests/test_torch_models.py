@@ -1,8 +1,10 @@
 """The port's model stack against the reference's ``Model`` at smoke size.
 
 For ``smollm-360m`` (dense, GQA, prefill attention through K7),
-``qwen3-moe-30b-a3b`` (moe, QK-norm, 4 experts top-2 at smoke size) and
-``falcon-mamba-7b`` (ssm, Mamba1, prefill scan through K8) smoke configs,
+``qwen3-moe-30b-a3b`` (moe, QK-norm, 4 experts top-2 at smoke size),
+``falcon-mamba-7b`` (ssm, Mamba1, prefill scan through K8) and
+``zamba2-2.7b`` (hybrid: 12 Mamba2 blocks in groups of 2, each group
+followed by the one shared attention block, K7 at smoke size) configs,
 the reference's parameters are carried across with ``load_jax_params`` and
 the same numpy-drawn tokens go through both.  In float32: full-forward
 logits and prefill logits within 1e-4, and 8 teacher-forced decode steps
@@ -32,7 +34,8 @@ from repro_torch.models.model import (_flatten, build_model, check_supported,
                                       load_jax_params)
 from repro_torch.models.transformer import model_defs
 
-ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b"]
+ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+         "zamba2-2.7b"]
 B, S, P = 2, 24, 16
 
 
@@ -106,7 +109,12 @@ def test_prefill_decode_matches_own_forward(arch):
             assert float((logits - ref[:, t]).abs().max()) < 1e-3, f"t={t}"
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+# zamba2's whole bfloat16 forward is held block by block instead
+# (test_bf16_hybrid_blocks_match_reference): at smoke size it is 12 Mamba2
+# and 6 attention blocks deep, and the packages' one-ulp rounding
+# differences a block (measured: silu, the mixer's output) add up past
+# 2e-2 by the logits
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a != "zamba2-2.7b"])
 def test_bf16_forward_matches_reference(arch):
     rmodel, params, model, toks = _pair(arch, dtype="bfloat16")
     with torch.no_grad():
@@ -116,6 +124,34 @@ def test_bf16_forward_matches_reference(arch):
         got, want = _np(model.logits(h)), np.asarray(rmodel.logits(params, rh))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+
+
+def test_bf16_hybrid_blocks_match_reference():
+    """zamba2's blocks in bfloat16: a Mamba2 block, then the shared
+    attention block, each on the same bfloat16 input as the reference's,
+    to the bfloat16 tolerance above."""
+    from repro.models import transformer as rtf
+    from repro.sharding import single_device_plan as rplan
+    from repro_torch.models import transformer as tf
+    rmodel, params, model, _ = _pair("zamba2-2.7b", dtype="bfloat16")
+    cfg = model.cfg
+    x = np.random.default_rng(3).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    xj, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    p0 = jax.tree_util.tree_map(lambda a: a[0, 0], params["layers"])
+    with torch.no_grad():
+        want = rtf.mamba_block(p0, xj, rmodel.cfg, rplan())[0]
+        got = tf.mamba_block(model.layers[0], xt, cfg)[0]
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   atol=2e-2, rtol=2e-2)
+        want = rtf.dense_block(params["shared_attn"], xj, rmodel.cfg,
+                               rplan(), pos)[0]
+        got = tf.dense_block(model.shared_attn, xt, cfg, model.plan,
+                             torch.arange(S).expand(B, S))[0]
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   atol=2e-2, rtol=2e-2)
 
 
 def test_moe_prefill_decode_matches_reference_forward():
@@ -164,24 +200,87 @@ def test_load_jax_params_names_and_shapes():
         assert all(state[k].shape == own[k].shape for k in own)
         leaves = {"ssm": ["in_proj"], "dense": ["attn.wq"],
                   "moe": ["attn.wq", "moe.router", "moe.w1", "moe.w2",
-                          "moe.w3"]}[cfg.family]
+                          "moe.w3"],
+                  "hybrid": ["in_proj_xz", "in_proj_dt", "norm"]}[cfg.family]
         for name in leaves:
             stacked = params["layers"]
             for key in name.split("."):
                 stacked = stacked[key]
+            stacked = np.asarray(stacked)
             for i in range(cfg.n_layers):
+                # a hybrid's (g, k, ...) leaves: group g's j-th block is
+                # layer g * k + j
+                want = stacked[divmod(i, cfg.hybrid_period)] \
+                    if cfg.family == "hybrid" else stacked[i]
                 assert np.array_equal(state[f"layers.{i}.{name}"].numpy(),
-                                      np.asarray(stacked)[i])
+                                      want)
+        shared = [n for n in state if n.startswith("shared_attn.")]
+        assert bool(shared) == (cfg.family == "hybrid")
+        for name in shared:
+            leaf = params
+            for key in name.split("."):
+                leaf = leaf[key]
+            assert np.array_equal(state[name].numpy(), np.asarray(leaf))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-2.7b",
-                                  "llama-3.2-vision-11b", "musicgen-medium",
-                                  "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama-3.2-vision-11b",
+                                  "musicgen-medium", "gemma2-9b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         check_supported(get_config(arch))
     with pytest.raises(NotImplementedError):
         build_model(get_config(arch).smoke(), device="cpu")
+
+
+def test_hybrid_unported_combinations_raise():
+    """The port's hybrid runs Mamba2 blocks: zamba2-2.7b builds, a hybrid
+    of Mamba1 blocks raises."""
+    zamba = get_config("zamba2-2.7b")
+    check_supported(zamba)
+    with pytest.raises(NotImplementedError, match="ssm_version=1"):
+        check_supported(dataclasses.replace(zamba, ssm_version=1))
+    with pytest.raises(NotImplementedError, match="ssm_version=1"):
+        build_model(dataclasses.replace(zamba.smoke(), ssm_version=1),
+                    device="cpu")
+
+
+def test_ssm_version_2_matches_reference():
+    """The ssm family at ssm_version=2 (falcon-mamba-7b's smoke config
+    with Mamba2 blocks), which the reference runs through the same
+    mamba_block dispatch: forward logits within 1e-4, and its cache's
+    Mamba2 state (L, B, H, P, N) decodes as the reference's does."""
+    arch = "falcon-mamba-7b"
+    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32",
+                               ssm_version=2)
+    cfg = dataclasses.replace(REGISTRY[arch].smoke(), dtype="float32",
+                              ssm_version=2)
+    rmodel = rbuild(rcfg)
+    params = rmodel.init(jax.random.PRNGKey(2))
+    model = build_model(cfg, device="cpu").load_jax_params(
+        jax.tree_util.tree_map(np.asarray, params))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (B, S))
+    jt = jnp.asarray(toks, jnp.int32)
+    rh, _, _ = rmodel.forward(params, {"tokens": jt})
+    with torch.no_grad():
+        h, _, _ = model.forward({"tokens": toks})
+        np.testing.assert_allclose(
+            _np(model.logits(h)), np.asarray(rmodel.logits(params, rh)),
+            atol=1e-4, rtol=1e-4)
+        rl, rcache = rmodel.prefill(params, {"tokens": jt[:, :P]},
+                                    cache_len=S)
+        tl, cache = model.prefill({"tokens": toks[:, :P]}, cache_len=S)
+        assert cache["ssm"].shape == model.init_cache(B, S)["ssm"].shape == \
+            (cfg.n_layers, B, cfg.n_ssm_heads, cfg.ssm_head_dim,
+             cfg.ssm_state)
+        for t in range(P, P + 4):
+            q_pos = np.full((B,), t, np.int32)
+            rl, rcache = rmodel.decode_step(
+                params, rcache, {"tokens": jt[:, t:t + 1]},
+                jnp.asarray(q_pos))
+            tl, cache = model.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                                          q_pos)
+            np.testing.assert_allclose(_np(tl), np.asarray(rl), atol=1e-3,
+                                       rtol=1e-3, err_msg=f"t={t}")
 
 
 def test_moe_with_unported_attention_raises():

@@ -23,9 +23,10 @@ from repro.configs import get_config as rget_config
 from repro.models import build_model as rbuild
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import merge_cache, serve
-from repro_torch.models.model import load_jax_params
+from repro_torch.models.model import build_model, load_jax_params
 
-ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b"]
+ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+         "zamba2-2.7b"]
 DONE = re.compile(r"\[serve\] rid=(\d+) done: \[([0-9, ]*)\]")
 
 
@@ -85,6 +86,23 @@ def test_serve_with_slots_equal_to_layers(arch):
     assert {rid: toks[:8] for rid, toks in got["tokens"].items()} == want
 
 
+def test_hybrid_merge_cache_uses_batch_axis():
+    """zamba2 with 2 slots: its smoke model groups its 12 Mamba2 blocks in
+    k = 2, so a merge along the reference's group-inner axis (the first
+    of size == slots in its (g, k, B, ...) layout) would corrupt the
+    cache; the port's flat (L, B, ...) and (g, B, ...) leaves merge along
+    axis 1, and every request decodes as it does with 4 slots (whose
+    tokens equal the reference's)."""
+    arch = "zamba2-2.7b"
+    cfg = get_config(arch).smoke()
+    assert cfg.hybrid_period == 2
+    got, four = _port_run(arch, 2), _port_run(arch, 4)
+    assert got["prefill_waves"] == 4 and four["prefill_waves"] == 2
+    assert got["tokens"] == four["tokens"]
+    want = _reference_run(arch, 4)
+    assert {rid: toks[:8] for rid, toks in got["tokens"].items()} == want
+
+
 def test_merge_cache_scatters_along_batch_axis():
     L = B = 2
     live = {"k": torch.zeros((L, B, 3, 1, 2)),
@@ -99,3 +117,23 @@ def test_merge_cache_scatters_along_batch_axis():
         assert torch.equal(live[name][:, 1], wave[name][:, 0])
         assert torch.equal(live[name][:, 0], wave[name][:, 1])
     assert torch.equal(live["pos"], torch.tensor([3., 3.]))
+    # a hybrid's cache: Mamba2 leaves over its 12 blocks, (L, B, K-1, di)
+    # and (L, B, H, P, N), and the shared block's over its 6 groups; a
+    # one-request wave lands in slot 2 of 3 and nowhere else
+    model = build_model(dataclasses.replace(
+        get_config("zamba2-2.7b").smoke(), dtype="float32"), device="cpu")
+    live = model.init_cache(3, 8)
+    assert live["ssm"].ndim == 5 and live["k"].shape[0] == 6
+    with torch.no_grad():
+        _, wave = model.prefill({"tokens": np.array([[5, 6, 7]])},
+                                cache_len=8)
+    assert sorted(wave) == sorted(live)
+    merge_cache(live, wave, [2])
+    for name, new in wave.items():
+        if name == "pos":
+            assert live["pos"].tolist() == [0, 0, 3]
+            continue
+        assert live[name].shape[1] == 3 and new.shape[1] == 1, name
+        assert torch.equal(live[name][:, 2], new[:, 0]), name
+        fresh = model.init_cache(3, 8)[name]
+        assert torch.equal(live[name][:, :2], fresh[:, :2]), name

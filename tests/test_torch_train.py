@@ -2,9 +2,10 @@
 
 The reference's smoke smollm-360m (dense, GQA, attention through K7's
 ``FlashAttention``), qwen3-moe-30b-a3b (moe: attention through K7, the
-MoE FFN with its load-balance and router-z losses in the loss) and
-falcon-mamba-7b (ssm, Mamba1, the scan through K8's ``SelectiveScan``) in
-float32, their parameters carried across with ``load_jax_params``, one
+MoE FFN with its load-balance and router-z losses in the loss),
+falcon-mamba-7b (ssm, Mamba1, the scan through K8's ``SelectiveScan``)
+and zamba2-2.7b (hybrid: Mamba2 blocks in plain torch, the one shared
+attention block through K7 six times, its gradients summed) in float32, their parameters carried across with ``load_jax_params``, one
 batch of numpy-drawn tokens and labels (a few pads, -1):
 
 - the loss equals ``make_loss_fn``'s to 1e-5 relative, and so do the
@@ -58,7 +59,8 @@ from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
                                        make_train_step)
 from repro_torch.sharding import single_device_plan
 
-ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b"]
+ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
+         "zamba2-2.7b"]
 MOE_METRICS = ("ce", "drop_frac", "lb_loss", "z_loss")
 B, S = 2, 48
 LR = 1e-3
@@ -290,7 +292,8 @@ def _attn_case(B, S, H, KV, hd, dtype, opts, seed):
     (2, 40, 4, 4, 16, dict(attn_softcap=5.0)),
     (1, 50, 8, 1, 16, dict(window=17, attn_softcap=20.0)),
     (2, 30, 4, 2, 16, dict(causal=False)),
-    (1, 1, 2, 1, 64, {})])
+    (1, 1, 2, 1, 64, {}),
+    (1, 45, 4, 4, 80, dict(window=20))])          # zamba2's head dim
 def test_attention_backward_matches_autograd_through_ref(B, S, H, KV, hd,
                                                          opts, dtype):
     _attn_case(B, S, H, KV, hd, dtype, opts, seed=S)
