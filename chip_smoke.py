@@ -50,8 +50,11 @@ Phases (any failure exits nonzero; there is no CPU path):
              smollm-360m's heads (H=15, KV=5, hd=64, B=4, S in {16, 100,
              512}, float32 and bfloat16, plus window+softcap and
              non-causal cases; at qwen3-moe-30b-a3b's H=32, KV=4,
-             hd=128, S in {100, 512}; and at zamba2-2.7b's H=32, KV=32,
-             hd=80, S in {100, 512}, plus window+softcap) within 1e-5
+             hd=128, S in {100, 512}; at zamba2-2.7b's H=32, KV=32,
+             hd=80, S in {100, 512}, plus window+softcap; at gemma2-9b's
+             H=16, KV=8, hd=256, S in {100, 512}, plain and with window
+             128 and softcap 50; at mixtral-8x7b's H=32, KV=8, hd=128,
+             bf16, S=512, window 128) within 1e-5
              (float32) / 2e-2
              (bfloat16) of attention_ref; selective_scan at falcon-mamba-7b's width
              (D=8192, B in {1, 4}, S in {1, 16, 31, 32, 33, 100, 512}
@@ -59,26 +62,35 @@ Phases (any failure exits nonzero; there is no CPU path):
              and without h0, float32 and bfloat16) within 1e-4 of
              selective_scan_ref (allclose, atol = rtol);
 7. serve   — launch.serve.serve for smollm-360m, falcon-mamba-7b,
-             qwen3-moe-30b-a3b and zamba2-2.7b at full width and depth,
-             seeded random
+             qwen3-moe-30b-a3b, zamba2-2.7b, mixtral-8x7b (swa) and
+             gemma2-9b (local_global) at full width and depth (mixtral's
+             main path at 24 of its 32 layers), seeded random
              parameters on the card, 8 requests, 4 slots, prompt 256, 32
              new tokens: in float32 through the kernels and with
-             impl="ref" (qwen3 at 8 of its 48 layers; every request's
-             tokens equal, first-wave prefill logits within 1e-3; qwen3's
-             router decisions compared: any that differ must be near-ties,
-             and plain then reruns with the kernels' decisions), then in
-             the configs' own bfloat16 through the kernels (qwen3 with
-             bfloat16 parameters; tok/s, steps, launches; flash_attention
-             must launch on smollm-360m and qwen3, selective_scan on
-             falcon-mamba-7b; on zamba2-2.7b once a group a wave, 18
-             times), and qwen3's and zamba2's prefill wave and decode step
+             impl="ref" (qwen3 at 8 of its 48 layers, mixtral at 4 of 32;
+             every request's
+             tokens equal, first-wave prefill logits within 1e-3; the moe
+             models' router decisions compared: any that differ must be
+             near-ties, and plain then reruns with the kernels'
+             decisions); mixtral (4 layers) and gemma2 (8) also serve 2
+             prompts of 4160 on 2 slots, 16 new, past their window of
+             4096, float32 kernels against plain (tokens equal, logits
+             within 1e-3, each rolling cache exactly 4096 slots holding
+             the last 4096 positions after prefill and after decode);
+             then in the configs' own bfloat16 through the kernels (qwen3
+             and mixtral with bfloat16 parameters; tok/s, steps,
+             launches; selective_scan must launch on falcon-mamba-7b,
+             flash_attention once a layer a wave on the others, on
+             zamba2-2.7b once a group a wave, 18 times), and the prefill
+             wave and decode step of qwen3, zamba2, mixtral and gemma2
              traced by operator;
 13. train  — (runs after 7) smollm-360m at full width and depth, falcon-mamba-7b at
              full width and 8 of its 64 layers, qwen3-moe-30b-a3b at
-             full width and 4 of its 48 and zamba2-2.7b at full width and
-             depth with group-level remat: in float32 (smollm B=2, S=256;
-             falcon B=1, S=128; qwen3 B=2, S=128; zamba2 B=1, S=256, one
-             fixed batch) the model on the
+             full width and 4 of its 48, zamba2-2.7b at full width and
+             depth with group-level remat, mixtral-8x7b at 2 of its 32
+             and gemma2-9b at 8 of its 42: in float32 (smollm B=2, S=256;
+             falcon B=1, S=128; qwen3, mixtral and gemma2 B=2, S=128;
+             zamba2 B=1, S=256, one fixed batch) the model on the
              kernels (K7 / K8 forward, their analytic backwards) against
              impl="ref" (autograd through the plain versions): loss within
              1e-5, every gradient nonzero and within GRAD_TOL (max |diff|
@@ -87,10 +99,11 @@ Phases (any failure exits nonzero; there is no CPU path):
              make_train_step on SyntheticPipeline batches of 8 x 512 (step
              ms, tokens/s, peak memory, the loss falling, launches and
              the kernel's device time on one step; qwen3's aux losses at
-             step 20; qwen3's and zamba2's step traced by operator); then
-             python -m repro_torch.launch.train on one GPU, whole and
-             crashed at step 8 then resumed from step 5, final losses
-             within LAUNCHER_LOSS_TOL;
+             step 20; the step of qwen3, zamba2, mixtral and gemma2 traced
+             by operator); then
+             python -m repro_torch.launch.train on one GPU, whole and,
+             in a second process beside it, crashed at step 8 then
+             resumed from step 5, final losses within LAUNCHER_LOSS_TOL;
 8. times   — flash_attention at B=1, S=4096 and at the serve shape (B=4,
              S=256), smollm's heads, bfloat16, against attention_ref and
              torch's scaled_dot_product_attention (timed here only; the port
@@ -98,9 +111,11 @@ Phases (any failure exits nonzero; there is no CPU path):
              as replays of a CUDA graph (device-bound, no host launch cost);
              the built library's SASS must show HGMMA in the tensor-core
              kernel; the same at zamba2-2.7b's heads (32:32, hd 80, bf16
-             on the CUDA cores) at B=1, S=4096 and B=4, S=256 in 3
-             rounds; selective_scan at B=1, S=4096 and at the serve shape
-             (B=4, S=256), D=8192, N=16, against selective_scan_ref; the
+             on the CUDA cores) and gemma2-9b's (16:8, hd 256, bf16 on the
+             CUDA cores; at S=4096 also with softcap 50, kernel only) at
+             B=1, S=4096 and B=4, S=256 in 3 rounds; selective_scan at
+             B=1, S=4096 and at the serve shape (B=4, S=256), D=8192,
+             N=16, against selective_scan_ref; the
              SASS instruction counts of the scan's per-row body and of
              K8's per-step body (cuobjdump --dump-sass) and, with the SM
              clock read under load (nvidia-smi), an estimate of the share
@@ -153,8 +168,9 @@ over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
 record as path_ms / path_launches (K7 and K8 also train_path_ms /
 train_path_launches over one step of phase 13's timed run; K7 also
 qwen3-moe-30b-a3b's as moe_path_ms and moe_train_path_ms, zamba2-2.7b's
-as hybrid_path_ms and hybrid_train_path_ms, and its times at hd 80 as
-hd80_*), and
+as hybrid_path_ms and hybrid_train_path_ms, mixtral-8x7b's as swa_*,
+gemma2-9b's as local_global_*, and its times at hd 80 and 256 as hd80_*
+and hd256_*), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
@@ -167,7 +183,6 @@ import gc
 import json
 import math
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -209,22 +224,45 @@ LOGIT_TOL = 1e-3               # float32 prefill logits, kernels vs plain
 SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
              device="cuda")
 # phase 7's models: the kernel its main path must launch, the depth of its
-# float32 identity run and its main path's parameter dtype (None: full
-# depth, the config's).  qwen3-moe-30b-a3b's float32 parameters at full
-# depth are 30.5B x 4 B ~ 122 GB, over the card's 80 GB: its identity run
-# takes 8 of 48 layers (~22 GB), and its main path (all 48 layers) holds
-# bfloat16 parameters (~61 GB)
+# float32 identity run, its main path's parameter dtype and its main
+# path's depth (None: full depth, the config's).  qwen3-moe-30b-a3b's
+# float32 parameters at full depth are 30.5B x 4 B ~ 122 GB, over the
+# card's 80 GB: its identity run takes 8 of 48 layers (~22 GB), and its
+# main path (all 48 layers) holds bfloat16 parameters (~61 GB)
 MOE = "qwen3-moe-30b-a3b"
 # zamba2-2.7b (the hybrid family): 54 Mamba2 blocks and one shared
 # attention block after every 6, ~2.45B parameters (~9.8 GB in float32),
 # so its identity run and its main path both run at full depth
 HYBRID = "zamba2-2.7b"
-SERVE_MODELS = {"smollm-360m": ("flash_attention", None, None),
-                "falcon-mamba-7b": ("selective_scan", None, None),
-                MOE: ("flash_attention", 8, "bfloat16"),
-                HYBRID: ("flash_attention", None, None)}
+# mixtral-8x7b (moe, every layer windowed to 4096): ~1.45B parameters a
+# layer (~5.8 GB in float32), 46.7B in all (~93 GB in bfloat16, over the
+# card's 80 GB): its identity run takes 4 of 32 layers, its main path
+# bfloat16 parameters at 24 of 32 (~70 GB)
+SWA = "mixtral-8x7b"
+# gemma2-9b (dense, (local, global) layer pairs, window 4096, hd 256):
+# 9.2B parameters, ~37 GB in float32, so both run at full depth
+LOCAL_GLOBAL = "gemma2-9b"
+SERVE_MODELS = {"smollm-360m": ("flash_attention", None, None, None),
+                "falcon-mamba-7b": ("selective_scan", None, None, None),
+                MOE: ("flash_attention", 8, "bfloat16", None),
+                HYBRID: ("flash_attention", None, None, None),
+                SWA: ("flash_attention", 4, "bfloat16", 24),
+                LOCAL_GLOBAL: ("flash_attention", None, None, None)}
+# the models whose serve and train main paths are traced by operator
+TRACED = (MOE, HYBRID, SWA, LOCAL_GLOBAL)
+# phase 7's window runs: the standard traffic's 256 + 32 positions never
+# reach a window of 4096, so each windowed model also serves prompts 64
+# positions longer than its window (K7's window masks in prefill, the
+# rolling caches keep the prompt's last W positions) and decodes into
+# rolled slots, float32 kernels against plain, at these depths
+WINDOW_SERVE = dict(requests=2, slots=2, prompt_len=4160, max_new=16, seed=0,
+                    device="cuda")
+WINDOW_LAYERS = {SWA: 4, LOCAL_GLOBAL: 8}
 QWEN_HEADS = (32, 4, 128)      # qwen3-moe-30b-a3b: H, KV, hd (group 8)
 ZAMBA_HEADS = (32, 32, 80)     # zamba2-2.7b's shared block: H, KV, hd
+MIXTRAL_HEADS = (32, 8, 128)   # mixtral-8x7b: H, KV, hd (group 4)
+GEMMA_HEADS = (16, 8, 256)     # gemma2-9b: H, KV, hd (group 2)
+GEMMA_SOFTCAP = 50.0           # gemma2-9b's attention softcap
 # a router decision (a token's top-k expert set) that differs between the
 # float32 kernels and plain runs is a near-tie when the kernels run's gap
 # between its k-th and (k+1)-th probability is at most this: K7 and plain
@@ -251,12 +289,19 @@ HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
 # (nothing_saveable): without it the SSD's float32 (B, c, c, H)
 # intermediates keep ~1.7 GB a Mamba2 block at 8 x 512.  Values: (layers,
 # None for all; the kernel; the plan's remat)
+# mixtral-8x7b at 2 of its 32 layers (~1.45B parameters, ~23 GB of
+# masters, grads and moments a layer), gemma2-9b at 8 of its 42 (its
+# embedding alone 0.92B parameters, ~14.7 GB, each layer 0.198B, ~3.2 GB;
+# all 42 would be ~147 GB)
 TRAIN = {"smollm-360m": (None, "flash_attention", "none"),
          "falcon-mamba-7b": (8, "selective_scan", "none"),
          MOE: (4, "flash_attention", "none"),
-         HYBRID: (None, "flash_attention", "nothing_saveable")}
+         HYBRID: (None, "flash_attention", "nothing_saveable"),
+         SWA: (2, "flash_attention", "none"),
+         LOCAL_GLOBAL: (8, "flash_attention", "none")}
 TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128),
-             MOE: (2, 128), HYBRID: (1, 256)}                      # B, S
+             MOE: (2, 128), HYBRID: (1, 256), SWA: (2, 128),
+             LOCAL_GLOBAL: (2, 128)}                                # B, S
 # models whose float32 AdamW steps are each compared from the plain run's
 # state (replayed_steps) instead of along two runs: zamba2-2.7b's float32
 # trajectory at TRAIN_LR is chaotic whatever runs it: plain against plain
@@ -616,6 +661,13 @@ def model_kernel_parity(torch, dev):
               for dt in ("float32", "bfloat16")]
     cases += [(4, 512, *ZAMBA_HEADS, "bfloat16",
                dict(window=128, attn_softcap=30.0))]
+    # gemma2-9b's heads (16:8, hd 256: the CUDA-core kernel in both
+    # dtypes), plain and as its local layers run (window and softcap);
+    # mixtral-8x7b's (32:8, hd 128, bf16 on the tensor cores), windowed
+    cases += [(4, S, *GEMMA_HEADS, dt, o) for S in (100, 512)
+              for dt in ("float32", "bfloat16")
+              for o in ({}, dict(window=128, attn_softcap=GEMMA_SOFTCAP))]
+    cases += [(4, 512, *MIXTRAL_HEADS, "bfloat16", dict(window=128))]
     for B, S, H, KV, hd, dt, opts in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
@@ -835,17 +887,150 @@ def router_diff(a: RouterLog, b: RouterLog):
     return diff, n, min(float(g.min()) for g in a.gaps), flips
 
 
+def _cache_leaves(cache):
+    """{name: (shape, the leaf on the host for slot positions else None)}."""
+    return {n: (tuple(v.shape), v.cpu() if n.startswith("slot_pos")
+                else None) for n, v in cache.items()}
+
+
+class WindowCaches:
+    """Stands in for serve's prefill and decode step makers while a run
+    lasts: keeps every cache leaf's shape and the slot positions of the
+    first prefill wave's cache and of the live cache after the last
+    decode step (``_cache_leaves``)."""
+
+    def __init__(self):
+        import repro_torch.launch.serve as ls
+        self.ls, self.kept = ls, {}
+
+    def __enter__(self):
+        ls, kept = self.ls, self.kept
+        self.saved = make_p, make_d = ls.make_prefill_step, \
+            ls.make_decode_step
+
+        def prefill(model, cache_len=None):
+            step = make_p(model, cache_len)
+
+            def run(batch):
+                logits, cache = step(batch)
+                kept.setdefault("prefill", _cache_leaves(cache))
+                return logits, cache
+            return run
+
+        def decode(model):
+            step = make_d(model)
+
+            def run(cache, inputs, q_pos):
+                logits, cache = step(cache, inputs, q_pos)
+                kept["decode"] = cache
+                return logits, cache
+            return run
+
+        ls.make_prefill_step, ls.make_decode_step = prefill, decode
+        return kept
+
+    def __exit__(self, *exc):
+        self.ls.make_prefill_step, self.ls.make_decode_step = self.saved
+        if "decode" in self.kept:
+            self.kept["decode"] = _cache_leaves(self.kept["decode"])
+
+
+def rolled(first: int, last: int, W: int, torch):
+    """The slot positions of a rolling cache of W slots that has been
+    written positions 0..last and holds first..last (last - first + 1 ==
+    W): slot s holds the one position p in that range with p % W == s."""
+    pos = torch.arange(first, last + 1)
+    out = torch.empty(W, dtype=torch.int64)
+    out[pos % W] = pos
+    return out
+
+
+def window_serve(torch, cfg):
+    """Phase 7's window run of a windowed model (swa, local_global) at
+    WINDOW_LAYERS' depth: WINDOW_SERVE's prompts, longer than the window
+    W, float32 through the kernels and plain; tokens equal, first-wave
+    logits within LOGIT_TOL, and each run's caches as the schedule
+    builds them: every local layer's rolling cache exactly W slots, after
+    prefill holding the prompt's last W positions and after the last
+    decode step the last W written (slot = position % W); local_global's
+    global layers hold every position written."""
+    from repro_torch.launch.serve import serve
+    run = WINDOW_SERVE
+    W, P, n, slots = cfg.window, run["prompt_len"], run["max_new"], \
+        run["slots"]
+    f32 = dataclasses.replace(cfg, dtype="float32",
+                              n_layers=WINDOW_LAYERS[cfg.name])
+    check(W < P < 2 * W and P + n < 2 * W, f"{cfg.name}: the window run's "
+          f"positions 0..{P + n} must pass one window of {W} and not two")
+    t = time.perf_counter()
+    local = "_local" if cfg.attention == "local_global" else ""
+    n_local = f32.n_layers // 2 if local else f32.n_layers
+    out = {}
+    for impl in ("cuda", "ref"):
+        with WindowCaches() as kept:
+            res = serve(f32, impl=impl, **run)
+        last = P + n - 2                       # the last decode step's
+        for when, hi in (("prefill", P - 1), ("decode", last)):
+            shape, sp = kept[when]["slot_pos" + local]
+            check(shape == (n_local, slots, W) and
+                  kept[when]["k" + local][0][:3] == (n_local, slots, W),
+                  f"{cfg.name} {impl}: the rolling cache after {when} is "
+                  f"{shape}, not {(n_local, slots, W)}")
+            want = rolled(hi + 1 - W, hi, W, torch)
+            check(bool((sp == want).all()), f"{cfg.name} {impl}: the "
+                  f"rolling cache after {when} does not hold positions "
+                  f"{hi + 1 - W}..{hi} at position % {W}")
+            if local:
+                shape, sp = kept[when]["slot_pos"]
+                full = torch.full((P + n,), -1, dtype=torch.int64)
+                full[:hi + 1] = torch.arange(hi + 1)
+                check(shape == (n_local, slots, P + n) and
+                      bool((sp == full).all()),
+                      f"{cfg.name} {impl}: the global cache after {when} "
+                      f"is {shape} or misses positions")
+        out[impl] = res
+    got, plain = out["cuda"], out["ref"]
+    logits = got["first_logits"]
+    check(logits.shape == (slots, cfg.vocab_size) and
+          bool(logits.isfinite().all()),
+          f"{cfg.name} window run: first-wave logits "
+          f"{tuple(logits.shape)} not finite or misshapen")
+    e = float((logits - plain["first_logits"]).abs().max())
+    check(e <= LOGIT_TOL, f"{cfg.name} window run: float32 prefill logits "
+          f"differ from the plain version's by {e} > {LOGIT_TOL}")
+    check(got["tokens"] == plain["tokens"] and
+          len(got["tokens"]) == run["requests"] and
+          all(len(v) == n for v in got["tokens"].values()),
+          f"{cfg.name} window run: float32 tokens differ from plain's")
+    print(f"serve {cfg.name} float32 window run ({f32.n_layers} layers, "
+          f"window {W}, {run['requests']} prompts of {P} on {slots} slots, "
+          f"{n} new): tokens equal to plain; first-wave logits max_abs_err "
+          f"{e}; rolling caches {n_local} x {W} slots holding positions "
+          f"{P - W}..{P - 1} after prefill and {P + n - 1 - W}..{P + n - 2} "
+          f"after decode in slot position % {W}"
+          + (", global caches every position" if local else "") +
+          f"; kernels {got['tok_s']:.2f} tok/s, plain "
+          f"{plain['tok_s']:.2f} tok/s ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+    del out, got, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_phase(torch):
     """Phase 7: each model of SERVE_MODELS, float32 kernels against
     float32 plain (qwen3-moe-30b-a3b at 8 of its 48 layers, with its
-    router decisions compared), then the config's own bfloat16 through
-    the kernels at full depth (the main path); returns {arch: (result,
-    launches, device ms of its kernel on the path, how it was read)}."""
+    router decisions compared, mixtral-8x7b at 4 of its 32), the windowed
+    models' window runs (``window_serve``), then the config's own
+    bfloat16 through the kernels (the main path: full depth but for
+    mixtral's 24 of 32 layers); returns {arch: (result, launches, device
+    ms of its kernel on the path, how it was read)}."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     out = {}
-    for arch, (kernel, f32_layers, param_dtype) in SERVE_MODELS.items():
+    for arch, (kernel, f32_layers, param_dtype, main_layers) in \
+            SERVE_MODELS.items():
         cfg = get_config(arch)
         f32 = dataclasses.replace(cfg, dtype="float32",
                                   n_layers=f32_layers or cfg.n_layers)
@@ -892,8 +1077,11 @@ def serve_phase(torch):
         del got, plain, routed, routed_plain
         gc.collect()
         torch.cuda.empty_cache()
+        if cfg.attention != "full":
+            window_serve(torch, cfg)
         main = dataclasses.replace(cfg,
-                                   param_dtype=param_dtype or cfg.param_dtype)
+                                   param_dtype=param_dtype or cfg.param_dtype,
+                                   n_layers=main_layers or cfg.n_layers)
         t = time.perf_counter()
         ops.reset_launch_counts()
         run = serve(main, **SERVE)
@@ -901,13 +1089,16 @@ def serve_phase(torch):
         check(run["served"] == SERVE["requests"] and
               bool(run["first_logits"].isfinite().all()),
               f"{arch}: {cfg.dtype} serve did not finish all requests")
-        if cfg.family == "hybrid":
-            # the shared block's prefill attention: once a group a wave
-            want = cfg.n_layers // cfg.hybrid_period * run["prefill_waves"]
+        if kernel == "flash_attention":
+            # prefill attention once a layer a wave (the hybrid's shared
+            # block once a group a wave); decode attention is plain torch
+            want = main.n_layers * run["prefill_waves"]
+            if cfg.family == "hybrid":
+                want //= cfg.hybrid_period
             check(launches[kernel] == want, f"{arch}: {kernel} launched "
                   f"{launches[kernel]} times on the main path, not {want}")
         print(f"serve {arch} {cfg.dtype}, {main.param_dtype} parameters, "
-              f"{cfg.n_layers} layers (main path): {run['served']} "
+              f"{main.n_layers} layers (main path): {run['served']} "
               f"requests, {run['steps']} decode steps, {run['tok_s']:.2f} "
               f"tok/s, {run['seconds']:.3f} s; prefill {run['prefill_waves']}"
               f" waves {run['prefill_s']:.3f} s; decode "
@@ -924,7 +1115,7 @@ def serve_phase(torch):
         out[arch] = (run, launches, dev_ms, how)
         gc.collect()
         torch.cuda.empty_cache()
-        if cfg.is_moe or cfg.family == "hybrid":
+        if arch in TRACED:
             serve_ops(torch, main)
     check(all(v[1][SERVE_MODELS[a][0]] > 0 for a, v in out.items()),
           f"a model kernel never launched on its main path: "
@@ -1145,7 +1336,7 @@ def train_timed(torch, cfg):
     if cfg.is_moe:
         print(f"train {cfg.name} {cfg.dtype}: step {n} " + ", ".join(
             f"{k} {float(m[k]):.6g}" for k in MOE_METRICS), flush=True)
-    if cfg.is_moe or cfg.family == "hybrid":
+    if cfg.name in TRACED:
         print_op_table(torch, f"train {cfg.name} {cfg.dtype}, one step",
                        lambda: step(state, batches[0]))
     del model, state, step, opt
@@ -1156,10 +1347,13 @@ def train_timed(torch, cfg):
 
 def launcher_check():
     """Phase 13's launcher: ``python -m repro_torch.launch.train`` on one
-    GPU, whole, then crashed at LAUNCHER_FAIL_AT (exit 1) and resumed from
-    the checkpoint before it (exit 0); the two final losses agree."""
+    GPU, whole, and beside it (two processes on the card at once, each
+    into its own checkpoint directory) crashed at LAUNCHER_FAIL_AT (exit
+    1) and resumed from the checkpoint before it (exit 0); the two final
+    losses agree."""
     import os
     import tempfile
+    import threading
     root = Path(__file__).resolve().parent
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     env = dict(os.environ, PYTHONPATH=str(root / "src"),
@@ -1178,16 +1372,23 @@ def launcher_check():
         return float(lines[-1].split("final loss")[-1])
 
     with tempfile.TemporaryDirectory() as tmp:
-        whole, s1 = run("--ckpt-dir", f"{tmp}/whole")
-        check(whole.returncode == 0, f"trainer exit {whole.returncode}:\n"
-              f"{whole.stdout[-2000:]}{whole.stderr[-3000:]}")
-        shutil.rmtree(f"{tmp}/whole")
-        crash, s2 = run("--ckpt-dir", f"{tmp}/crash", "--fail-at",
-                        str(LAUNCHER_FAIL_AT))
-        check(crash.returncode == 1 and "SIMULATED FAILURE" in crash.stdout,
-              f"--fail-at: exit {crash.returncode}:\n{crash.stdout[-2000:]}"
-              f"{crash.stderr[-3000:]}")
-        resumed, s3 = run("--ckpt-dir", f"{tmp}/crash")
+        got = {}
+        beside = threading.Thread(target=lambda: got.update(whole=run(
+            "--ckpt-dir", f"{tmp}/whole")))
+        beside.start()
+        try:
+            crash, s2 = run("--ckpt-dir", f"{tmp}/crash", "--fail-at",
+                            str(LAUNCHER_FAIL_AT))
+            resumed, s3 = run("--ckpt-dir", f"{tmp}/crash") \
+                if crash.returncode == 1 else (None, 0.0)
+        finally:
+            beside.join()
+        whole, s1 = got["whole"]
+    check(whole.returncode == 0, f"trainer exit {whole.returncode}:\n"
+          f"{whole.stdout[-2000:]}{whole.stderr[-3000:]}")
+    check(crash.returncode == 1 and "SIMULATED FAILURE" in crash.stdout,
+          f"--fail-at: exit {crash.returncode}:\n{crash.stdout[-2000:]}"
+          f"{crash.stderr[-3000:]}")
     every = int(LAUNCHER[LAUNCHER.index("--ckpt-every") + 1])
     start = LAUNCHER_FAIL_AT // every * every
     check(resumed.returncode == 0 and
@@ -1198,8 +1399,9 @@ def launcher_check():
     rel = abs(a / b - 1)
     check(rel <= LAUNCHER_LOSS_TOL, f"final loss whole {a} vs resumed {b}")
     print(f"train launcher ({' '.join(LAUNCHER)}, one GPU): whole run "
-          f"{s1:.1f} s final loss {a}; --fail-at {LAUNCHER_FAIL_AT} exit 1 "
-          f"({s2:.1f} s); resumed from step {start} ({s3:.1f} s) final loss "
+          f"{s1:.1f} s final loss {a}; beside it --fail-at "
+          f"{LAUNCHER_FAIL_AT} exit 1 ({s2:.1f} s); resumed from step "
+          f"{start} ({s3:.1f} s) final loss "
           f"{b} (rel diff {rel:.3g}, limit {LAUNCHER_LOSS_TOL})", flush=True)
 
 
@@ -1275,14 +1477,21 @@ def attn_vs_sdpa(torch, q, k, v, rounds: int = ATTN_ROUNDS):
     return statistics.median(a), statistics.median(b)
 
 
-def hd80_times(torch, dev, g, err) -> dict:
-    """Phase 8's K7 at zamba2-2.7b's heads (32:32, hd 80, bf16 on the CUDA
-    cores): at B=1, S=4096 and at the serve shape (B=4, S=256), each held
-    against attention_ref, timed against SDPA (3 rounds: the kernel takes
-    milliseconds at S=4096) beside its bound; plain timed at S=4096."""
+def head_dim_times(torch, dev, g, err, heads, key: str,
+                   softcap: Optional[float] = None) -> dict:
+    """Phase 8's K7 at a model's heads (bf16 on the CUDA cores: zamba2-2.7b's
+    32:32 at hd 80, gemma2-9b's 16:8 at hd 256), causal: at B=1, S=4096 and
+    at the serve shape (B=4, S=256), each held against attention_ref, timed
+    against SDPA (3 rounds: the kernel takes milliseconds at S=4096) beside
+    its bound; plain timed at S=4096; with ``softcap``, the kernel at
+    S=4096 with that softcap too (held against attention_ref, timed as
+    CUDA-graph replays; SDPA has no softcap, so no library time).  Keys
+    ``{key}_ms``, ``{key}_serve_ms`` and their ``_library_ms``,
+    ``_bound_ms``, ``_bound_by``; ``{key}_plain_ms``;
+    ``{key}_softcap_ms``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    H, KV, hd = ZAMBA_HEADS
+    H, KV, hd = heads
     out = {}
     for B, S in ((1, 4096), SERVE_ATTN):
         q, k, v = (torch.randn((B, S, n, hd), generator=g,
@@ -1296,17 +1505,37 @@ def hd80_times(torch, dev, g, err) -> dict:
             err["flash_attention"]["bfloat16"], e)
         ms, lib = attn_vs_sdpa(torch, q, k, v, rounds=3)
         bnd, by = attn_bound(B, S, H, KV, hd)
-        key = "hd80" if B == 1 else "hd80_serve"
-        out.update({f"{key}_ms": ms, f"{key}_library_ms": lib,
-                    f"{key}_bound_ms": bnd, f"{key}_bound_by": by})
+        name = key if B == 1 else f"{key}_serve"
+        out.update({f"{name}_ms": ms, f"{name}_library_ms": lib,
+                    f"{name}_bound_ms": bnd, f"{name}_bound_by": by})
+        note = ""
         if B == 1:
-            out["hd80_plain_ms"] = time_ms(
+            out[f"{key}_plain_ms"] = time_ms(
                 lambda: ref.attention_ref(q, k, v), 3, torch)
+            note = f"; plain {out[f'{key}_plain_ms']:.3f} ms"
+        if B == 1 and softcap is not None:
+            e, ok = allclose_err(
+                fa.flash_attention(q, k, v, attn_softcap=softcap),
+                ref.attention_ref(q, k, v, attn_softcap=softcap),
+                ATTN_TOL["bfloat16"])
+            check(ok, f"flash_attention hd={hd} B={B} S={S} softcap "
+                  f"{softcap}: max_abs_err {e}")
+            err["flash_attention"]["bfloat16"] = max(
+                err["flash_attention"]["bfloat16"], e)
+            graph = cuda_graph(torch, lambda: fa.flash_attention(
+                q, k, v, attn_softcap=softcap), 10)
+            capped = [time_ms(graph.replay, 3, torch) / 10
+                      for _ in range(3)]
+            del graph
+            out[f"{key}_softcap_ms"] = statistics.median(capped)
+            note += (f"; with attn_softcap={softcap}: median "
+                     f"{out[f'{key}_softcap_ms']:.4f} ms of 3 rounds "
+                     f"{[round(t, 4) for t in capped]} (CUDA graph; no "
+                     f"library time: SDPA has no softcap)")
         print(f"time flash_attention hd={hd} B={B} S={S} H={H} KV={KV} "
               f"bf16 (CUDA cores): {ms:.4f} ms; scaled_dot_product_"
               f"attention {lib:.4f} ms ({ms / lib:.2f}x); bound {bnd:.4f} "
-              f"ms ({by})" + (f"; plain {out['hd80_plain_ms']:.3f} ms"
-                              if B == 1 else ""), flush=True)
+              f"ms ({by})" + note, flush=True)
         del q, k, v
     return out
 
@@ -1416,7 +1645,9 @@ def model_times(torch, dev, err, served, trained):
                   f"at an SM clock of {mhz} MHz read under this load: "
                   f"{share} of the card's issue rate (an estimate)",
                   flush=True)
-    hd80 = hd80_times(torch, dev, g, err)
+    hd80 = head_dim_times(torch, dev, g, err, ZAMBA_HEADS, "hd80")
+    hd256 = head_dim_times(torch, dev, g, err, GEMMA_HEADS, "hd256",
+                           softcap=GEMMA_SOFTCAP)
     csrc = "src/repro_torch/kernels/csrc/"
     return [
         {"name": "flash_attention", "route": "cuda",
@@ -1447,9 +1678,27 @@ def model_times(torch, dev, err, served, trained):
          "hybrid_train_path_ms": trained[HYBRID][0],
          "hybrid_train_path_launches": trained[HYBRID][2],
          "hybrid_train_path_source": trained[HYBRID][1],
-         # K7 at zamba2's heads (hd 80, bf16 on the CUDA cores), B=1,
-         # S=4096 and the serve shape
-         **hd80},
+         # mixtral-8x7b's own paths (its serve main path at 24 layers,
+         # every one windowed; one step of its 2-layer training run)
+         "swa_path_ms": served[SWA][2],
+         "swa_path_launches": served[SWA][1]["flash_attention"],
+         "swa_path_source": served[SWA][3],
+         "swa_train_path_ms": trained[SWA][0],
+         "swa_train_path_launches": trained[SWA][2],
+         "swa_train_path_source": trained[SWA][1],
+         # gemma2-9b's (hd 256 on the CUDA cores, softcap 50, its local
+         # layers windowed: its serve main path at 42 layers, one step of
+         # its 8-layer training run)
+         "local_global_path_ms": served[LOCAL_GLOBAL][2],
+         "local_global_path_launches":
+             served[LOCAL_GLOBAL][1]["flash_attention"],
+         "local_global_path_source": served[LOCAL_GLOBAL][3],
+         "local_global_train_path_ms": trained[LOCAL_GLOBAL][0],
+         "local_global_train_path_launches": trained[LOCAL_GLOBAL][2],
+         "local_global_train_path_source": trained[LOCAL_GLOBAL][1],
+         # K7 at zamba2's heads (hd 80) and gemma2's (hd 256), bf16 on the
+         # CUDA cores, B=1, S=4096 and the serve shape
+         **hd80, **hd256},
         {"name": "selective_scan", "route": "cuda",
          "source": csrc + "mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:27",

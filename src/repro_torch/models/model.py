@@ -1,5 +1,6 @@
 """The Model API of the dense, moe, ssm and hybrid families (the port of
-``repro.models.model``).
+``repro.models.model``), with the full, swa and local_global attention
+schedules of the dense and moe families.
 
     model = build_model(cfg, plan, device="cuda", seed=0)
     hidden, aux, cache = model.forward(batch)              # full sequence
@@ -15,9 +16,17 @@ reference's ``(in, out)`` layout; a Python loop over ``layers`` (an
 carries the reference's parameter tree across.  Parameters are
 trainable; serving runs under ``torch.no_grad`` (``runtime.steps``).
 With gradients enabled, the plan's ``remat`` wraps each layer (a
-hybrid's each group) as the reference's ``_remat`` wraps its scan body:
-``nothing_saveable`` in ``torch.utils.checkpoint``, ``dots_saveable`` in
-a selective checkpoint that keeps matmul outputs.
+hybrid's each group, local_global's each pair) as the reference's
+``_remat`` wraps its scan body: ``nothing_saveable`` in
+``torch.utils.checkpoint``, ``dots_saveable`` in a selective checkpoint
+that keeps matmul outputs.
+
+Attention schedules of the dense and moe families: ``full``; ``swa``,
+every layer windowed to ``cfg.window`` with a rolling cache of
+``min(cache_len, window)`` slots; ``local_global``, layers in (local,
+global) pairs, layer 2g windowed with a rolling cache, layer 2g + 1 full
+with a cache of ``cache_len`` slots.  Prefill attention (K7) takes the
+window, decode attention masks by it.
 
 A hybrid model (zamba2) runs its L Mamba2 blocks in groups of ``k =
 hybrid_period``, each group followed by the one ``shared_attn`` block
@@ -31,20 +40,23 @@ axis and the batch axis second (``CACHE_BATCH_AXIS``): dense ``k``,
 K-1, d_inner) and ``ssm`` (L, B, d_inner, N), Mamba2's (L, B, H, P, N),
 float32; hybrid ``conv`` and ``ssm`` over its L Mamba2 blocks as in the
 ssm family, and the shared block's ``k``, ``v``, ``slot_pos`` over its
-L / k groups, (L / k, B, ...); ``pos`` (B,).  The hybrid's layout is not
-the reference's ((L / k, k, B, ...) Mamba leaves, a nested ``attn``
-dict): flat names of one batch axis each are what ``serve.merge_cache``
-scatters along.  ``decode_step`` writes the new token's state into the
-cache tensors in place and returns the same dict.
+L / k groups, (L / k, B, ...); local_global ``k_local``, ``v_local``,
+``slot_pos_local`` (L / 2, B, min(S, W), ...) for the local layers and
+``k``, ``v``, ``slot_pos`` (L / 2, B, S, ...) for the global ones; ``pos``
+(B,).  The hybrid's and local_global's layouts are not the reference's
+((L / k, k, B, ...) Mamba leaves and nested ``attn``, ``local`` and
+``global`` dicts): flat names of one batch axis each are what
+``serve.merge_cache`` scatters along.  ``decode_step`` writes the new
+token's state into the cache tensors in place and returns the same dict.
 
 Prefill attention masks by index (the flash-attention kernel's
 semantics), which equals the reference's position mask for the
 ``arange(S)`` positions it builds itself; a batch that carries its own
 ``"positions"`` raises.  ``forward``'s aux holds a moe model's
 ``lb_loss``, ``z_loss`` and ``drop_frac``, each the mean over the layers
-(empty for the other families).  The vlm and audio families, the swa /
-local_global attention schedules and a hybrid of Mamba1 blocks raise
-``NotImplementedError``.
+(empty for the other families, and for local_global, whose pairs the
+reference runs without collecting them).  The vlm and audio families and
+a hybrid of Mamba1 blocks raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,8 +82,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # the batch axis of every cache leaf of every family (merging a prefill
 # wave into the live cache scatters along it)
-CACHE_BATCH_AXIS = {"k": 1, "v": 1, "slot_pos": 1, "conv": 1, "ssm": 1,
+CACHE_BATCH_AXIS = {"k": 1, "v": 1, "slot_pos": 1, "k_local": 1,
+                    "v_local": 1, "slot_pos_local": 1, "conv": 1, "ssm": 1,
                     "pos": 0}
+KV_NAMES = ("k", "v", "slot_pos")
 
 
 def resolve_device(device) -> torch.device:
@@ -90,10 +104,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet (the "
             f"port runs the dense, moe, ssm and hybrid families)")
-    if cfg.family in ("dense", "moe") and cfg.attention != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: attention={cfg.attention!r} is not ported yet "
-            f"(the port runs full attention)")
     if cfg.family == "hybrid" and cfg.ssm_version != 2:
         raise NotImplementedError(
             f"{cfg.name}: a hybrid of ssm_version={cfg.ssm_version} blocks "
@@ -159,13 +169,15 @@ def _flatten(tree, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
-def load_jax_params(tree) -> Dict[str, torch.Tensor]:
-    """The reference's parameter tree (array leaves, layer leaves stacked
-    ``(L, ...)`` under ``"layers"``, or ``(L / k, k, ...)`` beside a
-    hybrid's ``"shared_attn"``) as a state dict of ``Model``, with the
-    layers unstacked into ``layers.<i>.<path>`` (group g's j-th block is
-    layer ``g * k + j``) and ``shared_attn.*`` as it is; CPU tensors."""
-    stacked = 2 if "shared_attn" in tree else 1
+def load_jax_params(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree of ``cfg`` (array leaves, layer
+    leaves stacked ``(L, ...)`` under ``"layers"``, or ``(L / k, k, ...)``
+    with ``k = transformer.layer_groups(cfg)``: a hybrid's groups beside its
+    ``"shared_attn"``, local_global's (local, global) pairs) as a state
+    dict of ``Model``, with the layers unstacked into ``layers.<i>.<path>``
+    (group g's j-th block is layer ``g * k + j``) and the rest as it is;
+    CPU tensors."""
+    stacked = 1 if tf.layer_groups(cfg) == 1 else 2
     out: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(tree):
         arr = np.asarray(leaf)
@@ -217,8 +229,20 @@ class Model(nn.Module):
 
     def load_jax_params(self, tree) -> "Model":
         """Copy the reference's parameter tree into this model."""
-        self.load_state_dict(load_jax_params(tree))
+        self.load_state_dict(load_jax_params(tree, self.cfg))
         return self
+
+    def _attn_layout(self, i: int):
+        """Layer ``i``'s attention in a dense or moe model: (the suffix of
+        its cache leaves' names, its index along their layer axis, its
+        window or None)."""
+        cfg = self.cfg
+        if cfg.attention == "swa":
+            return "", i, cfg.window
+        if cfg.attention == "local_global":
+            return ("_local", i // 2, cfg.window) if i % 2 == 0 else \
+                ("", i // 2, None)
+        return "", i, None
 
     # ------------------------------------------------------------------ #
     def _index(self, x) -> torch.Tensor:
@@ -280,26 +304,47 @@ class Model(nn.Module):
                     cache.update(k=torch.stack(ck), v=torch.stack(cv),
                                  slot_pos=torch.stack(sp))
         else:
-            layer_caches, layer_aux = [], []
-            for p in self.layers:
-                x, kv, aux_l = remat(functools.partial(
-                    tf.dense_block, p, cfg=cfg, plan=self.plan,
-                    positions=positions, impl=self.impl), self.plan)(x)
+            # one layer a group; local_global's (local, global) pairs
+            k = tf.layer_groups(cfg)
+            layer_caches: Dict[str, list] = {}
+            layer_aux = []
+            for g in range(cfg.n_layers // k):
+                x, kvs, auxs = remat(functools.partial(
+                    self._dense_group, g=g, k=k, positions=positions),
+                    self.plan)(x)
                 if build_cache:
-                    layer_caches.append(_build_layer_cache(
-                        kv[0], kv[1], positions, cache_len, None, self.dtype))
-                if aux_l is not None:
-                    layer_aux.append(aux_l)
+                    for i, kv in enumerate(kvs, g * k):
+                        sfx, _, window = self._attn_layout(i)
+                        size = min(cache_len, window) if window else \
+                            cache_len
+                        layer_caches.setdefault(sfx, []).append(
+                            _build_layer_cache(kv[0], kv[1], positions,
+                                               size, window, self.dtype))
+                layer_aux += [a for a in auxs if a is not None]
             if build_cache:
-                ck, cv, sp = zip(*layer_caches)
-                cache = {"k": torch.stack(ck), "v": torch.stack(cv),
-                         "slot_pos": torch.stack(sp)}
-            if layer_aux:
+                cache = {}
+                for sfx, caches in layer_caches.items():
+                    for name, leaves in zip(KV_NAMES, zip(*caches)):
+                        cache[name + sfx] = torch.stack(leaves)
+            # the reference's local_global branch collects no aux
+            if layer_aux and cfg.attention != "local_global":
                 aux = {k: torch.stack([a[k] for a in layer_aux]).mean()
                        for k in layer_aux[0]}
         if build_cache:
             cache["pos"] = positions[:, -1] + 1
         return x, aux, cache
+
+    def _dense_group(self, x, *, g: int, k: int, positions):
+        """Group ``g``: blocks ``g*k .. g*k+k-1``, each with its window.
+        Returns (x, [(k, v) per block], [aux or None per block])."""
+        kvs, auxs = [], []
+        for i in range(g * k, (g + 1) * k):
+            x, kv, aux_l = tf.dense_block(
+                self.layers[i], x, self.cfg, self.plan, positions,
+                window=self._attn_layout(i)[2], impl=self.impl)
+            kvs.append(kv)
+            auxs.append(aux_l)
+        return x, kvs, auxs
 
     def _mamba_group(self, x, *, g: int, k: int, positions):
         """Group ``g``: Mamba blocks ``g*k .. g*k+k-1``, then a hybrid's
@@ -341,35 +386,38 @@ class Model(nn.Module):
                 cache["ssm"][i] = ssm_st
                 if cfg.family == "hybrid" and (i + 1) % k == 0:
                     g = i // k
-                    layer_cache = {n: cache[n][g]
-                                   for n in ("k", "v", "slot_pos")}
+                    layer_cache = {n: cache[n][g] for n in KV_NAMES}
                     x, _ = tf.dense_block_decode(self.shared_attn, x, cfg,
                                                  self.plan, layer_cache,
                                                  q_pos)
         else:
             for i, p in enumerate(self.layers):
-                layer_cache = {k: cache[k][i] for k in ("k", "v", "slot_pos")}
+                sfx, j, window = self._attn_layout(i)
+                layer_cache = {n: cache[n + sfx][j] for n in KV_NAMES}
                 x, _ = tf.dense_block_decode(p, x, cfg, self.plan,
-                                             layer_cache, q_pos)
+                                             layer_cache, q_pos,
+                                             window=window)
         cache["pos"] = q_pos + 1
         logits = self.logits(x)[:, 0]
         return logits, cache
 
     # ========================= cache allocation ======================== #
     def init_cache(self, B: int, cache_len: int):
-        """Zero-initialised cache."""
+        """Zero-initialised cache (a windowed layer's of ``min(cache_len,
+        window)`` slots, as the reference's)."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
         L = cfg.n_layers
         pos = torch.zeros((B,), dtype=torch.int64, device=dev)
         KV, hd = cfg.n_kv_heads, cfg.head_dim
 
-        def kv_cache(n):
-            return {"k": torch.zeros((n, B, cache_len, KV, hd), dtype=dt,
-                                     device=dev),
-                    "v": torch.zeros((n, B, cache_len, KV, hd), dtype=dt,
-                                     device=dev),
-                    "slot_pos": torch.full((n, B, cache_len), -1,
-                                           dtype=torch.int64, device=dev)}
+        def kv_cache(n, size=cache_len, sfx=""):
+            return {"k" + sfx: torch.zeros((n, B, size, KV, hd), dtype=dt,
+                                           device=dev),
+                    "v" + sfx: torch.zeros((n, B, size, KV, hd), dtype=dt,
+                                           device=dev),
+                    "slot_pos" + sfx: torch.full((n, B, size), -1,
+                                                 dtype=torch.int64,
+                                                 device=dev)}
 
         if cfg.family in ("ssm", "hybrid"):
             di, N, Kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv - 1
@@ -382,6 +430,12 @@ class Model(nn.Module):
             if cfg.family == "hybrid":
                 out.update(kv_cache(L // cfg.hybrid_period))
             return out
+        window = min(cache_len, cfg.window or cache_len)
+        if cfg.attention == "local_global":
+            return {**kv_cache(L // 2, window, "_local"), **kv_cache(L // 2),
+                    "pos": pos}
+        if cfg.attention == "swa":
+            return {**kv_cache(L, window), "pos": pos}
         return {**kv_cache(L), "pos": pos}
 
 

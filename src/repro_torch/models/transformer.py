@@ -4,8 +4,9 @@ parameter definitions (the port of ``repro.models.transformer``).
 ``model_defs`` gives the reference's parameter tree with its stacked
 layer leaves (``(L, ...)``; the hybrid's ``(L / k, k, ...)`` groups of
 ``k = hybrid_period`` Mamba2 blocks beside one unstacked ``shared_attn``
-block); the port's ``Model`` holds one module per layer and loops over
-them in Python where the reference runs ``lax.scan``.  Block functions
+block; local_global's ``(L / 2, 2, ...)`` (local, global) pairs); the
+port's ``Model`` holds one module per layer and loops over them in Python
+where the reference runs ``lax.scan``.  Block functions
 take ``p`` as anything indexable by the reference's keys (a ``ParamTree``
 module or a nested dict).  On one device the reference's
 ``plan.constrain`` is the identity and its column/row-parallel
@@ -136,17 +137,27 @@ def top_defs(cfg) -> Dict[str, Any]:
     return out
 
 
+def layer_groups(cfg) -> int:
+    """k of the reference's ``(L / k, k, ...)`` layer stacking: a hybrid's
+    ``hybrid_period``, 2 for ``local_global``'s (local, global) pairs, 1
+    for a plain ``(L, ...)`` stack."""
+    if cfg.family == "hybrid":
+        return cfg.hybrid_period
+    if cfg.family in ("dense", "moe") and cfg.attention == "local_global":
+        return 2
+    return 1
+
+
 def model_defs(cfg) -> Dict[str, Any]:
     """Full parameter-definition tree, in the reference's layout (stacked
-    ``(L, ...)`` layer leaves under ``"layers"``, a hybrid's ``(L / k, k,
-    ...)``)."""
+    ``(L, ...)`` layer leaves under ``"layers"``; ``(L / k, k, ...)`` with
+    ``k = layer_groups(cfg)``: a hybrid's groups, local_global's pairs)."""
     out = top_defs(cfg)
-    if cfg.family == "hybrid":
-        k = cfg.hybrid_period
-        out["layers"] = stack_defs(stack_defs(layer_defs(cfg), k),
-                                   cfg.n_layers // k)
-    else:
-        out["layers"] = stack_defs(layer_defs(cfg), cfg.n_layers)
+    k = layer_groups(cfg)
+    defs = layer_defs(cfg)
+    if k > 1:
+        defs = stack_defs(defs, k)
+    out["layers"] = stack_defs(defs, cfg.n_layers // k)
     return out
 
 

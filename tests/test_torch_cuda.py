@@ -414,6 +414,89 @@ def test_hybrid_smoke_train_and_serve_through_kernels(dev):
     assert fa.flash_attention.launches > before
 
 
+# gemma2-9b's heads (16:8, hd 256: the CUDA-core kernel in both dtypes,
+# one 213,760-byte block an SM) with its softcap, windowed as its local
+# layers are; mixtral-8x7b's (32:8, hd 128, bf16 on the tensor cores),
+# windowed
+SWA_LOCAL_GLOBAL_ATTN = [
+    (1, 100, 16, 8, 256, {}), (2, 300, 16, 8, 256, dict(attn_softcap=50.0)),
+    (1, 200, 16, 8, 256, dict(window=64, attn_softcap=50.0)),
+    (1, 300, 32, 8, 128, dict(window=128))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,KV,hd,opts", SWA_LOCAL_GLOBAL_ATTN)
+def test_swa_local_global_attention_matches_plain(dev, dtype, tol, B, S, H,
+                                                  KV, hd, opts):
+    """K7 at gemma2's and mixtral's heads, forward (one launch), and under
+    autograd: the analytic backward with the window and the softcap
+    against autograd through attention_ref."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=g,
+                               device=dev).to(dtype) for n in (H, KV, KV, H))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **opts)
+    want = ref.attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    out = {}
+    for name, fn in (("kernel", lambda *a: fa.FlashAttention.apply(
+            *a, True, opts.get("window"), opts.get("attn_softcap"))),
+            ("plain", lambda *a: ref.attention_ref(*a, **opts))):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*xs)
+        out[name] = (o,) + torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma2-9b"])
+def test_swa_local_global_smoke_train_and_serve_on_card(dev, arch):
+    """mixtral's (swa) and gemma2's (local_global, at 4 layers: two
+    pairs) smoke models in float32 on the card against the same models
+    (the parameters drawn on the CPU) on the CPU: one train step at S = 40
+    over a window of 16 (loss, gradient norm; K7 launched once a layer),
+    and serve's tokens with 2 and 4 slots, prompt 16 and 10 new tokens, so
+    decode rolls the local caches."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    if cfg.attention == "local_global":
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    batch = {"tokens": np.arange(80).reshape(2, 40) % cfg.vocab_size,
+             "labels": np.arange(1, 81).reshape(2, 40) % cfg.vocab_size}
+    params = {k: v.detach().clone() for k, v in build_model(
+        cfg, device="cpu", seed=1).state_dict().items()}
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(params)
+        opt = AdamW(lr=1e-3)
+        before = fa.flash_attention.launches
+        _, m = make_train_step(model, opt)(init_train_state(model, opt),
+                                           batch)
+        launched = fa.flash_attention.launches - before
+        assert launched == (cfg.n_layers if device == "cuda" else 0)
+        got[device] = {k: float(v) for k, v in m.items()}
+    assert got["cuda"]["loss"] == pytest.approx(got["cpu"]["loss"], rel=1e-5)
+    assert got["cuda"]["grad_norm"] == pytest.approx(
+        got["cpu"]["grad_norm"], rel=1e-4)
+    before = fa.flash_attention.launches
+    for slots in (2, 4):
+        served, cpu = (serve(cfg, params, requests=4, slots=slots,
+                             max_new=10, device=d) for d in ("cuda", "cpu"))
+        assert served["served"] == 4 and served["tokens"] == cpu["tokens"]
+        torch.testing.assert_close(served["first_logits"],
+                                   cpu["first_logits"], atol=1e-4,
+                                   rtol=1e-4)
+    assert fa.flash_attention.launches > before
+
+
 @functools.lru_cache(maxsize=1)
 def _shared_join_cases():
     return jc.join_cases()

@@ -26,7 +26,7 @@ from repro_torch.launch.serve import merge_cache, serve
 from repro_torch.models.model import build_model, load_jax_params
 
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
-         "zamba2-2.7b"]
+         "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b"]
 DONE = re.compile(r"\[serve\] rid=(\d+) done: \[([0-9, ]*)\]")
 
 
@@ -59,7 +59,7 @@ def _port_run(arch, slots):
     params = rbuild(_f32(rget_config)(arch).smoke()).init(
         jax.random.PRNGKey(0))
     return serve(cfg, load_jax_params(jax.tree_util.tree_map(np.asarray,
-                                                             params)),
+                                                             params), cfg),
                  requests=8, slots=slots, device="cpu")
 
 
@@ -73,13 +73,17 @@ def test_serve_matches_reference(arch):
     assert got["prefill_waves"] >= 2 and got["first_logits"].shape[0] == 4
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "falcon-mamba-7b",
+                                  "gemma2-9b"])
 def test_serve_with_slots_equal_to_layers(arch):
     """slots == n_layers (2 at smoke size): the reference's merge would
     scatter along the layer axis; the port merges along the batch axis,
-    so every request decodes as it does with 4 slots.  (Not the moe
-    model: its experts' capacity depends on the batch, so a request's
-    tokens with 2 slots are not its tokens with 4, in either package.)"""
+    so every request decodes as it does with 4 slots (gemma2: its flat
+    local and global leaves, (1, B, ...) over its one pair, and a prompt
+    of 16 rolling through a window of 16 while it decodes 32 tokens).
+    (Not the moe models: their experts' capacity depends on the batch, so
+    a request's tokens with 2 slots are not its tokens with 4, in either
+    package.)"""
     assert get_config(arch).smoke().n_layers == 2
     got = _port_run(arch, 2)
     want = _reference_run(arch, 4)
@@ -136,4 +140,39 @@ def test_merge_cache_scatters_along_batch_axis():
         assert live[name].shape[1] == 3 and new.shape[1] == 1, name
         assert torch.equal(live[name][:, 2], new[:, 0]), name
         fresh = model.init_cache(3, 8)[name]
+        assert torch.equal(live[name][:, :2], fresh[:, :2]), name
+
+
+def test_local_global_merge_cache_uses_batch_axis():
+    """gemma2's flat cache: its local layers' rolling leaves (L / 2, B,
+    min(cache_len, W), ...) and its global layers' (L / 2, B, cache_len,
+    ...), every one merged along axis 1; a one-request wave lands in slot
+    2 of 3 and nowhere else."""
+    cfg = dataclasses.replace(get_config("gemma2-9b").smoke(),
+                              dtype="float32", n_layers=4)
+    model = build_model(cfg, device="cpu")
+    cache_len = 3 * cfg.window
+    live = model.init_cache(3, cache_len)
+    assert sorted(live) == ["k", "k_local", "pos", "slot_pos",
+                            "slot_pos_local", "v", "v_local"]
+    assert live["k_local"].shape[:3] == (2, 3, cfg.window)
+    assert live["k"].shape[:3] == (2, 3, cache_len)
+    prompt = np.arange(cfg.window + 5)[None] % cfg.vocab_size
+    with torch.no_grad():
+        _, wave = model.prefill({"tokens": prompt}, cache_len=cache_len)
+    assert sorted(wave) == sorted(live)
+    # the rolling cache holds the prompt's last W positions, each in slot
+    # position % W
+    want = torch.arange(5, cfg.window + 5)
+    assert sorted(wave["slot_pos_local"][0, 0].tolist()) == want.tolist()
+    assert (wave["slot_pos_local"][0, 0] % cfg.window ==
+            torch.arange(cfg.window)).all()
+    merge_cache(live, wave, [2])
+    for name, new in wave.items():
+        if name == "pos":
+            assert live["pos"].tolist() == [0, 0, cfg.window + 5]
+            continue
+        assert live[name].shape[1] == 3 and new.shape[1] == 1, name
+        assert torch.equal(live[name][:, 2], new[:, 0]), name
+        fresh = model.init_cache(3, cache_len)[name]
         assert torch.equal(live[name][:, :2], fresh[:, :2]), name

@@ -3,10 +3,14 @@
 The reference's smoke smollm-360m (dense, GQA, attention through K7's
 ``FlashAttention``), qwen3-moe-30b-a3b (moe: attention through K7, the
 MoE FFN with its load-balance and router-z losses in the loss),
-falcon-mamba-7b (ssm, Mamba1, the scan through K8's ``SelectiveScan``)
-and zamba2-2.7b (hybrid: Mamba2 blocks in plain torch, the one shared
-attention block through K7 six times, its gradients summed) in float32, their parameters carried across with ``load_jax_params``, one
-batch of numpy-drawn tokens and labels (a few pads, -1):
+falcon-mamba-7b (ssm, Mamba1, the scan through K8's ``SelectiveScan``),
+zamba2-2.7b (hybrid: Mamba2 blocks in plain torch, the one shared
+attention block through K7 six times, its gradients summed),
+mixtral-8x7b (moe, every layer's attention windowed to 16 over S = 48)
+and gemma2-9b (dense, (local, global) pairs, the local layers windowed,
+attention and final softcaps) in float32, their parameters carried
+across with ``load_jax_params``, one batch of numpy-drawn tokens and
+labels (a few pads, -1):
 
 - the loss equals ``make_loss_fn``'s to 1e-5 relative, and so do the
   moe model's metrics ``ce``, ``lb_loss``, ``z_loss`` and ``drop_frac``;
@@ -60,7 +64,7 @@ from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
 from repro_torch.sharding import single_device_plan
 
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
-         "zamba2-2.7b"]
+         "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b"]
 MOE_METRICS = ("ce", "drop_frac", "lb_loss", "z_loss")
 B, S = 2, 48
 LR = 1e-3
@@ -106,11 +110,11 @@ def _reference(arch):
     for i in range(1, 4):
         state, m = step(state, batch)
         if i in (1, 3):
-            after[i] = (load_jax_params(_np_tree(state.params)),
+            after[i] = (load_jax_params(_np_tree(state.params), cfg),
                         float(m["loss"]), float(m["grad_norm"]))
     return (_np_tree(params), float(loss),
             {k: float(v) for k, v in metrics.items()},
-            load_jax_params(_np_tree(grads)), after)
+            load_jax_params(_np_tree(grads), cfg), after)
 
 
 def _port(arch, plan=None):
@@ -222,7 +226,7 @@ def test_microbatch_grad_accumulation_matches():
     rstate, rm = jax.jit(rmake_train_step(rmodel, ropt))(
         rstate, {k: jnp.asarray(v) for k, v in batch.items()})
     assert abs(out[2][0] / float(rm["loss"]) - 1) <= LOSS_TOL
-    rp = load_jax_params(_np_tree(rstate.params))
+    rp = load_jax_params(_np_tree(rstate.params), cfg)
     for k, v in out[2][1].items():
         np.testing.assert_allclose(v.numpy(), rp[k].numpy(), rtol=0,
                                    atol=PARAM_TOL, err_msg=k)
