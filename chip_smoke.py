@@ -54,7 +54,11 @@ Phases (any failure exits nonzero; there is no CPU path):
              hd=80, S in {100, 512}, plus window+softcap; at gemma2-9b's
              H=16, KV=8, hd=256, S in {100, 512}, plain and with window
              128 and softcap 50; at mixtral-8x7b's H=32, KV=8, hd=128,
-             bf16, S=512, window 128) within 1e-5
+             bf16, S=512, window 128, and unwindowed as
+             llama-3.2-vision-11b's self blocks run it (B=4, S=256 and
+             B=8, S=512); at musicgen-medium's H=24, KV=24,
+             hd=64, bf16, S=512: group size 1 on the tensor cores) within
+             1e-5
              (float32) / 2e-2
              (bfloat16) of attention_ref; selective_scan at falcon-mamba-7b's width
              (D=8192, B in {1, 4}, S in {1, 16, 31, 32, 33, 100, 512}
@@ -83,14 +87,29 @@ Phases (any failure exits nonzero; there is no CPU path):
              flash_attention once a layer a wave on the others, on
              zamba2-2.7b once a group a wave, 18 times), and the prefill
              wave and decode step of qwen3, zamba2, mixtral and gemma2
-             traced by operator;
+             traced by operator; then llama-3.2-vision-11b (vlm: 40
+             layers, 32 self-attention and 8 gated cross-attention
+             blocks, gates set to 0.5) and musicgen-medium (audio, 48
+             layers) through the Model API (the serving loop feeds
+             tokens only, as the reference's does): 4 prompts of 256
+             (the vlm's with media (4, 1600, 1280), musicgen's frame
+             embeddings), one prefill, 32 decode steps (the vlm's greedy
+             tokens, musicgen's seeded frames), at full depth in float32
+             through the kernels and with impl="ref" (tokens or argmax
+             equal at every step, prefill logits within 1e-3), then in
+             bfloat16 on float32 parameters (tok/s, prefill s, decode ms,
+             K7 once a self-attention layer; zeroed media must move the
+             vlm's logits), K7's and the cross attention's device time
+             over one prefill, both traced by operator;
 13. train  — (runs after 7) smollm-360m at full width and depth, falcon-mamba-7b at
              full width and 8 of its 64 layers, qwen3-moe-30b-a3b at
              full width and 4 of its 48, zamba2-2.7b at full width and
-             depth with group-level remat, mixtral-8x7b at 2 of its 32
-             and gemma2-9b at 8 of its 42: in float32 (smollm B=2, S=256;
-             falcon B=1, S=128; qwen3, mixtral and gemma2 B=2, S=128;
-             zamba2 B=1, S=256, one fixed batch) the model on the
+             depth with group-level remat, mixtral-8x7b at 2 of its 32,
+             gemma2-9b at 8 of its 42, llama-3.2-vision-11b at 2 of its 8
+             groups (10 of 40 layers, gates 0.5) and musicgen-medium at
+             full depth: in float32 (smollm B=2, S=256; falcon B=1,
+             S=128; qwen3, mixtral, gemma2, the vlm and musicgen B=2,
+             S=128; zamba2 B=1, S=256; one fixed batch) the model on the
              kernels (K7 / K8 forward, their analytic backwards) against
              impl="ref" (autograd through the plain versions): loss within
              1e-5, every gradient nonzero and within GRAD_TOL (max |diff|
@@ -99,8 +118,8 @@ Phases (any failure exits nonzero; there is no CPU path):
              make_train_step on SyntheticPipeline batches of 8 x 512 (step
              ms, tokens/s, peak memory, the loss falling, launches and
              the kernel's device time on one step; qwen3's aux losses at
-             step 20; the step of qwen3, zamba2, mixtral and gemma2 traced
-             by operator); then
+             step 20; the step of qwen3, zamba2, mixtral, gemma2, the vlm
+             and musicgen traced by operator); then
              python -m repro_torch.launch.train on one GPU, whole and,
              in a second process beside it, crashed at step 8 then
              resumed from step 5, final losses within LAUNCHER_LOSS_TOL;
@@ -112,7 +131,8 @@ Phases (any failure exits nonzero; there is no CPU path):
              the built library's SASS must show HGMMA in the tensor-core
              kernel; the same at zamba2-2.7b's heads (32:32, hd 80, bf16
              on the CUDA cores) and gemma2-9b's (16:8, hd 256, bf16 on the
-             CUDA cores; at S=4096 also with softcap 50, kernel only) at
+             CUDA cores; at S=4096 also with softcap 50, kernel only) and
+             musicgen-medium's (24:24, hd 64, bf16 on the tensor cores) at
              B=1, S=4096 and B=4, S=256 in 3 rounds; selective_scan at
              B=1, S=4096 and at the serve shape (B=4, S=256), D=8192,
              N=16, against selective_scan_ref; the
@@ -169,12 +189,15 @@ record as path_ms / path_launches (K7 and K8 also train_path_ms /
 train_path_launches over one step of phase 13's timed run; K7 also
 qwen3-moe-30b-a3b's as moe_path_ms and moe_train_path_ms, zamba2-2.7b's
 as hybrid_path_ms and hybrid_train_path_ms, mixtral-8x7b's as swa_*,
-gemma2-9b's as local_global_*, and its times at hd 80 and 256 as hd80_*
-and hd256_*), and
+gemma2-9b's as local_global_*, llama-3.2-vision-11b's as vlm_*,
+musicgen-medium's as audio_*, and its times at hd 80 and 256 as hd80_*
+and hd256_*, at 24:24 hd 64 as mha_*), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
-kernels' JSON record and {"ok": true, "device": {...}}.
+kernels' JSON record and {"ok": true, "device": {...}}; each phase's
+(and each model's) wall seconds are printed on lines of their own
+("wall ...").
 """
 from __future__ import annotations
 
@@ -223,6 +246,7 @@ SCAN_TOL = 1e-4
 LOGIT_TOL = 1e-3               # float32 prefill logits, kernels vs plain
 SERVE = dict(requests=8, slots=4, prompt_len=256, max_new=32, seed=0,
              device="cuda")
+PATH_NEW = 2                   # tokens a request of serve_path_ms's run
 # phase 7's models: the kernel its main path must launch, the depth of its
 # float32 identity run, its main path's parameter dtype and its main
 # path's depth (None: full depth, the config's).  qwen3-moe-30b-a3b's
@@ -248,8 +272,24 @@ SERVE_MODELS = {"smollm-360m": ("flash_attention", None, None, None),
                 HYBRID: ("flash_attention", None, None, None),
                 SWA: ("flash_attention", 4, "bfloat16", 24),
                 LOCAL_GLOBAL: ("flash_attention", None, None, None)}
+# llama-3.2-vision-11b (vlm): 8 groups of 4 self-attention blocks (K7 in
+# prefill) and one gated cross-attention block onto 1,600 media tokens
+# (plain torch), 9.78B parameters in the reference's tree (~39.1 GB in
+# float32); musicgen-medium (audio): 48 layers of 24:24 heads at hd 64 on
+# frame embeddings, 1.815B (~7.3 GB).  Both serve at full depth through
+# the Model API (the serving loop feeds tokens only, as the
+# reference's does): MEDIA_SERVE's prompts, one prefill wave, then
+# max_new decode steps
+VLM = "llama-3.2-vision-11b"
+AUDIO = "musicgen-medium"
+MEDIA_MODELS = (VLM, AUDIO)
+MEDIA_SERVE = dict(requests=4, prompt_len=256, max_new=32, seed=0)
+# the vlm's cross blocks' gates initialise to zero (tanh(0) = 0: every
+# cross block adds nothing); every vlm run sets them to this first
+GATE = 0.5
+MUSICGEN_HEADS = (24, 24, 64)  # musicgen-medium: H, KV, hd (group 1)
 # the models whose serve and train main paths are traced by operator
-TRACED = (MOE, HYBRID, SWA, LOCAL_GLOBAL)
+TRACED = (MOE, HYBRID, SWA, LOCAL_GLOBAL, VLM, AUDIO)
 # phase 7's window runs: the standard traffic's 256 + 32 positions never
 # reach a window of 4096, so each windowed model also serves prompts 64
 # positions longer than its window (K7's window masks in prefill, the
@@ -293,15 +333,21 @@ HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
 # masters, grads and moments a layer), gemma2-9b at 8 of its 42 (its
 # embedding alone 0.92B parameters, ~14.7 GB, each layer 0.198B, ~3.2 GB;
 # all 42 would be ~147 GB)
+# llama-3.2-vision-11b at 2 of its 8 groups (10 of 40 layers: 8 self and
+# 2 cross blocks, 3.24B parameters with the 1.06B of embed, head and
+# projector, ~52 GB of masters, grads and moments), musicgen-medium at
+# full depth (1.815B, ~29 GB)
 TRAIN = {"smollm-360m": (None, "flash_attention", "none"),
          "falcon-mamba-7b": (8, "selective_scan", "none"),
          MOE: (4, "flash_attention", "none"),
          HYBRID: (None, "flash_attention", "nothing_saveable"),
          SWA: (2, "flash_attention", "none"),
-         LOCAL_GLOBAL: (8, "flash_attention", "none")}
+         LOCAL_GLOBAL: (8, "flash_attention", "none"),
+         VLM: (10, "flash_attention", "none"),
+         AUDIO: (None, "flash_attention", "none")}
 TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128),
              MOE: (2, 128), HYBRID: (1, 256), SWA: (2, 128),
-             LOCAL_GLOBAL: (2, 128)}                                # B, S
+             LOCAL_GLOBAL: (2, 128), VLM: (2, 128), AUDIO: (2, 128)}  # B, S
 # models whose float32 AdamW steps are each compared from the plain run's
 # state (replayed_steps) instead of along two runs: zamba2-2.7b's float32
 # trajectory at TRAIN_LR is chaotic whatever runs it: plain against plain
@@ -337,6 +383,23 @@ STREAM_SAMPLE = 32             # closed-loop tickets checked against solo
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def lap(label: str, since: float) -> float:
+    """Print a phase's wall seconds on a line of its own; returns now."""
+    now = time.perf_counter()
+    print(f"wall {label}: {now - since:.1f} s", flush=True)
+    return now
+
+
+def open_gates(torch, model):
+    """A vlm's cross blocks' gates set to GATE, in place (other models as
+    they are)."""
+    with torch.no_grad():
+        for blk in getattr(model, "cross", ()):
+            blk.gate_attn.fill_(GATE)
+            blk.gate_mlp.fill_(GATE)
+    return model
 
 
 def card() -> str:
@@ -668,6 +731,14 @@ def model_kernel_parity(torch, dev):
               for dt in ("float32", "bfloat16")
               for o in ({}, dict(window=128, attn_softcap=GEMMA_SOFTCAP))]
     cases += [(4, 512, *MIXTRAL_HEADS, "bfloat16", dict(window=128))]
+    # llama-3.2-vision-11b's self blocks: the same 32:8 heads at hd 128,
+    # unwindowed, at its serve prefill (4 x 256) and training batch (8 x 512)
+    cases += [(B, S, *MIXTRAL_HEADS, "bfloat16", {})
+              for B, S in (SERVE_ATTN, (TRAIN_BF16["batch"],
+                                        TRAIN_BF16["seq"]))]
+    # musicgen-medium's 24:24 heads at hd 64: group size 1 on the
+    # tensor-core kernel
+    cases += [(4, 512, *MUSICGEN_HEADS, "bfloat16", {})]
     for B, S, H, KV, hd, dt, opts in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
@@ -792,9 +863,12 @@ def serve_path_ms(torch, cfg, kernel: str, launches: int):
     in its prefill waves only (decode attention and the decode scan step
     are plain torch), so torch.profiler traces each prefill wave and
     nothing else (a trace of a whole run holds ~1e5 decode kernels and
-    takes minutes to read).  Where the traces hold another count of its
-    launches (the profiler can drop events), CUDA events around the
-    wrapper's calls on one more run time it (an upper bound)."""
+    takes minutes to read), and the run stops each request at
+    ``PATH_NEW`` tokens: the same prefill waves of the same prompts, with
+    one decode step after each wave instead of the main path's 31.  Where
+    the traces hold another count of its launches (the profiler can drop
+    events), CUDA events around the wrapper's calls on one more run time
+    it (an upper bound)."""
     import repro_torch.launch.serve as ls
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -820,7 +894,7 @@ def serve_path_ms(torch, cfg, kernel: str, launches: int):
 
     ls.make_prefill_step = traced
     try:
-        ls.serve(cfg, **SERVE)
+        ls.serve(cfg, **dict(SERVE, max_new=PATH_NEW))
     finally:
         ls.make_prefill_step = make
     if got[1] == launches and got[0]:
@@ -829,7 +903,7 @@ def serve_path_ms(torch, cfg, kernel: str, launches: int):
     timed = _Timed(torch, getattr(module, kernel))
     setattr(module, kernel, timed)
     try:
-        ls.serve(cfg, **SERVE)
+        ls.serve(cfg, **dict(SERVE, max_new=PATH_NEW))
         torch.cuda.synchronize()
     finally:
         setattr(module, kernel, timed.fn)
@@ -1029,6 +1103,7 @@ def serve_phase(torch):
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     out = {}
+    w = time.perf_counter()
     for arch, (kernel, f32_layers, param_dtype, main_layers) in \
             SERVE_MODELS.items():
         cfg = get_config(arch)
@@ -1117,9 +1192,215 @@ def serve_phase(torch):
         torch.cuda.empty_cache()
         if arch in TRACED:
             serve_ops(torch, main)
+        w = lap(f"serve {arch}", w)
     check(all(v[1][SERVE_MODELS[a][0]] > 0 for a, v in out.items()),
           f"a model kernel never launched on its main path: "
           f"{ {a: v[1] for a, v in out.items()} }")
+    return out
+
+
+def media_inputs(cfg):
+    """MEDIA_SERVE's traffic for ``cfg`` from a seeded numpy generator: the
+    prefill batch (the vlm's prompts of random tokens and its media, (B,
+    n_media_tokens, media_embed_dim); musicgen's frame embeddings) and
+    musicgen's decode frames (B, max_new, media_embed_dim), None for the
+    vlm (its decode feeds its greedy tokens)."""
+    run = MEDIA_SERVE
+    B, P, n = run["requests"], run["prompt_len"], run["max_new"]
+    rng = np.random.default_rng(run["seed"])
+    if cfg.family == "vlm":
+        return {"tokens": rng.integers(2, cfg.vocab_size, (B, P)),
+                "media": rng.standard_normal(
+                    (B, cfg.n_media_tokens, cfg.media_embed_dim),
+                    dtype=np.float32)}, None
+    emb = rng.standard_normal((B, P + n, cfg.media_embed_dim),
+                              dtype=np.float32)
+    return {"embeddings": emb[:, :P]}, emb[:, P:]
+
+
+def media_serve(torch, cfg, impl: str = "cuda"):
+    """One serving wave of ``cfg`` through the Model API on the card
+    (``make_prefill_step``, then MEDIA_SERVE["max_new"] greedy
+    ``make_decode_step`` steps), the vlm's gates opened: {"first_logits"
+    (B, V) float32 on the host, "tokens": each step's argmax (B,) on the
+    host (the prefill's first), "prefill_s", "decode_s" (host clock, each
+    ending in the argmax's copy to the host), "model", "batch"}."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    run = MEDIA_SERVE
+    B, P, n = run["requests"], run["prompt_len"], run["max_new"]
+    batch, frames = media_inputs(cfg)
+    model = open_gates(torch, build_model(cfg, device="cuda",
+                                          seed=run["seed"], impl=impl))
+    prefill = make_prefill_step(model, cache_len=P + n)
+    decode = make_decode_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch)
+    first = logits.float().cpu()
+    t1 = time.perf_counter()
+    tokens = [first.argmax(-1)]
+    for t in range(n):
+        step = {"tokens": tokens[-1][:, None].numpy()} if frames is None \
+            else {"embeddings": frames[:, t:t + 1]}
+        logits, cache = decode(cache, step, np.full(B, P + t))
+        tokens.append(logits.argmax(-1).cpu())
+    t2 = time.perf_counter()
+    return {"first_logits": first, "tokens": tokens, "prefill_s": t1 - t0,
+            "decode_s": t2 - t1, "model": model, "batch": batch,
+            "prefill": prefill}
+
+
+def prefill_trace(torch, prefill, batch):
+    """One more prefill wave traced (torch.profiler, host and card) with
+    ``models.attention.cross_attention`` wrapped in a ``record_function``
+    range while it lasts: (K7's device ms, its launches, the cross
+    attention's device ms or None where the range holds no device
+    time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as attn
+    plain = attn.cross_attention
+
+    def ranged(*a, **kw):
+        with record_function("cross_attention"):
+            return plain(*a, **kw)
+    attn.cross_attention = ranged
+    try:
+        prefill(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prefill(batch)
+            torch.cuda.synchronize()
+    finally:
+        attn.cross_attention = plain
+    k7 = [e for e in prof.events() if e.device_type == DeviceType.CUDA and
+          "flash_attention_" in e.name]
+    cross = sum(e.device_time_total for e in prof.events()
+                if e.name == "cross_attention" and
+                e.device_type == DeviceType.CPU) / 1e3
+    return sum(e.device_time_total for e in k7) / 1e3, len(k7), \
+        cross or None
+
+
+def media_serve_phase(torch):
+    """Phase 7's vlm and audio models (their serving path is the Model
+    API: the serving loop feeds tokens only): each at full depth in
+    float32 through the kernels and with impl="ref" (the vlm's greedy
+    tokens equal at every step, musicgen's argmax equal at every step,
+    first logits within LOGIT_TOL), then the main path in the config's
+    bfloat16 on float32 parameters (launch counts set to 0 just before,
+    read just after; K7 once a self-attention layer; the vlm's logits
+    must change when its media are zeroed), K7's and the cross
+    attention's device time over one more prefill, and the prefill and
+    a decode step by operator.  Returns {arch: (result, launches, device
+    ms of K7 on the path, how it was read)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import make_decode_step
+    run = MEDIA_SERVE
+    B, P, n = run["requests"], run["prompt_len"], run["max_new"]
+    out = {}
+    w = time.perf_counter()
+    for arch in MEDIA_MODELS:
+        cfg = get_config(arch)
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        t = time.perf_counter()
+        res = {}
+        for impl in ("cuda", "ref"):
+            r = media_serve(torch, f32, impl)
+            res[impl] = {k: r[k] for k in ("first_logits", "tokens")}
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        got, plain = res["cuda"], res["ref"]
+        logits = got["first_logits"]
+        check(logits.shape == (B, cfg.vocab_size) and
+              bool(logits.isfinite().all()),
+              f"{arch}: prefill logits {tuple(logits.shape)} not finite or "
+              f"misshapen")
+        e = float((logits - plain["first_logits"]).abs().max())
+        check(e <= LOGIT_TOL, f"{arch}: float32 prefill logits differ from "
+              f"the plain version's by {e} > {LOGIT_TOL}")
+        same = [bool(torch.equal(a, b))
+                for a, b in zip(got["tokens"], plain["tokens"])]
+        what = "greedy tokens" if cfg.family == "vlm" else "argmax"
+        check(len(same) == n + 1 and all(same), f"{arch}: float32 {what} "
+              f"differ from the plain version's at steps "
+              f"{[i for i, x in enumerate(same) if not x]}")
+        print(f"serve {arch} float32 ({cfg.n_layers} layers, Model API, "
+              f"gates {GATE if cfg.family == 'vlm' else '-'}): {B} "
+              f"requests, prefill then {n} decode steps; {what} equal to "
+              f"plain (impl='ref') at all {n + 1}; prefill logits "
+              f"max_abs_err {e} ({time.perf_counter() - t:.1f} s)",
+              flush=True)
+        del res, got, plain
+        t = time.perf_counter()
+        ops.reset_launch_counts()
+        r = media_serve(torch, cfg)
+        launches = launch_counts()
+        model = r["model"]
+        want = len(model.layers)
+        check(launches["flash_attention"] == want, f"{arch}: "
+              f"flash_attention launched {launches['flash_attention']} times "
+              f"on the main path, not {want} (once a self-attention layer)")
+        check(bool(r["first_logits"].isfinite().all()),
+              f"{arch}: {cfg.dtype} prefill logits not finite")
+        wall = r["prefill_s"] + r["decode_s"]
+        r.update(tok_s=B * n / wall, seconds=wall)
+        note = ""
+        if cfg.family == "vlm":
+            zeroed = dict(r["batch"], media=np.zeros_like(r["batch"][
+                "media"]))
+            with torch.no_grad():
+                moved = float((r["prefill"](zeroed)[0].float().cpu() -
+                               r["first_logits"]).abs().max())
+            check(moved > 1e-3, f"{arch}: zeroed media moved the prefill "
+                  f"logits by {moved} only: the cross path is dead")
+            note = f"; zeroed media move the prefill logits by {moved:.4g}"
+        print(f"serve {arch} {cfg.dtype}, {cfg.param_dtype} parameters, "
+              f"{cfg.n_layers} layers (main path, Model API): {B} requests, "
+              f"{n} decode steps, {r['tok_s']:.2f} tok/s ({B} x {n} / "
+              f"{wall:.3f} s); prefill {r['prefill_s']:.3f} s; decode "
+              f"{r['decode_s'] / n * 1e3:.3f} ms/step; launches {launches}; "
+              f"first tokens {[int(x) for x in r['tokens'][0][:4]]}{note} "
+              f"({time.perf_counter() - t:.1f} s with the model's build)",
+              flush=True)
+        t = time.perf_counter()
+        dev_ms, k7_n, cross_ms = prefill_trace(torch, r["prefill"],
+                                               r["batch"])
+        r["cross_ms"] = cross_ms
+        how = "torch.profiler over one more prefill wave"
+        check(k7_n == want, f"{arch}: the prefill's trace holds {k7_n} "
+              f"flash_attention launches, not {want}")
+        cross = "no cross attention" if cfg.family != "vlm" else \
+            f"cross attention {cross_ms} ms of device time over the wave" \
+            if cross_ms is not None else "cross attention not read"
+        print(f"serve {arch} {cfg.dtype}: flash_attention device time on "
+              f"the path {dev_ms} ms over {k7_n} launches ({how}); {cross} "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+        if arch in TRACED:
+            first = r["tokens"][0]
+            step = {"tokens": first[:, None].numpy()} \
+                if cfg.family == "vlm" else \
+                {"embeddings": media_inputs(cfg)[1][:, :1]}
+            _, cache = r["prefill"](r["batch"])
+            decode = make_decode_step(model)
+            print_op_table(torch, f"serve {arch} {cfg.dtype}, one prefill "
+                           f"wave {B} x {P}",
+                           lambda: r["prefill"](r["batch"]))
+            print_op_table(torch, f"serve {arch} {cfg.dtype}, one decode "
+                           f"step B={B}",
+                           lambda: decode(cache, step, np.full(B, P)))
+            del cache
+        for k in ("model", "prefill", "batch"):
+            del r[k]
+        out[arch] = (r, launches, dev_ms, how)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        w = lap(f"serve {arch}", w)
     return out
 
 
@@ -1148,7 +1429,8 @@ def train_parity(torch, cfg, B, S):
         keep = (lambda t: t.detach().cpu()) if impl == "cuda" else \
             (lambda t: t.detach())
         ops.reset_launch_counts()
-        model = build_model(f32, plan, device="cuda", seed=0, impl=impl)
+        model = open_gates(torch, build_model(f32, plan, device="cuda",
+                                              seed=0, impl=impl))
         loss, metrics = make_loss_fn(model)(batch)
         grads = [keep(g) for g in torch.autograd.grad(
             loss, list(model.parameters()))]
@@ -1232,7 +1514,8 @@ def replayed_steps(torch, f32, plan, batch):
     from repro_torch.runtime.steps import init_train_state, make_train_step
     runs = {}
     for impl in ("cuda", "ref"):
-        model = build_model(f32, plan, device="cuda", seed=0, impl=impl)
+        model = open_gates(torch, build_model(f32, plan, device="cuda",
+                                              seed=0, impl=impl))
         opt = AdamW(lr=TRAIN_LR)
         runs[impl] = [model, init_train_state(model, opt),
                       make_train_step(model, opt)]
@@ -1284,7 +1567,7 @@ def train_timed(torch, cfg):
     from repro_torch.runtime.steps import init_train_state, make_train_step
     kernel, plan = TRAIN[cfg.name][1], train_plan(cfg)
     B, S, n = TRAIN_BF16["batch"], TRAIN_BF16["seq"], TRAIN_BF16["steps"]
-    model = build_model(cfg, plan, device="cuda", seed=0)
+    model = open_gates(torch, build_model(cfg, plan, device="cuda", seed=0))
     opt = AdamW(lr=cosine_schedule(TRAIN_SCHEDULE[0], TRAIN_SCHEDULE[1], n))
     state = init_train_state(model, opt)
     step = make_train_step(model, opt)
@@ -1410,7 +1693,7 @@ def train_phase(torch):
     (its kernel's device ms on one step of its timed run, how, launches a
     step)}."""
     from repro_torch.configs import get_config
-    t = time.perf_counter()
+    w = time.perf_counter()
     print(f"phase 13 on {card()}", flush=True)
     out = {}
     for arch, (layers, _, _) in TRAIN.items():
@@ -1418,9 +1701,11 @@ def train_phase(torch):
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         train_parity(torch, cfg, *TRAIN_F32[arch])
+        w = lap(f"train {arch} float32 check", w)
         out[arch] = train_timed(torch, cfg)
+        w = lap(f"train {arch} main path", w)
     launcher_check()
-    print(f"phase 13: {time.perf_counter() - t:.1f} s", flush=True)
+    lap("train launcher", w)
     return out
 
 
@@ -1479,8 +1764,9 @@ def attn_vs_sdpa(torch, q, k, v, rounds: int = ATTN_ROUNDS):
 
 def head_dim_times(torch, dev, g, err, heads, key: str,
                    softcap: Optional[float] = None) -> dict:
-    """Phase 8's K7 at a model's heads (bf16 on the CUDA cores: zamba2-2.7b's
-    32:32 at hd 80, gemma2-9b's 16:8 at hd 256), causal: at B=1, S=4096 and
+    """Phase 8's K7 at a model's heads (bf16: zamba2-2.7b's 32:32 at hd 80
+    and gemma2-9b's 16:8 at hd 256 on the CUDA cores, musicgen-medium's
+    24:24 at hd 64 on the tensor cores), causal: at B=1, S=4096 and
     at the serve shape (B=4, S=256), each held against attention_ref, timed
     against SDPA (3 rounds: the kernel takes milliseconds at S=4096) beside
     its bound; plain timed at S=4096; with ``softcap``, the kernel at
@@ -1532,8 +1818,9 @@ def head_dim_times(torch, dev, g, err, heads, key: str,
                      f"{out[f'{key}_softcap_ms']:.4f} ms of 3 rounds "
                      f"{[round(t, 4) for t in capped]} (CUDA graph; no "
                      f"library time: SDPA has no softcap)")
+        where = "tensor cores" if hd in fa.TC_HEAD_DIMS else "CUDA cores"
         print(f"time flash_attention hd={hd} B={B} S={S} H={H} KV={KV} "
-              f"bf16 (CUDA cores): {ms:.4f} ms; scaled_dot_product_"
+              f"bf16 ({where}): {ms:.4f} ms; scaled_dot_product_"
               f"attention {lib:.4f} ms ({ms / lib:.2f}x); bound {bnd:.4f} "
               f"ms ({by})" + note, flush=True)
         del q, k, v
@@ -1648,6 +1935,7 @@ def model_times(torch, dev, err, served, trained):
     hd80 = head_dim_times(torch, dev, g, err, ZAMBA_HEADS, "hd80")
     hd256 = head_dim_times(torch, dev, g, err, GEMMA_HEADS, "hd256",
                            softcap=GEMMA_SOFTCAP)
+    mha = head_dim_times(torch, dev, g, err, MUSICGEN_HEADS, "mha")
     csrc = "src/repro_torch/kernels/csrc/"
     return [
         {"name": "flash_attention", "route": "cuda",
@@ -1696,9 +1984,28 @@ def model_times(torch, dev, err, served, trained):
          "local_global_train_path_ms": trained[LOCAL_GLOBAL][0],
          "local_global_train_path_launches": trained[LOCAL_GLOBAL][2],
          "local_global_train_path_source": trained[LOCAL_GLOBAL][1],
+         # llama-3.2-vision-11b's (its 32 self-attention blocks in one
+         # prefill wave of its Model-API serve main path at 40 layers; one
+         # step of its 10-layer training run: 8 self blocks)
+         "vlm_path_ms": served[VLM][2],
+         "vlm_path_launches": served[VLM][1]["flash_attention"],
+         "vlm_path_source": served[VLM][3],
+         "vlm_train_path_ms": trained[VLM][0],
+         "vlm_train_path_launches": trained[VLM][2],
+         "vlm_train_path_source": trained[VLM][1],
+         # musicgen-medium's (24:24 heads at hd 64, group size 1 on the
+         # tensor cores: its 48 layers in one prefill wave; one step of
+         # its 48-layer training run)
+         "audio_path_ms": served[AUDIO][2],
+         "audio_path_launches": served[AUDIO][1]["flash_attention"],
+         "audio_path_source": served[AUDIO][3],
+         "audio_train_path_ms": trained[AUDIO][0],
+         "audio_train_path_launches": trained[AUDIO][2],
+         "audio_train_path_source": trained[AUDIO][1],
          # K7 at zamba2's heads (hd 80) and gemma2's (hd 256), bf16 on the
-         # CUDA cores, B=1, S=4096 and the serve shape
-         **hd80, **hd256},
+         # CUDA cores, and at musicgen's (24:24, hd 64) on the tensor
+         # cores, B=1, S=4096 and the serve shape
+         **hd80, **hd256, **mha},
         {"name": "selective_scan", "route": "cuda",
          "source": csrc + "mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:27",
@@ -2191,7 +2498,6 @@ def sharded_phase(torch, dev):
           + f"; single-launch scan_argmin {one_ms:.4f} ms; plain (D="
           f"{SHARDED_MAIN}) {plain_ms:.3f} ms; bound {bound:.4f} ms ({by})",
           flush=True)
-    print(f"phase 11: {time.perf_counter() - t:.1f} s", flush=True)
     return {"name": "scan_argmin_sharded", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/plan_scan.cu",
             "replaces": "src/repro/kernels/plan_scan.py:367",
@@ -2368,7 +2674,6 @@ def sharding_phase(torch, dev):
           f"call (CUDA events; the wrapper's host work bounds it), kernel "
           f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} on "
           f"the device (torch.profiler)", flush=True)
-    print(f"phase 12: {time.perf_counter() - t:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2406,6 +2711,8 @@ def main() -> int:
         build.load_library(name)
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(libs)} "
           f"(nvcc, in parallel: {build.build_seconds} s)", flush=True)
+
+    w = lap("phases 1-2 (device, build)", t_start)
 
     # 3. kernel against plain, on the card --------------------------------- #
     rng = np.random.default_rng(0)
@@ -2564,6 +2871,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}",
           flush=True)
 
+    w = lap("phase 3 (parity)", w)
+
     # 4. main path --------------------------------------------------------- #
     schema = random_schema(10, seed=0)
     queries = [random_query(schema, 5, seed=q) for q in range(QUERIES)]
@@ -2671,6 +2980,8 @@ def main() -> int:
     print(f"main ensemble at {big.grid_size()} configs: ensemble_climb "
           f"device time of one plan_queries {big_climb_txt} over "
           f"{big_launches} launches", flush=True)
+
+    w = lap("phase 4 (main path)", w)
 
     # 5. times at the main path's largest wave shape ----------------------- #
     Q = max(1, cuda_be.max_stack)
@@ -2847,26 +3158,31 @@ def main() -> int:
          "path_launches": launches["ensemble_climb"],
          "path_source": main_path["ensemble_climb"][1]},
     ]
-    print(f"phases 1-5: {time.perf_counter() - t_start:.1f} s", flush=True)
+    w = lap("phase 5 (times)", w)
 
     # 6-8. the serving slice ----------------------------------------------- #
-    t = time.perf_counter()
     err = model_kernel_parity(torch, dev)
+    w = lap("phase 6 (model parity)", w)
     served = serve_phase(torch)
+    served.update(media_serve_phase(torch))
+    w = lap("phase 7 (serve)", w)
     trained = train_phase(torch)
+    w = lap("phase 13 (train)", w)
     kernels += model_times(torch, dev, err, served, trained)
-    print(f"phases 6-8: {time.perf_counter() - t:.1f} s", flush=True)
+    w = lap("phase 8 (model kernel times)", w)
 
     # 9-10. the joins and the streaming service ---------------------------- #
-    t = time.perf_counter()
     kernels += join_phase(torch, dev)
+    w = lap("phase 9 (joins)", w)
     service_phase(torch, big)
-    print(f"phases 9-10: {time.perf_counter() - t:.1f} s", flush=True)
+    w = lap("phase 10 (service)", w)
 
     # 11-12. the sharded scan and the sharding planner -------------------- #
     kernels.append(sharded_phase(torch, dev))
+    w = lap("phase 11 (sharded scan)", w)
     sharding_phase(torch, dev)
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    lap("phase 12 (sharding planner)", w)
+    lap("total", t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,7 +5,11 @@ module in ``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (the exact
 published configuration) on the ``ModelConfig`` dataclass below, so
 ``--arch`` ids are the reference's.  ``ModelConfig.smoke()`` derives the
 reduced same-family config of the CPU tests.  ``models.model.build_model``
-runs the dense, moe and ssm families; the others raise there.
+runs all six families.  ``param_count()`` is the reference's census: for
+the vlm it counts ``n_layers`` self blocks beside the cross blocks
+(11.52B for llama-3.2-vision-11b), while the parameter tree holds ``n_layers
+- n_layers / cross_attn_period`` self blocks (9.78B); memory reckonings
+use the tree's count.
 """
 from __future__ import annotations
 

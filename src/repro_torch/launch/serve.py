@@ -10,6 +10,14 @@ sequences free their slot, queued requests prefill into free slots
 printed lines are the reference's.  It runs on the GPU (``--device
 cuda``, the default) unless asked for the CPU; without a GPU it raises.
 
+The loop feeds token prompts and greedy tokens only, as the
+reference's does: the vlm family (whose batches also carry media) and
+the audio family (which takes frame embeddings, not tokens) cannot be
+served by it.  The reference fails there with a ``KeyError``; ``serve``
+raises ``NotImplementedError`` naming the reason.  Those models serve
+through the Model API (``runtime.steps.make_prefill_step`` and
+``make_decode_step``) driven directly.
+
 One departure: the reference merges a wave's prefill cache into the live
 cache along the first axis whose size equals the slot count, which is the
 layer axis when ``n_layers == slots``.  Here every cache leaf is merged
@@ -61,7 +69,16 @@ def serve(cfg, params=None, *, requests: int = 8, slots: int = 4,
     ``prefill_s`` and ``prefill_waves`` (admission waves, each a batched
     prefill), ``decode_s``, ``first_logits`` (the first wave's prefill
     logits, float32 on the CPU).  Host-clock times; every step ends in a
-    device-to-host copy of its argmax, which synchronises."""
+    device-to-host copy of its argmax, which synchronises.  The vlm and
+    audio families raise ``NotImplementedError``."""
+    if cfg.family == "vlm" or not cfg.embed_inputs:
+        raise NotImplementedError(
+            f"{cfg.name}: the serving loop feeds tokens only, as the "
+            f"reference's does; the {cfg.family} family takes "
+            + ("media beside its tokens" if cfg.family == "vlm" else
+               "embeddings, not tokens")
+            + " (serve it through runtime.steps.make_prefill_step and "
+              "make_decode_step)")
     model = build_model(cfg, device=device, seed=seed, impl=impl)
     if params is not None:
         model.load_state_dict(params)

@@ -1,5 +1,6 @@
 """Attention for the port's model stack: single-token decode against a
-cache, and the cache utilities (the port of ``repro.models.attention``).
+cache, cross attention onto media, and the cache utilities (the port of
+``repro.models.attention``).
 
 The reference's blocked jnp ``flash_attention`` (masking by positions, -1
 = invalid slot) was the CPU twin of its Pallas kernel; the port's prefill
@@ -7,7 +8,8 @@ calls ``kernels.ops.flash_attention`` instead, which masks by index like
 the kernel does.  On the serving path prefill positions are always
 ``arange(S)``, where the two agree; ``Model.forward`` refuses batches that
 carry their own positions.  Decode stays plain torch (the reference has no
-Pallas kernel for it).
+Pallas kernel for it), and so does cross attention (plain jnp in the
+reference too, outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -47,6 +49,27 @@ def decode_attention(q, k_cache, v_cache, q_pos, slot_pos, *,
     out = torch.einsum("bkgs,bskd->bkgd",
                        (p / l).to(v_cache.dtype).float(), v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cross_attention(q, k, v, media_valid=None):
+    """Full (unmasked) attention onto a small media sequence.
+
+    q: (B, Sq, H, hd); k, v: (B, M, KV, hd); media_valid: optional (B, M)
+    bool, False masks a media position.  Scores in float32 (q and k's
+    products and sums), the softmax in float32, its probabilities cast to
+    v's dtype, then float32 sums; the output in q's dtype."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bmkd->bkgqm", qg.float(),
+                     k.float()) * (hd ** -0.5)
+    if media_valid is not None:
+        s = torch.where(media_valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqm,bmkd->bqkgd", p.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 # ------------------------------ cache utils ------------------------------- #

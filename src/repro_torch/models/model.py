@@ -1,6 +1,6 @@
-"""The Model API of the dense, moe, ssm and hybrid families (the port of
+"""The Model API of the six families (the port of
 ``repro.models.model``), with the full, swa and local_global attention
-schedules of the dense and moe families.
+schedules of the dense, moe and audio families.
 
     model = build_model(cfg, plan, device="cuda", seed=0)
     hidden, aux, cache = model.forward(batch)              # full sequence
@@ -8,21 +8,29 @@ schedules of the dense and moe families.
     logits, cache = model.prefill(batch, cache_len)
     logits, cache = model.decode_step(cache, inputs, q_pos)
 
-Batches are ``{"tokens": (B, S) integer}``.  Parameters live in the module,
-named by the reference's dict keys (``embed``, ``final_ln``,
-``layers.<i>.attn.wq``, ``shared_attn.attn.wq``, ...), with weights in the
-reference's ``(in, out)`` layout; a Python loop over ``layers`` (an
-``nn.ModuleList``) takes the place of ``lax.scan``.  ``load_jax_params``
-carries the reference's parameter tree across.  Parameters are
-trainable; serving runs under ``torch.no_grad`` (``runtime.steps``).
-With gradients enabled, the plan's ``remat`` wraps each layer (a
-hybrid's each group, local_global's each pair) as the reference's
-``_remat`` wraps its scan body: ``nothing_saveable`` in
-``torch.utils.checkpoint``, ``dots_saveable`` in a selective checkpoint
-that keeps matmul outputs.
+Batches (numpy arrays or tensors; moved to the model's device):
+    dense/moe/ssm/hybrid : {"tokens": (B, S) integer}
+    audio (musicgen)     : {"embeddings": (B, S, media_embed_dim)}
+    vlm (llama-3.2-v)    : {"tokens": (B, S), "media": (B, M, media_embed_dim)}
+Decode inputs are ``{"tokens": (B, 1)}``, or ``{"embeddings": (B, 1,
+media_embed_dim)}`` for the audio family.  Embeddings and media go
+through ``projector`` (``media_embed_dim x d_model``) in the compute
+dtype.
 
-Attention schedules of the dense and moe families: ``full``; ``swa``,
-every layer windowed to ``cfg.window`` with a rolling cache of
+Parameters live in the module, named by the reference's dict keys
+(``embed``, ``final_ln``, ``layers.<i>.attn.wq``, ``shared_attn.attn.wq``,
+``cross.<g>.gate_attn``, ...), with weights in the reference's ``(in,
+out)`` layout; a Python loop over ``layers`` (an ``nn.ModuleList``)
+takes the place of ``lax.scan``.  ``load_jax_params`` carries the
+reference's parameter tree across.  Parameters are trainable; serving
+runs under ``torch.no_grad`` (``runtime.steps``).  With gradients
+enabled, the plan's ``remat`` wraps each layer (a hybrid's and a vlm's
+each group, local_global's each pair) as the reference's ``_remat`` wraps
+its scan body: ``nothing_saveable`` in ``torch.utils.checkpoint``,
+``dots_saveable`` in a selective checkpoint that keeps matmul outputs.
+
+Attention schedules of the dense, moe and audio families: ``full``;
+``swa``, every layer windowed to ``cfg.window`` with a rolling cache of
 ``min(cache_len, window)`` slots; ``local_global``, layers in (local,
 global) pairs, layer 2g windowed with a rolling cache, layer 2g + 1 full
 with a cache of ``cache_len`` slots.  Prefill attention (K7) takes the
@@ -32,7 +40,13 @@ A hybrid model (zamba2) runs its L Mamba2 blocks in groups of ``k =
 hybrid_period``, each group followed by the one ``shared_attn`` block
 (full attention through K7 in prefill); the same shared parameters serve
 all L / k groups, and autograd sums their gradients.  The ssm family runs
-Mamba1 or Mamba2 blocks by ``ssm_version``.
+Mamba1 or Mamba2 blocks by ``ssm_version``.  A vlm (llama-3.2-vision)
+runs ``g = L / k`` groups, ``k = cross_attn_period``: k - 1 self-attention
+blocks (``layers``, K7 in prefill), then the group's gated cross block
+(``cross``, an ``nn.ModuleList`` of g) onto the media's K/V, which each
+cross block projects once per prefill; so its ``layers`` hold L - L / k
+blocks (32 of 40 at full size).  Cross attention is plain torch, as the
+reference's is plain jnp.
 
 The cache is a flat dict whose leaves have a leading layer (or group)
 axis and the batch axis second (``CACHE_BATCH_AXIS``): dense ``k``,
@@ -42,25 +56,29 @@ float32; hybrid ``conv`` and ``ssm`` over its L Mamba2 blocks as in the
 ssm family, and the shared block's ``k``, ``v``, ``slot_pos`` over its
 L / k groups, (L / k, B, ...); local_global ``k_local``, ``v_local``,
 ``slot_pos_local`` (L / 2, B, min(S, W), ...) for the local layers and
-``k``, ``v``, ``slot_pos`` (L / 2, B, S, ...) for the global ones; ``pos``
-(B,).  The hybrid's and local_global's layouts are not the reference's
-((L / k, k, B, ...) Mamba leaves and nested ``attn``, ``local`` and
-``global`` dicts): flat names of one batch axis each are what
-``serve.merge_cache`` scatters along.  ``decode_step`` writes the new
-token's state into the cache tensors in place and returns the same dict.
+``k``, ``v``, ``slot_pos`` (L / 2, B, S, ...) for the global ones; vlm
+``k``, ``v``, ``slot_pos`` over its self blocks and ``media_k``,
+``media_v`` (g, B, M, KV, hd) over its cross blocks; ``pos`` (B,).  The
+hybrid's, local_global's and the vlm's layouts are not the reference's
+((L / k, k, B, ...) Mamba leaves, (g, k - 1, B, ...) vlm self leaves,
+nested ``attn``, ``local``, ``global`` and ``self`` dicts): flat names of
+one batch axis each are what ``serve.merge_cache`` scatters along.
+``decode_step`` writes the new token's state into the cache tensors in
+place and returns the same dict.
 
 Prefill attention masks by index (the flash-attention kernel's
 semantics), which equals the reference's position mask for the
 ``arange(S)`` positions it builds itself; a batch that carries its own
 ``"positions"`` raises.  ``forward``'s aux holds a moe model's
 ``lb_loss``, ``z_loss`` and ``drop_frac``, each the mean over the layers
-(empty for the other families, and for local_global, whose pairs the
-reference runs without collecting them).  The vlm and audio families and
-a hybrid of Mamba1 blocks raise ``NotImplementedError``.
+(empty for the other families, and for local_global and the vlm, whose
+groups the reference runs without collecting them).  A hybrid of Mamba1
+blocks raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -84,7 +102,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # wave into the live cache scatters along it)
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "slot_pos": 1, "k_local": 1,
                     "v_local": 1, "slot_pos_local": 1, "conv": 1, "ssm": 1,
-                    "pos": 0}
+                    "media_k": 1, "media_v": 1, "pos": 0}
 KV_NAMES = ("k", "v", "slot_pos")
 
 
@@ -100,10 +118,6 @@ def resolve_device(device) -> torch.device:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (the "
-            f"port runs the dense, moe, ssm and hybrid families)")
     if cfg.family == "hybrid" and cfg.ssm_version != 2:
         raise NotImplementedError(
             f"{cfg.name}: a hybrid of ssm_version={cfg.ssm_version} blocks "
@@ -111,9 +125,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "ssm" and cfg.ssm_version not in (1, 2):
         raise NotImplementedError(
             f"{cfg.name}: ssm_version={cfg.ssm_version} is not ported yet")
-    if not cfg.embed_inputs:
-        raise NotImplementedError(f"{cfg.name}: embedding inputs are not "
-                                  f"ported yet")
 
 
 REMATS = ("none", "nothing_saveable", "dots_saveable")
@@ -171,22 +182,24 @@ def _flatten(tree, prefix: str = ""):
 
 def load_jax_params(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree of ``cfg`` (array leaves, layer
-    leaves stacked ``(L, ...)`` under ``"layers"``, or ``(L / k, k, ...)``
-    with ``k = transformer.layer_groups(cfg)``: a hybrid's groups beside its
-    ``"shared_attn"``, local_global's (local, global) pairs) as a state
-    dict of ``Model``, with the layers unstacked into ``layers.<i>.<path>``
-    (group g's j-th block is layer ``g * k + j``) and the rest as it is;
-    CPU tensors."""
-    stacked = 1 if tf.layer_groups(cfg) == 1 else 2
+    leaves under ``"layers"`` stacked by ``transformer.layer_stack(cfg)``:
+    ``(L, ...)``, a hybrid's ``(L / k, k, ...)`` groups beside its
+    ``"shared_attn"``, local_global's (local, global) pairs, a vlm's ``(g,
+    k - 1, ...)`` self blocks beside its ``(g, ...)`` ``"cross"`` blocks)
+    as a state dict of ``Model``: the layers unstacked into
+    ``layers.<i>.<path>`` (group g's j-th block is layer ``g * k + j``),
+    the cross blocks into ``cross.<g>.<path>``, the rest as it is; CPU
+    tensors."""
+    stacked = {"layers.": len(tf.layer_stack(cfg)), "cross.": 1}
     out: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(tree):
         arr = np.asarray(leaf)
-        if name.startswith("layers."):
-            path = name[len("layers."):]
-            arr = arr.reshape((-1,) + arr.shape[stacked:])
+        top = name[:name.index(".") + 1] if "." in name else name
+        if top in stacked:
+            path = name[len(top):]
+            arr = arr.reshape((-1,) + arr.shape[stacked[top]:])
             for i in range(arr.shape[0]):
-                out[f"layers.{i}.{path}"] = torch.from_numpy(
-                    np.array(arr[i]))
+                out[f"{top}{i}.{path}"] = torch.from_numpy(np.array(arr[i]))
         else:
             out[name] = torch.from_numpy(np.array(arr))
     return out
@@ -225,7 +238,11 @@ class Model(nn.Module):
                 self.register_parameter(k, nn.Parameter(v))
         self.layers = nn.ModuleList(
             ParamTree(init_from_defs(tf.layer_defs(cfg), gen, pdt))
-            for _ in range(cfg.n_layers))
+            for _ in range(math.prod(tf.layer_stack(cfg))))
+        if cfg.family == "vlm":
+            self.cross = nn.ModuleList(
+                ParamTree(init_from_defs(tf.cross_block_defs(cfg), gen, pdt))
+                for _ in range(cfg.n_layers // cfg.cross_attn_period))
 
     def load_jax_params(self, tree) -> "Model":
         """Copy the reference's parameter tree into this model."""
@@ -233,10 +250,13 @@ class Model(nn.Module):
         return self
 
     def _attn_layout(self, i: int):
-        """Layer ``i``'s attention in a dense or moe model: (the suffix of
-        its cache leaves' names, its index along their layer axis, its
-        window or None)."""
+        """Layer ``i``'s attention in a dense, moe, audio or vlm model: (the
+        suffix of its cache leaves' names, its index along their layer
+        axis, its window or None; a vlm's self blocks attend in full under
+        any schedule, as the reference's vlm branch runs them)."""
         cfg = self.cfg
+        if cfg.family == "vlm":
+            return "", i, None
         if cfg.attention == "swa":
             return "", i, cfg.window
         if cfg.attention == "local_global":
@@ -249,13 +269,27 @@ class Model(nn.Module):
         """Token ids or positions (numpy or torch) as int64 on the device."""
         return torch.as_tensor(x, device=self.device).to(torch.int64)
 
+    def _project(self, x) -> torch.Tensor:
+        """Embeddings or media (numpy or torch, (B, n, media_embed_dim))
+        through ``projector``, in the compute dtype."""
+        x = torch.as_tensor(x, device=self.device).to(self.dtype)
+        return x @ self.projector.to(self.dtype)
+
     def _embed(self, batch):
         cfg = self.cfg
-        x = F.embedding(self._index(batch["tokens"]), self.embed).to(
-            self.dtype)
+        if cfg.embed_inputs:
+            x = F.embedding(self._index(batch["tokens"]), self.embed).to(
+                self.dtype)
+        else:
+            x = self._project(batch["embeddings"])
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
         return x
+
+    def _media(self, batch):
+        """A vlm batch's media (B, M, media_embed_dim) projected to
+        (B, M, d_model)."""
+        return self._project(batch["media"])
 
     def logits(self, hidden):
         cfg = self.cfg
@@ -282,7 +316,25 @@ class Model(nn.Module):
         positions = torch.arange(S, device=self.device).expand(B, S)
         cache_len = cache_len or S
         cache, aux = None, {}
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family == "vlm":
+            k = tf.layer_groups(cfg)
+            media = self._media(batch)
+            kvs, mkvs = [], []
+            for g in range(len(self.cross)):
+                x, group_kvs, mkv = remat(functools.partial(
+                    self._vlm_group, g=g, k=k, positions=positions),
+                    self.plan)(x, media)
+                if build_cache:
+                    kvs += [_build_layer_cache(kv[0], kv[1], positions,
+                                               cache_len, None, self.dtype)
+                            for kv in group_kvs]
+                    mkvs.append(mkv)
+            if build_cache:
+                cache = {name: torch.stack(leaves)
+                         for name, leaves in zip(KV_NAMES, zip(*kvs))}
+                cache["media_k"] = torch.stack([m[0] for m in mkvs])
+                cache["media_v"] = torch.stack([m[1] for m in mkvs])
+        elif cfg.family in ("ssm", "hybrid"):
             # an ssm model is one group per layer with no shared block
             k = cfg.hybrid_period if cfg.family == "hybrid" else 1
             conv, ssm, kvs = [], [], []
@@ -346,6 +398,15 @@ class Model(nn.Module):
             auxs.append(aux_l)
         return x, kvs, auxs
 
+    def _vlm_group(self, x, media, *, g: int, k: int, positions):
+        """A vlm's group ``g``: self blocks ``g*k .. g*k+k-1``, then cross
+        block ``g`` onto the media.  Returns (x, [(k, v) per self block],
+        the cross block's media (k, v))."""
+        x, kvs, _ = self._dense_group(x, g=g, k=k, positions=positions)
+        p = self.cross[g]
+        mkv = tf.media_kv_for(p["attn"], media, self.cfg)
+        return tf.cross_attn_block(p, x, mkv, self.cfg), kvs, mkv
+
     def _mamba_group(self, x, *, g: int, k: int, positions):
         """Group ``g``: Mamba blocks ``g*k .. g*k+k-1``, then a hybrid's
         shared attention block.  Returns (x, [(conv, ssm) state per
@@ -370,9 +431,10 @@ class Model(nn.Module):
 
     # ============================ decode =============================== #
     def decode_step(self, cache, inputs, q_pos):
-        """inputs: {"tokens": (B, 1)}; q_pos: (B,) position of the new
-        token.  Returns (logits (B, V) f32, cache), the cache's tensors
-        updated in place."""
+        """inputs: {"tokens": (B, 1)} (the audio family's {"embeddings":
+        (B, 1, media_embed_dim)}); q_pos: (B,) position of the new token.
+        Returns (logits (B, V) f32, cache), the cache's tensors updated in
+        place (a vlm's media K/V are read, not written)."""
         cfg = self.cfg
         q_pos = self._index(q_pos)
         x = self._embed(inputs)
@@ -391,12 +453,18 @@ class Model(nn.Module):
                                                  self.plan, layer_cache,
                                                  q_pos)
         else:
+            k = tf.layer_groups(cfg)
             for i, p in enumerate(self.layers):
                 sfx, j, window = self._attn_layout(i)
                 layer_cache = {n: cache[n + sfx][j] for n in KV_NAMES}
                 x, _ = tf.dense_block_decode(p, x, cfg, self.plan,
                                              layer_cache, q_pos,
                                              window=window)
+                if cfg.family == "vlm" and (i + 1) % k == 0:
+                    g = i // k
+                    x = tf.cross_attn_block(
+                        self.cross[g], x,
+                        (cache["media_k"][g], cache["media_v"][g]), cfg)
         cache["pos"] = q_pos + 1
         logits = self.logits(x)[:, 0]
         return logits, cache
@@ -430,6 +498,13 @@ class Model(nn.Module):
             if cfg.family == "hybrid":
                 out.update(kv_cache(L // cfg.hybrid_period))
             return out
+        if cfg.family == "vlm":
+            g, M = cfg.n_layers // cfg.cross_attn_period, cfg.n_media_tokens
+            return {**kv_cache(len(self.layers)),
+                    **{name: torch.zeros((g, B, M, KV, hd), dtype=dt,
+                                         device=dev)
+                       for name in ("media_k", "media_v")},
+                    "pos": pos}
         window = min(cache_len, cfg.window or cache_len)
         if cfg.attention == "local_global":
             return {**kv_cache(L // 2, window, "_local"), **kv_cache(L // 2),

@@ -1,26 +1,35 @@
-"""Decoder blocks of the dense, moe, ssm and hybrid families, and their
-parameter definitions (the port of ``repro.models.transformer``).
+"""Decoder blocks of the six families (dense, moe, ssm, hybrid, audio,
+vlm), and their parameter definitions (the port of
+``repro.models.transformer``).
 
 ``model_defs`` gives the reference's parameter tree with its stacked
-layer leaves (``(L, ...)``; the hybrid's ``(L / k, k, ...)`` groups of
-``k = hybrid_period`` Mamba2 blocks beside one unstacked ``shared_attn``
-block; local_global's ``(L / 2, 2, ...)`` (local, global) pairs); the
-port's ``Model`` holds one module per layer and loops over them in Python
-where the reference runs ``lax.scan``.  Block functions
-take ``p`` as anything indexable by the reference's keys (a ``ParamTree``
-module or a nested dict).  On one device the reference's
-``plan.constrain`` is the identity and its column/row-parallel
-projections are ``x @ w.astype(x.dtype)``, written out here.
+layer leaves (``layer_stack(cfg)`` leading dims: ``(L, ...)``; the
+hybrid's ``(L / k, k, ...)`` groups of ``k = hybrid_period`` Mamba2
+blocks beside one unstacked ``shared_attn`` block; local_global's
+``(L / 2, 2, ...)`` (local, global) pairs; the vlm's ``(g, k - 1, ...)``
+self-attention blocks, ``k = cross_attn_period``, beside ``cross``, its
+g gated cross-attention blocks ``(g, ...)``); the port's ``Model`` holds
+one module per block and loops over them in Python where the reference
+runs ``lax.scan``.  Block functions take ``p`` as anything indexable by
+the reference's keys (a ``ParamTree`` module or a nested dict).  On one
+device the reference's ``plan.constrain`` is the identity and its
+column/row-parallel projections are ``x @ w.astype(x.dtype)``, written
+out here.
 
 Each block runs in two modes: full sequence (prefill, returning the K/V
 or SSM state for the cache) and one-token decode against a cache.  A moe
 block is a dense block whose MLP is ``moe.moe_ffn``; a Mamba block runs
-the Mamba1 or the Mamba2 mixer by ``cfg.ssm_version``.  The vlm and
-audio blocks wait for later slices.
+the Mamba1 or the Mamba2 mixer by ``cfg.ssm_version``.  The audio family
+runs dense blocks on projected frame embeddings (no ``embed``).  A vlm
+cross-attention block (``cross_attn_block``) attends from the text onto
+the projected media's K/V (``media_kv_for``, no RoPE), its attention and
+MLP residuals gated by ``tanh`` of 0-d parameters.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
+
+import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -32,7 +41,7 @@ from repro_torch.sharding import ParamDef, stack_defs
 
 # =========================== parameter definitions ========================= #
 
-def attn_defs(cfg) -> Dict[str, ParamDef]:
+def attn_defs(cfg, *, cross: bool = False) -> Dict[str, ParamDef]:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {
         "wq": ParamDef((d, H * hd), ("embed", "heads")),
@@ -40,7 +49,7 @@ def attn_defs(cfg) -> Dict[str, ParamDef]:
         "wv": ParamDef((d, KV * hd), ("embed", "kv")),
         "wo": ParamDef((H * hd, d), ("heads", "embed"), init="scaled"),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm or cross:
         out["q_norm"] = ParamDef((hd,), (None,), init="zeros")
         out["k_norm"] = ParamDef((hd,), (None,), init="zeros")
     return out
@@ -79,6 +88,21 @@ def block_defs(cfg, *, moe: bool = False) -> Dict[str, Any]:
     return out
 
 
+def cross_block_defs(cfg) -> Dict[str, Any]:
+    """A vlm cross-attention block: q from the text, k and v from the
+    media, QK-norm, an MLP, and the two 0-d gates (zeros at init, so a
+    fresh block adds nothing)."""
+    d = cfg.d_model
+    return {
+        "ln1": ParamDef((d,), (None,), init="zeros"),
+        "attn": attn_defs(cfg, cross=True),
+        "gate_attn": ParamDef((), (), init="zeros"),
+        "ln2": ParamDef((d,), (None,), init="zeros"),
+        "mlp": mlp_defs(cfg),
+        "gate_mlp": ParamDef((), (), init="zeros"),
+    }
+
+
 def mamba_defs(cfg) -> Dict[str, Any]:
     """Mamba block parameters: Mamba1's (``ssm_version == 1``) or
     Mamba2's."""
@@ -115,49 +139,71 @@ def mamba_defs(cfg) -> Dict[str, Any]:
 
 
 def layer_defs(cfg) -> Dict[str, Any]:
-    """One layer's parameter definitions for the families this port runs
-    (a hybrid's layers are its Mamba2 blocks)."""
+    """One layer's parameter definitions (a hybrid's layers are its
+    Mamba2 blocks, a vlm's its self-attention blocks)."""
     if cfg.family in ("ssm", "hybrid"):
         return mamba_defs(cfg)
     return block_defs(cfg, moe=cfg.is_moe)
 
 
 def top_defs(cfg) -> Dict[str, Any]:
-    """The parameters outside the layer stack (a hybrid's shared
-    attention block among them)."""
+    """The parameters outside the layer stacks: ``embed`` unless the
+    inputs are embeddings, ``head`` unless tied, the media or frame
+    ``projector``, a hybrid's shared attention block.  (A vlm's cross
+    blocks are ``cross_block_defs``, g of them.)"""
     d = cfg.d_model
-    out: Dict[str, Any] = {"final_ln": ParamDef((d,), (None,), init="zeros"),
-                           "embed": ParamDef((cfg.vocab_size, d),
-                                             ("vocab", "embed"))}
+    out: Dict[str, Any] = {"final_ln": ParamDef((d,), (None,), init="zeros")}
+    if cfg.embed_inputs:
+        out["embed"] = ParamDef((cfg.vocab_size, d), ("vocab", "embed"))
     if not cfg.tie_embeddings:
         out["head"] = ParamDef((d, cfg.vocab_size), ("embed", "vocab"),
                                init="scaled")
+    if cfg.media_embed_dim:
+        out["projector"] = ParamDef((cfg.media_embed_dim, d),
+                                    (None, "embed"), init="scaled")
     if cfg.family == "hybrid":
         out["shared_attn"] = block_defs(cfg)            # one shared block
     return out
 
 
-def layer_groups(cfg) -> int:
-    """k of the reference's ``(L / k, k, ...)`` layer stacking: a hybrid's
-    ``hybrid_period``, 2 for ``local_global``'s (local, global) pairs, 1
-    for a plain ``(L, ...)`` stack."""
+def layer_stack(cfg) -> Tuple[int, ...]:
+    """The leading dims of the reference's stacked layer leaves:
+    ``(L,)``, or ``(L / k, k)`` for a hybrid's groups of ``hybrid_period``
+    and local_global's (local, global) pairs, or ``(g, k - 1)`` for a
+    vlm's self blocks, ``g = L / k`` with ``k = cross_attn_period`` (so
+    L / k cross blocks and L - L / k self blocks: 32 of
+    llama-3.2-vision-11b's 40 layers)."""
+    L = cfg.n_layers
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_period
+        return (L // k, k - 1)
     if cfg.family == "hybrid":
-        return cfg.hybrid_period
-    if cfg.family in ("dense", "moe") and cfg.attention == "local_global":
-        return 2
-    return 1
+        return (L // cfg.hybrid_period, cfg.hybrid_period)
+    if cfg.family in ("dense", "moe", "audio") and \
+            cfg.attention == "local_global":
+        return (L // 2, 2)
+    return (L,)
+
+
+def layer_groups(cfg) -> int:
+    """Blocks a group of ``layer_stack(cfg)`` holds: its last dim, 1 for a
+    plain ``(L, ...)`` stack."""
+    stack = layer_stack(cfg)
+    return stack[-1] if len(stack) > 1 else 1
 
 
 def model_defs(cfg) -> Dict[str, Any]:
-    """Full parameter-definition tree, in the reference's layout (stacked
-    ``(L, ...)`` layer leaves under ``"layers"``; ``(L / k, k, ...)`` with
-    ``k = layer_groups(cfg)``: a hybrid's groups, local_global's pairs)."""
+    """Full parameter-definition tree, in the reference's layout (layer
+    leaves stacked by ``layer_stack(cfg)`` under ``"layers"``; a vlm's
+    cross blocks stacked ``(g, ...)`` under ``"cross"``)."""
     out = top_defs(cfg)
-    k = layer_groups(cfg)
     defs = layer_defs(cfg)
-    if k > 1:
-        defs = stack_defs(defs, k)
-    out["layers"] = stack_defs(defs, cfg.n_layers // k)
+    for n in reversed(layer_stack(cfg)):
+        defs = stack_defs(defs, n)
+    out["layers"] = defs
+    if cfg.family == "vlm":
+        out["cross"] = stack_defs(cross_block_defs(cfg),
+                                  cfg.n_layers // cfg.cross_attn_period)
     return out
 
 
@@ -227,6 +273,36 @@ def dense_block(p, x, cfg, plan, positions, *, window=None,
     x = x + o
     y, aux = ffn_block(p, x, cfg, plan)
     return x + y, kv, aux
+
+
+def cross_attn_block(p, x, media_kv, cfg, *, media_valid=None):
+    """Gated cross-attention block: pre-norm q from ``x`` (QK-norm, no
+    RoPE) onto the media's (k, v), then the MLP; each residual scaled by
+    ``tanh`` of its 0-d gate."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = (h @ p["attn"]["wq"].to(h.dtype)).reshape(B, S, H, hd)
+    if "q_norm" in p["attn"]:
+        q = rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
+    k, v = media_kv
+    o = attn.cross_attention(q, k, v, media_valid)
+    o = o.reshape(B, S, H * hd) @ p["attn"]["wo"].to(o.dtype)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
+    y = mlp_block(p, x, cfg)
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * y
+
+
+def media_kv_for(p_attn, media, cfg):
+    """A cross block's K/V (B, M, KV, hd) from the projected media
+    (B, M, d); k through the block's ``k_norm``."""
+    B, M, _ = media.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (media @ p_attn["wk"].to(media.dtype)).reshape(B, M, KV, hd)
+    if "k_norm" in p_attn:
+        k = rms_norm(k, p_attn["k_norm"], cfg.norm_eps)
+    v = (media @ p_attn["wv"].to(media.dtype)).reshape(B, M, KV, hd)
+    return k, v
 
 
 def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,

@@ -10,6 +10,12 @@ float32 gradients summed over the microbatches and averaged, as the
 reference's ``lax.scan`` does.  A train step queues its work and returns
 its metrics as 0-d tensors on the device; the only host syncs are the
 caller's reads of them.
+
+Batches are the model's (``models.model``): "tokens", or the audio
+family's "embeddings" (B, S, media_embed_dim), and a vlm's "media" (B, M,
+media_embed_dim), numpy arrays or tensors, which the model moves to its
+device; training batches add "labels".  A decode step's inputs are
+{"tokens": (B, 1)} or {"embeddings": (B, 1, media_embed_dim)}.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ class TrainState(NamedTuple):
 
 def make_loss_fn(model):
     """loss_fn(batch) -> (loss, metrics) through the model's parameters;
-    ``batch`` holds "tokens" and "labels" (numpy or tensors).  A moe
+    ``batch`` holds the model's inputs ("tokens", or "embeddings"; a vlm's
+    "media") and "labels" (numpy or tensors).  A moe
     model's loss adds ``moe_aux_total`` of its aux losses, which join the
     metrics."""
     cfg = model.cfg
@@ -113,6 +120,9 @@ def init_train_state(model, optimizer) -> TrainState:
 
 
 def make_prefill_step(model, cache_len: Optional[int] = None):
+    """prefill(batch) -> (last position's logits (B, V) float32, cache);
+    ``batch`` is the model's inputs (a vlm's "media" with its "tokens",
+    the audio family's "embeddings")."""
     def prefill(batch):
         with torch.no_grad():
             return model.prefill(batch, cache_len=cache_len)
@@ -120,6 +130,9 @@ def make_prefill_step(model, cache_len: Optional[int] = None):
 
 
 def make_decode_step(model):
+    """decode(cache, inputs, q_pos) -> (logits (B, V) float32, cache);
+    ``inputs`` is {"tokens": (B, 1)} or the audio family's
+    {"embeddings": (B, 1, media_embed_dim)}."""
     def decode(cache, inputs, q_pos):
         with torch.no_grad():
             return model.decode_step(cache, inputs, q_pos)

@@ -1,5 +1,5 @@
-"""The port's attention pieces of the swa and local_global schedules
-against the reference's, on the CPU.
+"""The port's attention pieces of the swa and local_global schedules,
+and the vlm's cross attention, against the reference's, on the CPU.
 
 ``tests/test_attention_jnp.py``'s window, softcap, decode and rolling
 ``write_cache`` cases, with the same numpy-drawn inputs through the
@@ -14,6 +14,12 @@ a prompt of 16 and 32 positions, the port's prefill and decode against
 the reference's full forward (1e-3), its rolling cache exactly ``window``
 slots.  The reference's ``dense`` / ``causal_skip`` block schedules belong
 to its jnp dry-run path and have no counterpart in the port.
+``models.attention.cross_attention`` against the reference's (plain jnp
+in both: unmasked attention onto M media positions, optionally masked by
+``media_valid``) over query groups G of 1, 2 and 4, one or 16 query
+positions and M of 8 and 37, in float32 (2e-5) and bfloat16 (2e-2: the
+probabilities round to bfloat16 before the second product, where the
+packages' float32 exponentials may differ by an ulp).
 """
 import dataclasses
 
@@ -199,3 +205,39 @@ def test_rolling_window_cache_smaller_than_context():
             assert cache["k"].shape[2] == cfg.window
             assert sorted(cache["slot_pos"][0, 0].tolist()) == \
                 list(range(t + 1 - cfg.window, t + 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("Sq,M", [(1, 8), (16, 37), (1, 37), (16, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_attention_matches_reference(dtype, G, Sq, M, masked):
+    rng = np.random.default_rng(G * 100 + Sq * 10 + M)
+    B, KV, hd = 2, 2, 16
+    q = rng.standard_normal((B, Sq, KV * G, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, M, KV, hd)).astype(np.float32)
+            for _ in range(2))
+    valid = None
+    if masked:
+        valid = rng.random((B, M)) < 0.7
+        valid[:, 0] = True              # every row attends somewhere
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = RA.cross_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                              None if valid is None else jnp.asarray(valid))
+    got = A.cross_attention(*(torch.from_numpy(x).to(tdt)
+                              for x in (q, k, v)),
+                            None if valid is None else
+                            torch.from_numpy(valid))
+    assert got.dtype == tdt and got.shape == (B, Sq, KV * G, hd)
+    tol = TOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+    if masked:
+        # a masked media position changes nothing
+        k2 = k.copy()
+        k2[~valid] = 100.0
+        again = A.cross_attention(*(torch.from_numpy(x).to(tdt)
+                                    for x in (q, k2, v)),
+                                  torch.from_numpy(valid))
+        assert torch.equal(again, got)

@@ -40,6 +40,8 @@ from repro_torch.kernels import ref
 from repro_torch.launch.serve import serve
 from repro_torch.service import StreamingPlannerService, poisson_trace
 
+from fixtures_torch_media import inputs, open_gates
+
 pytestmark = pytest.mark.cuda
 
 
@@ -495,6 +497,89 @@ def test_swa_local_global_smoke_train_and_serve_on_card(dev, arch):
                                    cpu["first_logits"], atol=1e-4,
                                    rtol=1e-4)
     assert fa.flash_attention.launches > before
+
+
+# musicgen-medium's heads (24:24, hd 64: group size 1 on the tensor-core
+# kernel in bfloat16), causal and not
+VLM_AUDIO_ATTN = [(2, 256, 24, 24, 64, {}), (1, 130, 24, 24, 64, {}),
+                  (1, 77, 24, 24, 64, dict(causal=False))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,KV,hd,opts", VLM_AUDIO_ATTN)
+def test_vlm_audio_attention_matches_plain(dev, dtype, tol, B, S, H, KV, hd,
+                                           opts):
+    """K7 at musicgen's heads, forward (one launch) and under autograd
+    against autograd through attention_ref."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=g,
+                               device=dev).to(dtype) for n in (H, KV, KV, H))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **opts)
+    want = ref.attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    out = {}
+    for name, fn in (("kernel", lambda *a: fa.FlashAttention.apply(
+            *a, opts.get("causal", True), None, None)),
+            ("plain", lambda *a: ref.attention_ref(*a, **opts))):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*xs)
+        out[name] = (o,) + torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
+def test_vlm_audio_smoke_train_and_serve_on_card(dev, arch):
+    """The vlm's and musicgen's smoke models in float32 on the card
+    against the same models (parameters drawn on the CPU, the vlm's cross
+    gates set non-zero: ``open_gates``) on the CPU: one train step (loss, gradient norm; K7
+    launched once a self block), then a Model-API prefill of 4 prompts of
+    16 and 4 decode steps (the vlm's greedy tokens, musicgen's seeded
+    frames): logits within 1e-4, the vlm's tokens equal."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import (init_train_state, make_decode_step,
+                                           make_prefill_step, make_train_step)
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    model = open_gates(build_model(cfg, device="cpu", seed=1))
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = inputs(cfg, seed=0, B=2, S=40)
+    batch["labels"] = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                        (2, 40))
+    B, P, new = 4, 16, 4
+    wave = inputs(cfg, seed=1, B=B, S=P)
+    frames = inputs(cfg, seed=2, B=B, S=new).get("embeddings")
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(params)
+        opt = AdamW(lr=1e-3)
+        before = fa.flash_attention.launches
+        _, m = make_train_step(model, opt)(init_train_state(model, opt),
+                                           batch)
+        launched = fa.flash_attention.launches - before
+        assert launched == (len(model.layers) if device == "cuda" else 0)
+        model.load_state_dict(params)
+        logits, cache = make_prefill_step(model, cache_len=P + new)(wave)
+        decode, out = make_decode_step(model), [logits.cpu()]
+        for t in range(new):
+            step = {"embeddings": frames[:, t:t + 1]} if frames is not None \
+                else {"tokens": out[-1].argmax(-1)[:, None].numpy()}
+            logits, cache = decode(cache, step, np.full(B, P + t))
+            out.append(logits.cpu())
+        got[device] = ({k: float(v) for k, v in m.items()}, out)
+    assert got["cuda"][0]["loss"] == pytest.approx(got["cpu"][0]["loss"],
+                                                   rel=1e-5)
+    assert got["cuda"][0]["grad_norm"] == pytest.approx(
+        got["cpu"][0]["grad_norm"], rel=1e-4)
+    for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
 
 
 @functools.lru_cache(maxsize=1)

@@ -159,6 +159,19 @@ def test_serve_and_build_model_raise_without_gpu(no_gpu):
     assert main(argv + ["--device", "cpu"]) == 0
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
+def test_media_families_build_on_the_cpu_only_when_asked(no_gpu, arch):
+    """The vlm and audio families build on the CPU when asked for it and
+    raise without a GPU otherwise, as every other family does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model, check_supported
+    check_supported(get_config(arch))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        build_model(get_config(arch).smoke())
+    assert build_model(get_config(arch).smoke(),
+                       device="cpu").final_ln.device.type == "cpu"
+
+
 def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path,
                                                  monkeypatch):
     from repro_torch.configs import get_config

@@ -9,9 +9,17 @@ followed by the one shared attention block, K7 at smoke size),
 windowed, rolling caches) and ``gemma2-9b`` (dense, local_global: (local,
 global) layer pairs, attention and final softcaps, geglu, post-norms;
 also at 4 layers, two pairs, so a pair unstacked in the wrong order
-shows) configs,
+shows), ``llama-3.2-vision-11b`` (vlm: groups of self-attention blocks,
+each followed by a gated cross-attention block onto projected media; at
+smoke size 5 groups of one self block, and also at 10 layers with a
+cross-attention period of 5, two groups of four, so a self block
+unstacked in the wrong order shows) and ``musicgen-medium`` (audio:
+dense blocks on projected frame embeddings, no ``embed``) configs,
 the reference's parameters are carried across with ``load_jax_params`` and
-the same numpy-drawn tokens go through both.  In float32: full-forward
+the same numpy-drawn tokens (frame embeddings, media) go through both.
+The vlm's cross blocks' gates initialise to zero, which makes them add
+nothing; every vlm case sets them to the same non-zero values in both
+packages first (``_open_gates``, ``open_gates``).  In float32: full-forward
 logits and prefill logits within 1e-4, and 8 teacher-forced decode steps
 within 1e-3 (the tolerances of ``tests/test_decode_consistency.py``; the
 port's attention and scan sum in other orders than the reference's jnp
@@ -39,29 +47,61 @@ from repro_torch.models.model import (_flatten, build_model, check_supported,
                                       load_jax_params)
 from repro_torch.models.transformer import model_defs
 
+from fixtures_torch_media import gate_values, inputs, open_gates
+
+VLM, AUDIO = "llama-3.2-vision-11b", "musicgen-medium"
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
-         "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b"]
-# (arch, n_layers or None for the smoke depth): gemma2 also at two pairs
-CASES = [(a, None) for a in ARCHS] + [("gemma2-9b", 4)]
-CASE_IDS = [a if n is None else f"{a}-{n}L" for a, n in CASES]
+         "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b", VLM, AUDIO]
+# (arch, overrides of its smoke config): gemma2 also at two pairs, the vlm
+# also at two groups of four self blocks
+SMALL = {"gemma2-9b-4L": ("gemma2-9b", dict(n_layers=4)),
+         "llama-3.2-vision-11b-10L-k5": (VLM, dict(n_layers=10,
+                                                   cross_attn_period=5))}
+CASES = [(a, {}) for a in ARCHS] + list(SMALL.values())
+CASE_IDS = ARCHS + list(SMALL)
 B, S, P = 2, 24, 16
 
 
-def _smoke(registry, arch, n_layers=None, **kw):
-    cfg = registry[arch].smoke()
-    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, **kw)
+def _smoke(registry, arch, **kw):
+    return dataclasses.replace(registry[arch].smoke(), **kw)
 
 
-def _pair(arch, dtype="float32", n_layers=None):
-    rcfg = _smoke(RREGISTRY, arch, n_layers, dtype=dtype)
-    cfg = _smoke(REGISTRY, arch, n_layers, dtype=dtype)
+def _open_gates(params, cfg):
+    """The reference's vlm parameters with its cross blocks' gates set to
+    ``gate_values`` (other families' as they are)."""
+    if cfg.family != "vlm":
+        return params
+    ga, gm = gate_values(cfg)
+    cross = dict(params["cross"], gate_attn=jnp.asarray(ga),
+                 gate_mlp=jnp.asarray(gm))
+    return dict(params, cross=cross)
+
+
+def step_inputs(batch, t):
+    """Decode inputs at position t: its token, or its frame embedding."""
+    key = "tokens" if "tokens" in batch else "embeddings"
+    return {key: batch[key][:, t:t + 1]}
+
+
+def prefix(batch, n):
+    """The batch's first n positions (a vlm's media whole)."""
+    return {k: v if k == "media" else v[:, :n] for k, v in batch.items()}
+
+
+def jx(batch):
+    return {k: jnp.asarray(v, jnp.int32 if k == "tokens" else jnp.float32)
+            for k, v in batch.items()}
+
+
+def _pair(arch, dtype="float32", **over):
+    rcfg = _smoke(RREGISTRY, arch, dtype=dtype, **over)
+    cfg = _smoke(REGISTRY, arch, dtype=dtype, **over)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
     rmodel = rbuild(rcfg)
-    params = rmodel.init(jax.random.PRNGKey(0))
+    params = _open_gates(rmodel.init(jax.random.PRNGKey(0)), cfg)
     model = build_model(cfg, device="cpu").load_jax_params(
         jax.tree_util.tree_map(np.asarray, params))
-    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))
-    return rmodel, params, model, toks
+    return rmodel, params, model, inputs(cfg)
 
 
 def _np(x):
@@ -69,14 +109,14 @@ def _np(x):
                       np.float32)
 
 
-@pytest.mark.parametrize("arch,n_layers", CASES, ids=CASE_IDS)
-def test_forward_prefill_decode_match_reference(arch, n_layers):
-    rmodel, params, model, toks = _pair(arch, n_layers=n_layers)
-    jt = jnp.asarray(toks, jnp.int32)
+@pytest.mark.parametrize("arch,over", CASES, ids=CASE_IDS)
+def test_forward_prefill_decode_match_reference(arch, over):
+    rmodel, params, model, batch = _pair(arch, **over)
+    jb = jx(batch)
     with torch.no_grad():
-        rh, raux, _ = rmodel.forward(params, {"tokens": jt})
+        rh, raux, _ = rmodel.forward(params, jb)
         rlog = np.asarray(rmodel.logits(params, rh))
-        h, aux, _ = model.forward({"tokens": toks})
+        h, aux, _ = model.forward(batch)
         np.testing.assert_allclose(_np(model.logits(h)), rlog, atol=1e-4,
                                    rtol=1e-4)
         assert sorted(aux) == sorted(raux)
@@ -85,17 +125,15 @@ def test_forward_prefill_decode_match_reference(arch, n_layers):
                                                   rel=1e-6), k
         assert bool(aux) == model.cfg.is_moe
 
-        rl, rcache = rmodel.prefill(params, {"tokens": jt[:, :P]},
-                                    cache_len=S)
-        tl, cache = model.prefill({"tokens": toks[:, :P]}, cache_len=S)
+        rl, rcache = rmodel.prefill(params, prefix(jb, P), cache_len=S)
+        tl, cache = model.prefill(prefix(batch, P), cache_len=S)
         np.testing.assert_allclose(_np(tl), np.asarray(rl), atol=1e-4,
                                    rtol=1e-4)
         for t in range(P, P + 8):
             q_pos = np.full((B,), t, np.int32)
             rl, rcache = rmodel.decode_step(
-                params, rcache, {"tokens": jt[:, t:t + 1]},
-                jnp.asarray(q_pos))
-            tl, cache = model.decode_step(cache, {"tokens": toks[:, t:t + 1]},
+                params, rcache, step_inputs(jb, t), jnp.asarray(q_pos))
+            tl, cache = model.decode_step(cache, step_inputs(batch, t),
                                           q_pos)
             np.testing.assert_allclose(_np(tl), np.asarray(rl), atol=1e-3,
                                        rtol=1e-3, err_msg=f"t={t}")
@@ -106,20 +144,50 @@ def test_prefill_decode_matches_own_forward(arch):
     """The serving invariant on the port alone: prefill + step-by-step
     decode reproduce its full forward's logits (float32; for the moe
     model with ample capacity, as tests/test_decode_consistency.py runs
-    it: a shorter prefill drops other slots than the full forward)."""
+    it: a shorter prefill drops other slots than the full forward; the
+    vlm's gates opened)."""
     cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32",
                               capacity_factor=8.0)
-    model = build_model(cfg, device="cpu", seed=3)
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    model = open_gates(build_model(cfg, device="cpu", seed=3))
+    batch = inputs(cfg, seed=1)
     with torch.no_grad():
-        h, _, _ = model.forward({"tokens": toks})
+        h, _, _ = model.forward(batch)
         ref = model.logits(h)
-        logits, cache = model.prefill({"tokens": toks[:, :P]}, cache_len=S)
+        logits, cache = model.prefill(prefix(batch, P), cache_len=S)
         assert float((logits - ref[:, P - 1]).abs().max()) < 1e-4
         for t in range(P, S):
             logits, cache = model.decode_step(
-                cache, {"tokens": toks[:, t:t + 1]}, np.full((B,), t))
+                cache, step_inputs(batch, t), np.full((B,), t))
             assert float((logits - ref[:, t]).abs().max()) < 1e-3, f"t={t}"
+
+
+def test_vlm_logits_depend_on_media_when_gated():
+    """The vlm's text logits change with its media when the cross blocks'
+    gates are non-zero, and do not when they are zero (as initialised:
+    tanh(0) = 0 scales every cross block's contribution away), in the
+    port and in the reference alike."""
+    rmodel, params, model, batch = _pair(VLM)
+    other = dict(batch, media=np.zeros_like(batch["media"]))
+    cross = params["cross"]
+    shut = dict(params, cross=dict(
+        cross, gate_attn=jnp.zeros_like(cross["gate_attn"]),
+        gate_mlp=jnp.zeros_like(cross["gate_mlp"])))
+    with torch.no_grad():
+        got = [_np(model.logits(model.forward(b)[0])) for b in (batch, other)]
+        want = [np.asarray(rmodel.logits(params, rmodel.forward(
+            params, jx(b))[0])) for b in (batch, other)]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4)
+        assert np.abs(got[0] - got[1]).max() > 1e-2
+        model.load_jax_params(jax.tree_util.tree_map(np.asarray, shut))
+        for blk in model.cross:
+            assert float(blk.gate_attn) == float(blk.gate_mlp) == 0.0
+        got = [_np(model.logits(model.forward(b)[0])) for b in (batch, other)]
+        want = [np.asarray(rmodel.logits(shut, rmodel.forward(
+            shut, jx(b))[0])) for b in (batch, other)]
+    assert np.array_equal(got[0], got[1])
+    assert np.array_equal(want[0], want[1])
+    np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=1e-4)
 
 
 # zamba2's whole bfloat16 forward is held block by block instead
@@ -133,16 +201,21 @@ def test_prefill_decode_matches_own_forward(arch):
 # batch's nearest ties between the 2nd and 3rd expert (probability gaps
 # 2.5e-4 and 3.7e-4), which a one-ulp difference upstream flips: those
 # tokens' logits differ by up to 0.22, and the later tokens that attend
-# to them by ~0.06
-BF16_WHOLE = [a for a in ARCHS if a not in ("zamba2-2.7b", "mixtral-8x7b")]
+# to them by ~0.06.  And so is the vlm's (test_bf16_vlm_blocks_match_
+# reference): its 5 self and 5 gated cross blocks each agree within one or
+# two bfloat16 ulps, but on these inputs the port's bfloat16 logits and
+# the reference's lie 0.0356 and 0.0387 from the reference's float32
+# logits, in other places, so 0.0373 from each other (measured)
+BF16_WHOLE = [a for a in ARCHS if a not in ("zamba2-2.7b", "mixtral-8x7b",
+                                            VLM)]
 
 
 @pytest.mark.parametrize("arch", BF16_WHOLE)
 def test_bf16_forward_matches_reference(arch):
-    rmodel, params, model, toks = _pair(arch, dtype="bfloat16")
+    rmodel, params, model, batch = _pair(arch, dtype="bfloat16")
     with torch.no_grad():
-        rh, _, _ = rmodel.forward(params, {"tokens": jnp.asarray(toks)})
-        h, _, _ = model.forward({"tokens": toks})
+        rh, _, _ = rmodel.forward(params, jx(batch))
+        h, _, _ = model.forward(batch)
         assert h.dtype == torch.bfloat16
         got, want = _np(model.logits(h)), np.asarray(rmodel.logits(params, rh))
     assert np.isfinite(got).all()
@@ -211,6 +284,42 @@ def test_bf16_moe_blocks_match_reference():
                                    atol=2e-2, rtol=2e-2)
 
 
+def test_bf16_vlm_blocks_match_reference():
+    """The vlm's pieces in bfloat16, each on the same bfloat16 input as
+    the reference's, to the bfloat16 tolerance above: the media's
+    projection and a cross block's K/V (exactly equal), a self-attention
+    block, and a gated cross block (opened gates)."""
+    from repro.models import transformer as rtf
+    from repro.sharding import single_device_plan as rplan
+    from repro_torch.models import transformer as tf
+    rmodel, params, model, batch = _pair(VLM, dtype="bfloat16")
+    cfg = model.cfg
+    x = np.random.default_rng(3).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+    xj, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    p0 = jax.tree_util.tree_map(lambda a: a[0, 0], params["layers"])
+    c0 = jax.tree_util.tree_map(lambda a: a[0], params["cross"])
+
+    def close(got, want):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   atol=2e-2, rtol=2e-2)
+    with torch.no_grad():
+        rmedia = rmodel._media(params, jx(batch))
+        media = model._media(batch)
+        assert np.array_equal(_np(media), np.asarray(rmedia, np.float32))
+        rkv = rtf.media_kv_for(c0["attn"], rmedia, rmodel.cfg, rplan())
+        kv = tf.media_kv_for(model.cross[0]["attn"], media, cfg)
+        for got, want in zip(kv, rkv):
+            assert np.array_equal(_np(got), np.asarray(want, np.float32))
+        close(tf.dense_block(model.layers[0], xt, cfg, model.plan,
+                             torch.arange(S).expand(B, S))[0],
+              rtf.dense_block(p0, xj, rmodel.cfg, rplan(), pos)[0])
+        close(tf.cross_attn_block(model.cross[0], xt, kv, cfg),
+              rtf.cross_attn_block(c0, xj, rkv, rmodel.cfg, rplan()))
+
+
 def test_moe_prefill_decode_matches_reference_forward():
     """tests/test_decode_consistency.py's qwen3-moe-30b-a3b case across
     the packages: the port's prefill and decode steps reproduce the
@@ -239,8 +348,8 @@ def test_moe_prefill_decode_matches_reference_forward():
 
 
 def test_load_jax_params_names_and_shapes():
-    for arch, n_layers in CASES:
-        cfg = _smoke(REGISTRY, arch, n_layers)
+    for arch, over in CASES:
+        cfg = _smoke(REGISTRY, arch, **over)
         # the port's parameter definitions are the reference's
         rdefs = jax.tree_util.tree_flatten_with_path(
             rmodel_defs(cfg), is_leaf=lambda x: isinstance(x, RParamDef))[0]
@@ -259,25 +368,56 @@ def test_load_jax_params_names_and_shapes():
         leaves = {"ssm": ["in_proj"], "dense": ["attn.wq"],
                   "moe": ["attn.wq", "moe.router", "moe.w1", "moe.w2",
                           "moe.w3"],
-                  "hybrid": ["in_proj_xz", "in_proj_dt", "norm"]}[cfg.family]
+                  "hybrid": ["in_proj_xz", "in_proj_dt", "norm"],
+                  "vlm": ["attn.wq", "ln1", "mlp.w2"],
+                  "audio": ["attn.wk", "mlp.w1"]}[cfg.family]
         if cfg.attention == "local_global":
             leaves += ["ln1p", "mlp.w3"]
         # a hybrid's (g, k, ...) leaves: group g's j-th block is layer
         # g * k + j; local_global's (L / 2, 2, ...): pair g's local block
-        # is layer 2g, its global block 2g + 1
+        # is layer 2g, its global block 2g + 1; a vlm's (g, k - 1, ...)
+        # self blocks: group g's j-th is layer g * (k - 1) + j
         k = cfg.hybrid_period if cfg.family == "hybrid" else \
-            2 if cfg.attention == "local_global" else 1
+            2 if cfg.attention == "local_global" else \
+            cfg.cross_attn_period - 1 if cfg.family == "vlm" else 1
+        n = cfg.n_layers - (cfg.n_layers // cfg.cross_attn_period
+                            if cfg.family == "vlm" else 0)
+        deep = k > 1 or cfg.family == "vlm"
+        assert len(model.layers) == n
         for name in leaves:
             stacked = params["layers"]
             for key in name.split("."):
                 stacked = stacked[key]
             stacked = np.asarray(stacked)
-            assert stacked.shape[:2 if k > 1 else 1] == \
-                ((cfg.n_layers // k, k) if k > 1 else (cfg.n_layers,))
-            for i in range(cfg.n_layers):
-                want = stacked[divmod(i, k)] if k > 1 else stacked[i]
+            assert stacked.shape[:2 if deep else 1] == \
+                ((n // k, k) if deep else (n,))
+            for i in range(n):
+                want = stacked[divmod(i, k)] if deep else stacked[i]
                 assert np.array_equal(state[f"layers.{i}.{name}"].numpy(),
                                       want)
+        # the vlm's (g, ...) cross blocks: block g is cross.<g>, its 0-d
+        # gates among them; the projector of the vlm's media and the audio
+        # family's frames; no embed without token inputs
+        cross = [n for n in state if n.startswith("cross.")]
+        assert bool(cross) == (cfg.family == "vlm")
+        for name in cross:
+            g, path = name.split(".", 2)[1:]
+            leaf = params["cross"]
+            for key in path.split("."):
+                leaf = leaf[key]
+            assert np.array_equal(state[name].numpy(),
+                                  np.asarray(leaf)[int(g)])
+        if cross:
+            g = cfg.n_layers // cfg.cross_attn_period
+            assert len(model.cross) == g
+            assert {n.split(".")[1] for n in cross} == \
+                {str(i) for i in range(g)}
+            assert state["cross.0.gate_attn"].shape == ()
+        assert ("projector" in state) == bool(cfg.media_embed_dim)
+        assert ("embed" in state) == cfg.embed_inputs
+        if "projector" in state:
+            assert np.array_equal(state["projector"].numpy(),
+                                  np.asarray(params["projector"]))
         shared = [n for n in state if n.startswith("shared_attn.")]
         assert bool(shared) == (cfg.family == "hybrid")
         for name in shared:
@@ -287,12 +427,32 @@ def test_load_jax_params_names_and_shapes():
             assert np.array_equal(state[name].numpy(), np.asarray(leaf))
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError):
-        check_supported(get_config(arch))
-    with pytest.raises(NotImplementedError):
-        build_model(get_config(arch).smoke(), device="cpu")
+# parameters in the reference's tree at full size (its model_defs: the
+# vlm's 32 self and 8 cross blocks; ModelConfig.param_count() counts 40
+# self blocks beside the 8 cross ones, 11.52B, a quirk of the reference)
+FULL_PARAMS = {VLM: 9_780_402_192, AUDIO: 1_815_430_656}
+
+
+def _defs_count(defs) -> int:
+    return sum(int(np.prod(d.shape)) for _, d in _flatten(defs))
+
+
+@pytest.mark.parametrize("arch", [VLM, AUDIO])
+def test_param_counts_match_reference(arch):
+    """The port's model_defs hold as many parameters as the reference's,
+    at full size (from the definitions alone, nothing allocated) and at
+    smoke size, where the built Model holds as many too."""
+    def rcount(cfg):
+        leaves = jax.tree_util.tree_leaves(
+            rmodel_defs(cfg), is_leaf=lambda x: isinstance(x, RParamDef))
+        return sum(int(np.prod(d.shape)) for d in leaves)
+    full = get_config(arch)
+    assert _defs_count(model_defs(full)) == rcount(RREGISTRY[arch]) == \
+        FULL_PARAMS[arch]
+    cfg = full.smoke()
+    model = build_model(cfg, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == \
+        _defs_count(model_defs(cfg)) == rcount(RREGISTRY[arch].smoke())
 
 
 def test_hybrid_unported_combinations_raise():
@@ -349,20 +509,32 @@ def test_ssm_version_2_matches_reference():
 def test_moe_with_unported_attention_raises():
     """The moe family runs every attention schedule (full, swa,
     local_global): mixtral-8x7b and qwen3-moe-30b-a3b under each pass
-    ``check_supported`` and build.  What still raises is not the schedule:
-    a moe model given the vlm or audio family, or embedding inputs."""
+    ``check_supported`` and build, and so does a moe model given the vlm
+    family (cross blocks every other layer, media) or the audio family
+    (embedding inputs through a projector), which also runs a forward.
+    What still raises is neither the schedule nor those families: a moe
+    model given the hybrid family over Mamba1 blocks."""
     for arch in ("mixtral-8x7b", "qwen3-moe-30b-a3b"):
         moe = get_config(arch)
         check_supported(moe)
         for attention in ("full", "swa", "local_global"):
             build_model(dataclasses.replace(moe.smoke(), attention=attention),
                         device="cpu")
-        for family in ("vlm", "audio"):
-            with pytest.raises(NotImplementedError, match=family):
-                check_supported(dataclasses.replace(moe, family=family))
-        with pytest.raises(NotImplementedError, match="embedding inputs"):
-            build_model(dataclasses.replace(moe.smoke(), embed_inputs=False),
-                        device="cpu")
+        for family, kw in (("vlm", dict(cross_attn_period=2,
+                                        n_media_tokens=8)),
+                           ("audio", dict(embed_inputs=False))):
+            check_supported(dataclasses.replace(moe, family=family, **kw))
+            cfg = dataclasses.replace(moe.smoke(), family=family,
+                                      media_embed_dim=32, dtype="float32",
+                                      **kw)
+            model = build_model(cfg, device="cpu")
+            with torch.no_grad():
+                h, aux, _ = model.forward(inputs(cfg, B=1, S=8))
+            assert h.shape == (1, 8, cfg.d_model)
+            assert bool(h.isfinite().all())
+        with pytest.raises(NotImplementedError, match="ssm_version=1"):
+            check_supported(dataclasses.replace(moe, family="hybrid",
+                                                ssm_version=1))
 
 
 @pytest.mark.parametrize("arch,attention", [

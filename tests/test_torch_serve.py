@@ -8,12 +8,23 @@ the same tokens for every request.  At smoke size greedy decode mostly
 repeats one token per request, so these tests check the plumbing of
 slots, admission waves and cache merges; ``test_torch_models.py`` holds
 the numerics.
+
+The serving loop feeds tokens only, in both packages: the vlm
+(llama-3.2-vision-11b, media beside its tokens) and the audio family
+(musicgen-medium, frame embeddings) cannot be served by it (the
+reference's fails with a ``KeyError``, the port's raises
+``NotImplementedError``).  Their serving path is the Model API driven
+directly: one prefill of 4 prompts, then 4 decode steps (the vlm fed
+each step's greedy token, musicgen seeded random frames), the port's
+logits against the reference's ``prefill`` and ``decode_step`` within
+1e-4 and 1e-3 (float32; the vlm's cross gates opened).
 """
 import dataclasses
 import functools
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,7 +34,10 @@ from repro.configs import get_config as rget_config
 from repro.models import build_model as rbuild
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import merge_cache, serve
-from repro_torch.models.model import build_model, load_jax_params
+from repro_torch.models.model import (CACHE_BATCH_AXIS, build_model,
+                                      load_jax_params)
+from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+from test_torch_models import _open_gates, inputs, jx, open_gates, prefix
 
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
          "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b"]
@@ -176,3 +190,106 @@ def test_local_global_merge_cache_uses_batch_axis():
         assert torch.equal(live[name][:, 2], new[:, 0]), name
         fresh = model.init_cache(3, cache_len)[name]
         assert torch.equal(live[name][:, :2], fresh[:, :2]), name
+
+
+def test_vlm_merge_cache_uses_batch_axis():
+    """The vlm's flat cache at 10 layers with a period of 5 (8 self
+    blocks, 2 cross blocks): ``init_cache``'s leaves are prefill's in
+    name, shape past the batch axis and dtype (self ``k``/``v``/
+    ``slot_pos`` (8, B, ...), ``media_k``/``media_v`` (2, B, M, KV,
+    hd)); a one-request wave merged along axis 1 lands in slot 2 of 3 and
+    nowhere else, and a decode step from the merged cache gives that
+    request the logits it gets from the wave's own cache."""
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b").smoke(),
+                              dtype="float32", n_layers=10,
+                              cross_attn_period=5)
+    model = open_gates(build_model(cfg, device="cpu", seed=4))
+    live = model.init_cache(3, 8)
+    assert sorted(live) == ["k", "media_k", "media_v", "pos", "slot_pos",
+                            "v"]
+    assert live["k"].shape[:2] == (8, 3)
+    assert live["media_k"].shape == (2, 3, cfg.n_media_tokens,
+                                     cfg.n_kv_heads, cfg.head_dim)
+    wave_in = inputs(cfg, seed=3, B=1, S=3)
+    with torch.no_grad():
+        _, wave = model.prefill(wave_in, cache_len=8)
+    assert sorted(wave) == sorted(live)
+    for name, new in wave.items():
+        assert new.dtype == live[name].dtype, name
+        axis = CACHE_BATCH_AXIS[name]
+        assert new.shape[:axis] + new.shape[axis + 1:] == \
+            live[name].shape[:axis] + live[name].shape[axis + 1:], name
+    merge_cache(live, wave, [2])
+    for name, new in wave.items():
+        if name == "pos":
+            assert live["pos"].tolist() == [0, 0, 3]
+            continue
+        assert live[name].shape[1] == 3 and new.shape[1] == 1, name
+        assert torch.equal(live[name][:, 2], new[:, 0]), name
+        fresh = model.init_cache(3, 8)[name]
+        assert torch.equal(live[name][:, :2], fresh[:, :2]), name
+    token = np.array([[11]])
+    with torch.no_grad():
+        want, _ = model.decode_step(wave, {"tokens": token},
+                                    torch.tensor([3]))
+        got, _ = model.decode_step(live, {"tokens": np.full((3, 1), 11)},
+                                   torch.tensor([0, 0, 3]))
+    torch.testing.assert_close(got[2], want[0], atol=1e-5, rtol=1e-5)
+
+
+MEDIA_ARCHS = ["llama-3.2-vision-11b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", MEDIA_ARCHS)
+def test_serve_refuses_media_and_embedding_families(arch):
+    """Both serving loops feed token prompts only: the reference's fails
+    on these families with a KeyError (its batches lack "media" or
+    "embeddings"), the port's raises NotImplementedError saying why."""
+    cfg = _f32(get_config)(arch).smoke()
+    with pytest.raises(NotImplementedError, match="tokens only"):
+        serve(cfg, requests=2, slots=2, device="cpu")
+    orig = rserve.get_config
+    rserve.get_config = _f32(rget_config)
+    try:
+        with pytest.raises(KeyError):
+            rserve.main(["--arch", arch, "--smoke", "--requests", "2",
+                         "--slots", "2", "--max-new", "2"])
+    finally:
+        rserve.get_config = orig
+
+
+@pytest.mark.parametrize("arch", MEDIA_ARCHS)
+def test_model_api_serving_matches_reference(arch):
+    """A serving wave through the Model API: prefill of 4 prompts of 16
+    (a cache of 24 slots), then 4 decode steps; the vlm decodes each
+    step's greedy token (the same in both packages), musicgen seeded
+    random frames."""
+    rcfg = _f32(rget_config)(arch).smoke()
+    cfg = _f32(get_config)(arch).smoke()
+    rmodel = rbuild(rcfg)
+    params = _open_gates(rmodel.init(jax.random.PRNGKey(0)), cfg)
+    model = build_model(cfg, device="cpu").load_jax_params(
+        jax.tree_util.tree_map(np.asarray, params))
+    B, P, new = 4, 16, 4
+    batch = prefix(inputs(cfg, seed=11, B=B, S=P + new), P)
+    frames = inputs(cfg, seed=12, B=B, S=new).get("embeddings")
+    rl, rcache = rmodel.prefill(params, jx(batch), cache_len=P + new)
+    logits, cache = make_prefill_step(model, cache_len=P + new)(batch)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(rl), atol=1e-4,
+                               rtol=1e-4)
+    decode = make_decode_step(model)
+    for t in range(new):
+        if frames is None:
+            tok = np.argmax(np.asarray(rl), -1)
+            assert np.array_equal(tok, logits.argmax(-1).numpy())
+            step = {"tokens": tok[:, None].astype(np.int32)}
+        else:
+            step = {"embeddings": frames[:, t:t + 1]}
+        q_pos = np.full((B,), P + t, np.int32)
+        rl, rcache = rmodel.decode_step(params, rcache, jx(step),
+                                        jnp.asarray(q_pos))
+        logits, cache = decode(cache, step, q_pos)
+        assert logits.shape == (B, cfg.vocab_size)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(rl),
+                                   atol=1e-3, rtol=1e-3, err_msg=f"t={t}")
+    assert cache["pos"].tolist() == [P + new] * B

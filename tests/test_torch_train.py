@@ -7,10 +7,15 @@ falcon-mamba-7b (ssm, Mamba1, the scan through K8's ``SelectiveScan``),
 zamba2-2.7b (hybrid: Mamba2 blocks in plain torch, the one shared
 attention block through K7 six times, its gradients summed),
 mixtral-8x7b (moe, every layer's attention windowed to 16 over S = 48)
-and gemma2-9b (dense, (local, global) pairs, the local layers windowed,
-attention and final softcaps) in float32, their parameters carried
-across with ``load_jax_params``, one batch of numpy-drawn tokens and
-labels (a few pads, -1):
+gemma2-9b (dense, (local, global) pairs, the local layers windowed,
+attention and final softcaps), llama-3.2-vision-11b (vlm: self blocks
+through K7, gated cross blocks onto projected media in plain torch; the
+cross gates set to the same non-zero values in both packages, so the
+cross blocks and the projector learn) and musicgen-medium (audio: frame
+embeddings through the projector, no embed) in float32, their
+parameters carried across with ``load_jax_params``, one batch of
+numpy-drawn tokens (frame embeddings, media) and labels (a few pads,
+-1):
 
 - the loss equals ``make_loss_fn``'s to 1e-5 relative, and so do the
   moe model's metrics ``ce``, ``lb_loss``, ``z_loss`` and ``drop_frac``;
@@ -62,9 +67,11 @@ from repro_torch.optim import AdamW
 from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
                                        make_train_step)
 from repro_torch.sharding import single_device_plan
+from test_torch_models import _open_gates, inputs, open_gates
 
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
-         "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b"]
+         "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b", "llama-3.2-vision-11b",
+         "musicgen-medium"]
 MOE_METRICS = ("ce", "drop_frac", "lb_loss", "z_loss")
 B, S = 2, 48
 LR = 1e-3
@@ -82,11 +89,19 @@ def _cfgs(arch):
 
 
 def _batch(cfg, seed=1, B=B, S=S, pads=3):
+    """Tokens and labels with ``pads`` -1s; the audio family's frame
+    embeddings in place of the tokens and a vlm's media from ``inputs``."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels[0, S - pads:] = -1
-    return {"tokens": toks, "labels": labels}
+    out = {"tokens": toks, "labels": labels}
+    if cfg.embed_inputs and cfg.family != "vlm":
+        return out
+    extra = inputs(cfg, seed=seed + 100, B=B, S=S)
+    if not cfg.embed_inputs:
+        del out["tokens"]
+    return dict(out, **{k: v for k, v in extra.items() if k != "tokens"})
 
 
 def _np_tree(tree):
@@ -99,7 +114,7 @@ def _reference(arch):
     numpy state dicts in the port's names."""
     rcfg, cfg = _cfgs(arch)
     rmodel = rbuild(rcfg)
-    params = rmodel.init(jax.random.PRNGKey(0))
+    params = _open_gates(rmodel.init(jax.random.PRNGKey(0)), cfg)
     batch = {k: jnp.asarray(v) for k, v in _batch(cfg).items()}
     (loss, metrics), grads = jax.value_and_grad(
         rmake_loss_fn(rmodel), has_aux=True)(params, batch)
@@ -235,7 +250,7 @@ def test_microbatch_grad_accumulation_matches():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_decreases_under_training(arch):
     cfg = REGISTRY[arch].smoke()
-    model = build_model(cfg, device="cpu", seed=2)
+    model = open_gates(build_model(cfg, device="cpu", seed=2))
     opt = AdamW(lr=3e-3)
     state = init_train_state(model, opt)
     step = make_train_step(model, opt)
@@ -254,8 +269,9 @@ def test_remat_policies_give_the_same_grads(arch):
     batch = _batch(cfg, seed=3)
     grads = {}
     for remat in ("none", "nothing_saveable", "dots_saveable"):
-        model = build_model(cfg, single_device_plan().with_(remat=remat),
-                            device="cpu", seed=1)
+        model = open_gates(build_model(
+            cfg, single_device_plan().with_(remat=remat), device="cpu",
+            seed=1))
         loss, _ = make_loss_fn(model)(batch)
         grads[remat] = torch.autograd.grad(loss, list(model.parameters()))
     for remat in ("nothing_saveable", "dots_saveable"):

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
        "PYTHONUNBUFFERED": "1"}
@@ -49,6 +51,14 @@ def test_train_crash_resume_identical(tmp_path):
 def test_moe_train_crash_resume_identical(tmp_path):
     """The same for the moe family (its aux losses in the loss)."""
     _crash_resume_identical(tmp_path, "qwen3-moe-30b-a3b")
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-medium"])
+def test_media_families_train_crash_resume_identical(tmp_path, arch):
+    """The same for the vlm (batches with media; its cross blocks' 0-d
+    gates checkpointed and restored) and the audio family (batches of
+    frame embeddings, no embed)."""
+    _crash_resume_identical(tmp_path, arch)
 
 
 def test_sigterm_checkpoint_then_exit(tmp_path):
