@@ -181,7 +181,17 @@ Phases (any failure exits nonzero; there is no CPU path):
              for_budget(64) and replan(lost_chips=128), every decision equal
              to backend="torch"; one broker shared by TPC-H operator
              requests, a sharding planner and a TPC-H RAQO session, plans
-             equal to solo planning; the roofline scan's time.
+             equal to solo planning; the roofline scan's time;
+14. plan-lint — (runs after 12) repro_torch.analysis.collect on the card:
+             the registered cost surfaces evaluated on CUDA tensors, the
+             grid-memo audit of "torch" and "cuda" (the seven probes
+             through the real scan and climb launches), the static memo-key
+             check and the host-sync lint; no unallowed warn or error, the
+             audit table equal to expected_counts at one plan device and,
+             in a second sweep, at devices=[cuda] * 4 (K4), each launch
+             counter risen by exactly expected_launches, and no nvcc run
+             after phase 2 (build.build_seconds unchanged).  Prints the
+             table, its hash and the severity counts.
 
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
@@ -195,7 +205,8 @@ and hd256_*, at 24:24 hd 64 as mha_*), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
-kernels' JSON record and {"ok": true, "device": {...}}; each phase's
+kernels' JSON record and {"ok": true, "device": {...}}, after the card's
+name and power limit printed a second time; each phase's
 (and each model's) wall seconds are printed on lines of their own
 ("wall ...").
 """
@@ -2518,6 +2529,60 @@ def decision(planner_call):
     return (d.resources, d.plan_choice, d.objective_value)
 
 
+def plan_lint_phase(torch, built: dict) -> None:
+    """Phase 14: plan-lint of the planning path on the card (module
+    docstring).  ``built`` is ``build.build_seconds`` after phase 2."""
+    from repro_torch.analysis import recompile_audit as ra
+    from repro_torch.analysis.__main__ import collect
+    from repro_torch.analysis.report import summarize
+    from repro_torch.kernels import build, plan_scan as ps
+
+    def launches():
+        return {n: getattr(ps, n).launches for n in ra.DISPATCHED}
+
+    def delta(before):
+        torch.cuda.synchronize()
+        return {n: v - before[n] for n, v in launches().items()}
+
+    before = launches()
+    findings, table, thash = collect(backends=list(ra.BACKENDS),
+                                     device="cuda", devices=1)
+    moved = delta(before)
+    bad = [f.render() for f in findings
+           if not f.allowed and f.severity != "info"]
+    check(not bad, f"plan-lint findings on the card: {bad}")
+    want = {n: ra.expected_counts(n, 1) for n in ra.BACKENDS}
+    check(table == want, f"plan-lint audit table {table} != {want}")
+    check(moved == ra.expected_launches(1),
+          f"plan-lint launches {moved} != {ra.expected_launches(1)}")
+
+    before = launches()
+    table4, found4 = ra.audit_backends(["cuda"], device="cuda",
+                                       devices=["cuda"] * 4)
+    moved4 = delta(before)
+    check(not found4, f"plan-lint audit at 4 shards: "
+                      f"{[f.render() for f in found4]}")
+    want4 = {"cuda": ra.expected_counts("cuda", 4)}
+    check(table4 == want4, f"plan-lint audit table at 4 shards {table4} "
+                           f"!= {want4}")
+    check(moved4 == ra.expected_launches(4),
+          f"plan-lint launches at 4 shards {moved4} != "
+          f"{ra.expected_launches(4)}")
+    check(build.build_seconds == built,
+          f"nvcc ran after phase 2: {build.build_seconds} != {built}")
+
+    s = summarize(findings)
+    print(f"plan-lint table {json.dumps(table, sort_keys=True)}",
+          flush=True)
+    print(f"plan-lint table_hash {thash}", flush=True)
+    print(f"plan-lint severities {json.dumps(s['by_severity'])} "
+          f"allowed {s['allowed']}", flush=True)
+    print(f"plan-lint 4 shards {json.dumps(table4, sort_keys=True)} "
+          f"hash {ra.table_hash(table4)}", flush=True)
+    print(f"plan-lint launches D=1 {json.dumps(moved)} D=4 "
+          f"{json.dumps(moved4)}", flush=True)
+
+
 def sharding_phase(torch, dev):
     """Phase 12: the roofline surfaces in-kernel against their plain
     versions, then ShardingPlanner on the default CUDA backend against
@@ -2711,6 +2776,7 @@ def main() -> int:
         build.load_library(name)
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(libs)} "
           f"(nvcc, in parallel: {build.build_seconds} s)", flush=True)
+    built = dict(build.build_seconds)
 
     w = lap("phases 1-2 (device, build)", t_start)
 
@@ -3181,8 +3247,13 @@ def main() -> int:
     kernels.append(sharded_phase(torch, dev))
     w = lap("phase 11 (sharded scan)", w)
     sharding_phase(torch, dev)
-    lap("phase 12 (sharding planner)", w)
+    w = lap("phase 12 (sharding planner)", w)
+
+    # 14. plan-lint of the planning path ---------------------------------- #
+    plan_lint_phase(torch, built)
+    lap("phase 14 (plan-lint)", w)
     lap("total", t_start)
+    print(card(), flush=True)      # again, for readers of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

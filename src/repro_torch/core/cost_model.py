@@ -489,3 +489,42 @@ class Surface:
             denom = a[:, 0] * a[:, 1] * a[:, 3]
             bad = bad | ((self.model.shape.global_batch % denom) != 0)
         return torch.where(bad, math.inf, cost)
+
+
+# --------------------------------------------------------------------------- #
+# plan-lint registration: expose the shipped DB cost surfaces to the surface
+# contract lint (``python -m repro_torch.analysis``).  Factories are lazy —
+# nothing here builds a model until the lint evaluates a surface.
+# --------------------------------------------------------------------------- #
+
+def _register_lint_surfaces() -> None:
+    from repro_torch.analysis.registry import (CostSurface,
+                                               register_cost_surface)
+
+    def db_surface(name: str, make_model) -> None:
+        def make_fn():
+            # params = [ss, ls]: the per-request relation sizes, as
+            # OperatorCosting._grid_fn builds its fns
+            surface = Surface(make_model(), "time")
+
+            def fn(cfgs, params):
+                return surface(cfgs, params)
+
+            fn.surface = surface
+            return fn
+
+        def make_cluster():
+            from repro_torch.core.cluster import paper_cluster
+            return paper_cluster()
+
+        register_cost_surface(CostSurface(
+            name=name, domain="db", make_fn=make_fn,
+            make_cluster=make_cluster, params=(2.0, 74.0)))
+
+    db_surface("db/paper/SMJ", lambda: paper_models()["SMJ"])
+    db_surface("db/paper/BHJ", lambda: paper_models()["BHJ"])
+    db_surface("db/sim/SMJ", lambda: simulator_cost_models()["SMJ"])
+    db_surface("db/sim/BHJ", lambda: simulator_cost_models()["BHJ"])
+
+
+_register_lint_surfaces()

@@ -664,3 +664,49 @@ class RooflineCost:
         return tuple(float(v) for v in (
             N, N * 2, hw["hbm_bytes"] * 0.92, flops, hw["peak_flops"],
             hw["hbm_bw"], hw["link_bw"], B * S, cfg.top_k) + extra)
+
+
+# --------------------------------------------------------------------------- #
+# plan-lint registration: expose the roofline surfaces (one per shape kind,
+# with the sharding planner's feasibility masking) to the surface contract
+# lint.  Factories are lazy; Surface and TpuCluster are imported inside them
+# because cost_model and sharding_planner import this module.
+# --------------------------------------------------------------------------- #
+
+def _register_lint_surfaces() -> None:
+    from repro_torch.analysis.registry import (CostSurface,
+                                               register_cost_surface)
+
+    lint_cfg = ModelConfig(name="lint-dense", family="dense", n_layers=4,
+                           d_model=256, n_heads=8, n_kv_heads=8,
+                           d_ff=1024, vocab_size=1024)
+
+    def roofline_surface(kind: str) -> None:
+        shape = ShapeConfig(name=f"lint-{kind}", seq_len=512,
+                            global_batch=8, kind=kind)
+
+        def make_fn():
+            # params = [chip_budget, max_chips], masked as
+            # ShardingPlanner._grid_fn's surface masks them
+            from repro_torch.core.cost_model import Surface
+            surface = Surface(RooflineCost(lint_cfg, shape, {}, HW), "time")
+
+            def fn(cfgs, params):
+                return surface(cfgs, params)
+
+            fn.surface = surface
+            return fn
+
+        def make_cluster():
+            from repro_torch.core.sharding_planner import TpuCluster
+            return TpuCluster().dims(shape)
+
+        register_cost_surface(CostSurface(
+            name=f"tpu/roofline/{kind}", domain="tpu", make_fn=make_fn,
+            make_cluster=make_cluster, params=(64.0, 256.0)))
+
+    for kind in ("train", "prefill", "decode"):
+        roofline_surface(kind)
+
+
+_register_lint_surfaces()

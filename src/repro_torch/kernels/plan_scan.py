@@ -790,6 +790,8 @@ class CudaPlanBackend:
         return self._climbs(batch_cost_fn, cluster, pm, starts, stats,
                             n_random, seed, max_iters, self._shards)
 
+    @hot_path("launches one ensemble climb a plan device per flush group; "
+              "finalize copies the climbs to the host once", folds=1)
     def _climbs(self, batch_cost_fn: BatchCostFn, cluster: ClusterConditions,
                 pm: np.ndarray, starts, stats: Optional[PlanningStats],
                 n_random: int, seed: int, max_iters: int,
