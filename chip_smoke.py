@@ -104,10 +104,10 @@ Phases (any failure exits nonzero; there is no CPU path):
 13. train  — (runs after 7) smollm-360m at full width and depth, falcon-mamba-7b at
              full width and 8 of its 64 layers, qwen3-moe-30b-a3b at
              full width and 4 of its 48, zamba2-2.7b at full width and
-             depth with group-level remat, mixtral-8x7b at 2 of its 32,
-             gemma2-9b at 8 of its 42, llama-3.2-vision-11b at 2 of its 8
-             groups (10 of 40 layers, gates 0.5) and musicgen-medium at
-             full depth: in float32 (smollm B=2, S=256; falcon B=1,
+             12 of its 54 layers with group-level remat, mixtral-8x7b at
+             2 of its 32, gemma2-9b at 8 of its 42, llama-3.2-vision-11b
+             at 2 of its 8 groups (10 of 40 layers, gates 0.5) and
+             musicgen-medium at 24 of its 48: in float32 (smollm B=2, S=256; falcon B=1,
              S=128; qwen3, mixtral, gemma2, the vlm and musicgen B=2,
              S=128; zamba2 B=1, S=256; one fixed batch) the model on the
              kernels (K7 / K8 forward, their analytic backwards) against
@@ -120,9 +120,9 @@ Phases (any failure exits nonzero; there is no CPU path):
              the kernel's device time on one step; qwen3's aux losses at
              step 20; the step of qwen3, zamba2, mixtral, gemma2, the vlm
              and musicgen traced by operator); then
-             python -m repro_torch.launch.train on one GPU, whole and,
-             in a second process beside it, crashed at step 8 then
-             resumed from step 5, final losses within LAUNCHER_LOSS_TOL;
+             python -m repro_torch.launch.train on one GPU (8 steps), whole
+             and, in a second process beside it, crashed at step 6 then
+             resumed from step 4, final losses within LAUNCHER_LOSS_TOL;
 8. times   — flash_attention at B=1, S=4096 and at the serve shape (B=4,
              S=256), smollm's heads, bfloat16, against attention_ref and
              torch's scaled_dot_product_attention (timed here only; the port
@@ -191,7 +191,18 @@ Phases (any failure exits nonzero; there is no CPU path):
              in a second sweep, at devices=[cuda] * 4 (K4), each launch
              counter risen by exactly expected_launches, and no nvcc run
              after phase 2 (build.build_seconds unchanged).  Prints the
-             table, its hash and the severity counts.
+             table, its hash and the severity counts;
+15. multi-device path, world of one — (runs after 14) an NCCL process
+             group of one rank and a (1, 1, 1) ("pod", "data", "model")
+             mesh: smollm-360m at full width and depth (32 layers,
+             float32, B=2, S=256) takes TRAIN_F32_STEPS AdamW steps under
+             launch.specs.plan_for's train plan (its parameters DTensors,
+             K7 under local_map) from the same seeded state as the
+             single-device path beside it: losses, grad norms and
+             parameters within LOSS_TOL, GRAD_TOL and PARAM_SHARE_TOL, and
+             K7's launch counter risen by exactly as much (32 a step);
+             then pipeline.gpipe_apply at one stage against the sequential
+             layers on the card (forward 1e-5, gradients 1e-4).
 
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
@@ -201,7 +212,8 @@ qwen3-moe-30b-a3b's as moe_path_ms and moe_train_path_ms, zamba2-2.7b's
 as hybrid_path_ms and hybrid_train_path_ms, mixtral-8x7b's as swa_*,
 gemma2-9b's as local_global_*, llama-3.2-vision-11b's as vlm_*,
 musicgen-medium's as audio_*, and its times at hd 80 and 256 as hd80_*
-and hd256_*, at 24:24 hd 64 as mha_*), and
+and hd256_*, at 24:24 hd 64 as mha_*, and phase 15's launches as
+multidevice_path_launches), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
@@ -335,11 +347,14 @@ HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
 # phase 13: training at full width; falcon-mamba-7b cut to 8 of its 64
 # layers (float32 masters, grads and Adam moments at full depth are ~112
 # GB), qwen3-moe-30b-a3b to 4 of its 48 (~10 GB of them a layer, ~10 GB
-# for the embedding and head); zamba2-2.7b at full depth (~39 GB of
-# masters, grads and moments) with the reference's group-level remat
-# (nothing_saveable): without it the SSD's float32 (B, c, c, H)
-# intermediates keep ~1.7 GB a Mamba2 block at 8 x 512.  Values: (layers,
-# None for all; the kernel; the plan's remat)
+# for the embedding and head); zamba2-2.7b at 12 of its 54 layers (2 of
+# its 9 groups of 6 Mamba2 blocks, each followed by the shared attention
+# block; all 54 took ~140 s of the phase, 24 took 56.5-65.5 s, and on a
+# slow host the script took 1097.9 s against its 1200 s limit) with the
+# reference's group-level remat (nothing_saveable): without it
+# the SSD's float32 (B, c, c, H) intermediates keep ~1.7 GB a Mamba2
+# block at 8 x 512.  Values: (layers, None for all; the kernel; the
+# plan's remat)
 # mixtral-8x7b at 2 of its 32 layers (~1.45B parameters, ~23 GB of
 # masters, grads and moments a layer), gemma2-9b at 8 of its 42 (its
 # embedding alone 0.92B parameters, ~14.7 GB, each layer 0.198B, ~3.2 GB;
@@ -347,15 +362,16 @@ HASH_KERNELS = ("hash_minmax_kernel", "hash_build_kernel",
 # llama-3.2-vision-11b at 2 of its 8 groups (10 of 40 layers: 8 self and
 # 2 cross blocks, 3.24B parameters with the 1.06B of embed, head and
 # projector, ~52 GB of masters, grads and moments), musicgen-medium at
-# full depth (1.815B, ~29 GB)
+# 24 of its 48 layers (cut for time, as zamba2: on a slow host the script
+# took 1148.8 s against its 1200 s limit)
 TRAIN = {"smollm-360m": (None, "flash_attention", "none"),
          "falcon-mamba-7b": (8, "selective_scan", "none"),
          MOE: (4, "flash_attention", "none"),
-         HYBRID: (None, "flash_attention", "nothing_saveable"),
+         HYBRID: (12, "flash_attention", "nothing_saveable"),
          SWA: (2, "flash_attention", "none"),
          LOCAL_GLOBAL: (8, "flash_attention", "none"),
          VLM: (10, "flash_attention", "none"),
-         AUDIO: (None, "flash_attention", "none")}
+         AUDIO: (24, "flash_attention", "none")}
 TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128),
              MOE: (2, 128), HYBRID: (1, 256), SWA: (2, 128),
              LOCAL_GLOBAL: (2, 128), VLM: (2, 128), AUDIO: (2, 128)}  # B, S
@@ -380,9 +396,11 @@ GRAD_TOL = 1e-4
 PARAM_SHARE_TOL = 1e-4
 TRAIN_BF16 = dict(batch=8, seq=512, steps=20)
 TRAIN_SCHEDULE = (3e-4, 2)     # the trainer's cosine: peak, warmup steps
-LAUNCHER = ["--arch", "smollm-360m", "--steps", "12", "--batch", "8",
-            "--seq", "512", "--ckpt-every", "5"]
-LAUNCHER_FAIL_AT = 8
+# 8 steps, a checkpoint every 4 (each checkpoint of the full-width float32
+# state is ~4.3 GB; 12 steps, every 5, wrote 6 of them, this writes 4)
+LAUNCHER = ["--arch", "smollm-360m", "--steps", "8", "--batch", "8",
+            "--seq", "512", "--ckpt-every", "4"]
+LAUNCHER_FAIL_AT = 6
 LAUNCHER_LOSS_TOL = 1e-3       # final loss, resumed vs whole run, relative
 
 STREAM_TABLES = 16             # the streaming bench's random_schema(16, 0)
@@ -2741,6 +2759,143 @@ def sharding_phase(torch, dev):
           f"the device (torch.profiler)", flush=True)
 
 
+MULTI_AXES = ("pod", "data", "model")
+MULTI_TRAIN = ("smollm-360m", 2, 256)      # arch, B, S (float32)
+GPIPE = dict(L=8, B=8, S=16, d=32, n_micro=4)
+# forward max |diff|; each gradient's max |diff| over its max |g|
+GPIPE_TOL = (1e-5, 1e-4)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _f32_steps(torch, model, batch):
+    """TRAIN_F32_STEPS AdamW steps (lr TRAIN_LR) from the model's state:
+    ([loss], [grad norm], [step seconds], K7 launches, the whole
+    parameters after them on the host)."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.sharding import full
+    opt = AdamW(lr=TRAIN_LR)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt)
+    losses, norms, secs = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_F32_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))                 # syncs
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t)
+    launches = launch_counts()["flash_attention"]
+    params = {k: full(p.detach()).cpu() for k, p in state.params.items()}
+    return losses, norms, secs, launches, params
+
+
+def multidevice_phase(torch, device: str = "cuda") -> int:
+    """Phase 15: the multi-device path as a world of one (module
+    docstring; ``device="cpu"`` runs it over gloo, a rehearsal with the
+    plain versions).  Returns K7's launches on its training run."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import plan_for
+    from repro_torch.models.model import build_model
+    from repro_torch.pipeline import gpipe_apply
+    from repro_torch.sharding import single_device_plan
+    print(f"phase 15 on {card()}", flush=True)
+    arch, B, S = MULTI_TRAIN
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), MULTI_AXES)
+        # remat none on both paths, so each launches K7 once a layer a step
+        plan = plan_for(cfg, ShapeConfig("train", S, B, "train"), mesh,
+                        remat="none")
+        batch = SyntheticPipeline(cfg, B, S, seed=0).batch_at(0)
+        runs = {}
+        for name, p in (("single", single_device_plan()), ("mesh", plan)):
+            model = build_model(cfg, p, device=device, seed=0)
+            runs[name] = _f32_steps(torch, model, batch)
+            del model
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        (l1, n1, s1, k1, p1), (l2, n2, s2, k2, p2) = \
+            runs["single"], runs["mesh"]
+        rel = max(abs(a / b - 1) for a, b in zip(l2, l1))
+        check(rel <= LOSS_TOL, f"phase 15: losses {l2} vs one device {l1}")
+        nrel = max(abs(a / b - 1) for a, b in zip(n2, n1))
+        check(nrel <= GRAD_TOL, f"phase 15: grad norms {n2} vs one device "
+              f"{n1}")
+        n = beyond = 0
+        pmax = 0.0
+        for k, want in p1.items():
+            d = (p2[k] - want).abs()
+            pmax = max(pmax, float(d.max()) / TRAIN_LR)
+            n += d.numel()
+            beyond += int((d > 0.02 * TRAIN_LR).sum())
+        check(beyond <= PARAM_SHARE_TOL * n and
+              pmax <= 2 * TRAIN_F32_STEPS,
+              f"phase 15: {beyond} of {n} parameters beyond 2% of lr (max "
+              f"{pmax} lr)")
+        per_step = cfg.n_layers * TRAIN_F32_STEPS
+        check(k1 == k2 == per_step,
+              f"phase 15: flash_attention launched {k2} times on the mesh, "
+              f"{k1} on one device (want {per_step})")
+        print(f"multidevice {arch} float32 B={B} S={S} ({cfg.n_layers} "
+              f"layers) on a (1, 1, 1) mesh, plan {plan.name}: losses "
+              f"{l2} vs one device {l1} (max rel {rel:.3g}); grad norms "
+              f"max rel {nrel:.3g}; after {TRAIN_F32_STEPS} AdamW steps max "
+              f"|diff| {pmax:.4g} lr, {beyond} of {n} beyond 2% of lr; "
+              f"flash_attention launches {k2} (one device {k1}); step s "
+              f"mesh {[round(x, 4) for x in s2]} vs one device "
+              f"{[round(x, 4) for x in s1]}", flush=True)
+
+        g = torch.Generator(device=device).manual_seed(2)
+        L, Bp, Sp, d = (GPIPE[k] for k in ("L", "B", "S", "d"))
+        ws, bs, x = ((torch.randn(shape, generator=g, device=device) * sc)
+                     .requires_grad_() for shape, sc in
+                     (((L, d, d), 0.2), ((L, d), 0.1), ((Bp, Sp, d), 1.0)))
+
+        def body(stage_p, h):
+            w, b = stage_p
+            for i in range(w.shape[0]):
+                h = torch.tanh(h @ w[i] + b[i])
+            return h
+
+        out = gpipe_apply((ws, bs), x, body, mesh=mesh, stage_axis="pod",
+                          n_micro=GPIPE["n_micro"])
+        got = [out.detach()] + list(torch.autograd.grad(out.sum(),
+                                                        (ws, bs, x)))
+        want = body((ws, bs), x)
+        want = [want.detach()] + list(torch.autograd.grad(want.sum(),
+                                                          (ws, bs, x)))
+        # the output absolute, each gradient over its largest element
+        errs = [float((a - b).abs().max() / (b.abs().max() if i else 1))
+                for i, (a, b) in enumerate(zip(got, want))]
+        check(errs[0] <= GPIPE_TOL[0] and max(errs[1:]) <= GPIPE_TOL[1],
+              f"phase 15: gpipe_apply at one stage vs sequential: {errs}")
+        print(f"multidevice gpipe_apply, 1 stage, L={L} B={Bp} S={Sp} "
+              f"d={d}, n_micro {GPIPE['n_micro']}: max |diff| forward "
+              f"{errs[0]:.3g}, gradients (over max |g|) "
+              f"{max(errs[1:]):.3g}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return k2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3251,7 +3406,13 @@ def main() -> int:
 
     # 14. plan-lint of the planning path ---------------------------------- #
     plan_lint_phase(torch, built)
-    lap("phase 14 (plan-lint)", w)
+    w = lap("phase 14 (plan-lint)", w)
+
+    # 15. the multi-device path, as a world of one ------------------------ #
+    launches = multidevice_phase(torch)
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "multidevice_path_launches"] = launches
+    lap("phase 15 (multi-device, world of one)", w)
     lap("total", t_start)
     print(card(), flush=True)      # again, for readers of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,6 +14,15 @@ leaf into the matching tensor of the target, in place (so a model's
 parameters stay the model's), and refuses a checkpoint whose leaf count or
 shapes differ from the target's.  bfloat16 leaves are stored as float32
 (numpy has no bfloat16) and cast back on restore.
+
+Under torch.distributed (a world of more than one process, or the ranks
+of ``group``) every rank calls ``save`` and ``restore`` alike: a DTensor
+leaf is gathered whole on every rank (``full_tensor``, a collective) one
+leaf at a time, only the first rank keeps the gathered leaves and writes,
+and the ranks wait at a barrier until the step is published.
+``restore`` copies each rank's shard of the saved whole
+tensor into a DTensor target (its placements, the plan's), so a
+checkpoint restores at any mesh, or on one device.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import distribute, full, is_dtensor
 
 
 def _flatten(tree) -> List[torch.Tensor]:
@@ -42,14 +53,17 @@ def _flatten(tree) -> List[torch.Tensor]:
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
+    t = full(t.detach())
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, group=None):
+        """``group``: the process group whose ranks save together
+        (default: the whole world, when torch.distributed runs)."""
+        self.group = group
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
@@ -58,6 +72,17 @@ class CheckpointManager:
     # ------------------------------------------------------------------ #
     def save(self, step: int, state: Any, extras: Optional[dict] = None,
              async_: bool = False) -> Path:
+        if self._shared():
+            import torch.distributed as dist
+            writer = dist.get_rank(self.group) == 0
+            # every rank gathers each leaf (a collective); the writer
+            # alone keeps them on the host
+            host_leaves = [h for h in map(_to_host, _flatten(state))
+                           if writer]
+            if writer:
+                self._write(step, host_leaves, extras)
+            dist.barrier(self.group)
+            return self.dir / f"step_{step}"
         host_leaves = [_to_host(l) for l in _flatten(state)]  # device->host
         if async_:
             self.wait()
@@ -88,6 +113,12 @@ class CheckpointManager:
         os.rename(tmp, final)                       # atomic publish
         self._gc()
         return final
+
+    def _shared(self) -> bool:
+        """Whether more than one rank saves this state."""
+        import torch.distributed as dist
+        return dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size(self.group) > 1
 
     def wait(self) -> None:
         if self._thread is not None and self._thread.is_alive():
@@ -135,5 +166,9 @@ class CheckpointManager:
                 f" — architecture mismatch")
         with np.load(path / "arrays.npz") as data, torch.no_grad():
             for i, tgt in enumerate(leaves):
-                tgt.copy_(torch.from_numpy(data[f"leaf_{i}"]))
+                src = torch.from_numpy(data[f"leaf_{i}"])
+                if is_dtensor(tgt):
+                    src = distribute(src.to(tgt.device, tgt.dtype),
+                                     tgt.device_mesh, tgt.placements)
+                tgt.copy_(src)
         return target, manifest["extras"]

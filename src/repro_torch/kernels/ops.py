@@ -11,6 +11,16 @@ The attention and the scan go through their ``torch.autograd.Function``
 (``FlashAttention``, ``SelectiveScan``), so a training step
 differentiates through the kernels' forward; ``impl="ref"``
 differentiates through the plain versions by autograd.
+
+Under a multi-device plan the attention's q, k and v are DTensors:
+``flash_attention`` then runs K7 on each rank's shard through
+``torch.distributed.tensor.experimental.local_map`` (the kernel takes
+raw pointers, so it never sees a DTensor): q sharded on its heads (over
+"model") and its batch (over the data axes), k and v on the batch only,
+replicated over the heads' axis as the reference keeps them, and each
+rank hands the kernel the KV heads its own q heads read
+(``local_kv_heads``).  Their gradients come back partial sums over the
+heads' axis, which the autograd of the redistributions before reduces.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from repro_torch.kernels import hash_join as _hj
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import merge_join as _mj
 from repro_torch.kernels import ref
+from repro_torch.sharding import is_dtensor
 
 IMPLS = ("cuda", "ref")
 
@@ -35,10 +46,60 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     attn_softcap: Optional[float] = None,
                     impl: str = "cuda"):
     _check_impl(impl)
+    if is_dtensor(q):
+        return _flash_attention_sharded(q, k, v, causal, window,
+                                        attn_softcap, impl)
     if impl == "ref":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  attn_softcap=attn_softcap)
     return _fa.FlashAttention.apply(q, k, v, causal, window, attn_softcap)
+
+
+def local_kv_heads(H: int, KV: int, tp: int, m: int):
+    """The KV heads rank ``m`` of ``tp`` (holding q heads ``m * H / tp``
+    .. ``(m + 1) * H / tp - 1``) needs, so that the kernel's own grouping
+    of its local q heads onto them is the model's ``h // (H / KV)``: a
+    ``slice`` when the local heads cover whole groups or lie inside one,
+    else a list with one KV head per local q head (group size 1)."""
+    if H % tp:
+        raise NotImplementedError(
+            f"{H} q heads do not split over a tensor-parallel degree of "
+            f"{tp}: pick a tp that divides the head count")
+    Hl, G = H // tp, H // KV
+    h0 = m * Hl
+    if Hl % G == 0 or G % Hl == 0:
+        return slice(h0 // G, (h0 + Hl - 1) // G + 1)
+    return [(h0 + j) // G for j in range(Hl)]
+
+
+def _flash_attention_sharded(q, k, v, causal, window, attn_softcap, impl):
+    """K7 on each rank's shard of DTensor q, k, v (module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    # q: batch and heads may stay sharded, anything else is gathered
+    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in q.placements]
+    heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    if len(heads) > 1:
+        raise NotImplementedError("q heads sharded over more than one mesh "
+                                  "axis")
+    kv_pl = [Replicate() if i in heads else p for i, p in enumerate(q_pl)]
+    kv_grad = [Partial() if i in heads else p for i, p in enumerate(q_pl)]
+    tp = mesh.size(heads[0]) if heads else 1
+    m = mesh.get_local_rank(heads[0]) if heads else 0
+    pick = local_kv_heads(q.shape[2], k.shape[2], tp, m)
+
+    def attend(ql, kl, vl):
+        kl, vl = kl[:, :, pick], vl[:, :, pick]
+        return flash_attention(ql.contiguous(), kl.contiguous(),
+                               vl.contiguous(), causal=causal, window=window,
+                               attn_softcap=attn_softcap, impl=impl)
+
+    return local_map(attend, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def selective_scan(u, dt, A, Bmat, Cmat, h0=None, impl: str = "cuda",

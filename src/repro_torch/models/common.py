@@ -2,7 +2,12 @@
 the chunked cross-entropy of the training loss.
 
 The port of ``repro.models.common``; the float32 upcasts and downcasts
-sit where the reference has them.
+sit where the reference has them.  Under a multi-device plan the
+activations are DTensors; RoPE's frequencies then join them as
+replicated DTensors (``like``), and the loss's logits are constrained
+to the plan's vocab sharding as the reference's are (the log-sum-exp
+and the label gather over that sharded dim are DTensor reductions
+across the ranks, not per-shard ones).
 """
 from __future__ import annotations
 
@@ -12,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding import is_dtensor
 
 
 def rms_norm(x, scale, eps: float, *, offset: float = 1.0):
@@ -23,6 +30,17 @@ def rms_norm(x, scale, eps: float, *, offset: float = 1.0):
     return (y * (offset + scale.float())).to(dt)
 
 
+def like(t, ref):
+    """``t`` as a DTensor replicated on ``ref``'s mesh when ``ref`` is a
+    DTensor (so the two mix in one operation), else ``t``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(ref):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def rope(x, positions, theta: float):
     """Rotary embedding, llama half-rotation convention.
 
@@ -31,12 +49,12 @@ def rope(x, positions, theta: float):
     half = hd // 2
     log_theta = torch.tensor(math.log(theta), dtype=torch.float32,
                              device=x.device)
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device)
-                      * (log_theta / half))                     # (half,)
-    ang = positions[..., None].float() * freqs                  # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]                          # (..., S, 1, half)
-    sin = torch.sin(ang)[..., None, :]
+    freqs = like(torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                         device=x.device)
+                           * (log_theta / half)), positions)    # (half,)
+    ang = positions.unsqueeze(-1).float() * freqs               # (..., S, half)
+    cos = torch.cos(ang).unsqueeze(-2)                          # (..., S, 1, half)
+    sin = torch.sin(ang).unsqueeze(-2)
     x1, x2 = x[..., :half], x[..., half:]
     xf1, xf2 = x1.float(), x2.float()
     out = torch.cat([xf1 * cos - xf2 * sin,
@@ -68,20 +86,24 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _chunk_nll(h, head, lab, m, *, vocab: int, cap):
+def _chunk_nll(h, head, lab, m, *, vocab: int, cap, plan=None):
     """(sum of masked NLL, mask count) of one sequence chunk, logits in
     float32 (h.dtype operands, float32 products and sums)."""
+    if plan is not None:
+        h = plan.constrain(h, ("batch", None, None))
     logits = h.float() @ head.to(h.dtype).float()           # (B, c, V)
+    if plan is not None:
+        logits = plan.constrain(logits, ("batch", None, "vocab"))
     logits = softcap(logits, cap)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1,
-                          lab.clamp(0, vocab - 1)[..., None])[..., 0]
+                          lab.clamp(0, vocab - 1).unsqueeze(-1)).squeeze(-1)
     mf = m.float()
     return ((lse - picked) * mf).sum(), mf.sum()
 
 
-def chunked_cross_entropy(hidden, head, labels, *, cfg, chunk: int = 512,
-                          mask=None):
+def chunked_cross_entropy(hidden, head, labels, *, cfg, plan=None,
+                          chunk: int = 512, mask=None):
     """Cross-entropy over a large vocab without materializing (B, S, V) in
     float32: one sequence chunk at a time, each under
     ``torch.utils.checkpoint`` when gradients are on, so the backward
@@ -94,7 +116,7 @@ def chunked_cross_entropy(hidden, head, labels, *, cfg, chunk: int = 512,
     S = hidden.shape[1]
     chunk = max(1, min(chunk, S))
     fn = functools.partial(_chunk_nll, vocab=cfg.vocab_size,
-                           cap=cfg.final_softcap)
+                           cap=cfg.final_softcap, plan=plan)
     if torch.is_grad_enabled():
         fn = functools.partial(checkpoint, fn, use_reentrant=False)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)

@@ -74,6 +74,18 @@ semantics), which equals the reference's position mask for the
 (empty for the other families, and for local_global and the vlm, whose
 groups the reference runs without collecting them).  A hybrid of Mamba1
 blocks raises ``NotImplementedError``.
+
+Under an enabled plan (``launch.specs.plan_for`` on a ``DeviceMesh``,
+one process per device) the model is distributed: each parameter,
+drawn whole from the seeded generator on every rank (or carried across
+by ``load_jax_params``), becomes a DTensor of its definition's
+placements (``ParallelPlan.placements``) as soon as it is drawn, so the
+multi-device model starts from the single-device one's numbers and a
+rank never holds more than one whole parameter besides its shards; the
+batch's inputs and the positions are sharded by the plan as they enter
+(``shard``), and the blocks' constraints place the activations.  Only
+the dense family with full attention and the ``"dense"`` schedule runs
+under a plan yet (ROADMAP §1, multi-device training).
 """
 from __future__ import annotations
 
@@ -93,7 +105,8 @@ from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import rms_norm, softcap
-from repro_torch.sharding import (ParallelPlan, init_from_defs,
+from repro_torch.sharding import (ParallelPlan, ParamDef, active_mesh,
+                                  distribute, init_from_defs,
                                   single_device_plan)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -116,8 +129,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet."""
+def check_supported(cfg: ModelConfig,
+                    plan: Optional[ParallelPlan] = None) -> None:
+    """Raise ``NotImplementedError`` for what this port does not run yet
+    (on one device, or under ``plan`` when it is enabled)."""
+    if plan is not None and plan.enabled:
+        _check_plan(cfg, plan)
     if cfg.family == "hybrid" and cfg.ssm_version != 2:
         raise NotImplementedError(
             f"{cfg.name}: a hybrid of ssm_version={cfg.ssm_version} blocks "
@@ -125,6 +142,30 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "ssm" and cfg.ssm_version not in (1, 2):
         raise NotImplementedError(
             f"{cfg.name}: ssm_version={cfg.ssm_version} is not ported yet")
+
+
+def _check_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
+    todo = "is not ported yet (ROADMAP §1, multi-device training)"
+    if cfg.family != "dense" or cfg.attention != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family with {cfg.attention} "
+            f"attention under a multi-device plan {todo}; the dense family "
+            f"with full attention runs")
+    if plan.attention_schedule != "dense" or plan.tp_mode != "gspmd" or \
+            plan.pipeline_stages != 1:
+        raise NotImplementedError(
+            f"{plan.name}: attention_schedule={plan.attention_schedule!r}, "
+            f"tp_mode={plan.tp_mode!r}, pipeline_stages="
+            f"{plan.pipeline_stages} {todo}")
+    if plan.mesh is None:
+        raise ValueError(f"{plan.name}: an enabled plan needs its mesh "
+                         f"(launch.specs.plan_for sets it)")
+    names = tuple(plan.mesh.mesh_dim_names)
+    tp = plan.mesh.size(names.index("model")) if "model" in names else 1
+    if cfg.n_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads over a model axis of {tp}: "
+            f"a tensor-parallel degree must divide the head count")
 
 
 REMATS = ("none", "nothing_saveable", "dots_saveable")
@@ -221,33 +262,71 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, plan: Optional[ParallelPlan] = None,
                  *, device="cuda", seed: int = 0, impl: str = "cuda"):
         super().__init__()
-        check_supported(cfg)
+        self.plan = plan or single_device_plan()
+        check_supported(cfg, self.plan)
         if impl not in IMPLS:
             raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
         self.cfg = cfg
-        self.plan = plan or single_device_plan()
         self.impl = impl
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.dtype]
+        self.param_dtype = pdt = DTYPES[cfg.param_dtype]
+        self.mesh = active_mesh(self.plan.mesh) if self.plan.enabled \
+            else None
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        pdt = DTYPES[cfg.param_dtype]
-        for k, v in init_from_defs(tf.top_defs(cfg), gen, pdt).items():
+        place = None if self.mesh is None else self._place
+        for k, v in init_from_defs(tf.top_defs(cfg), gen, pdt,
+                                   place=place).items():
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
                 self.register_parameter(k, nn.Parameter(v))
         self.layers = nn.ModuleList(
-            ParamTree(init_from_defs(tf.layer_defs(cfg), gen, pdt))
+            ParamTree(init_from_defs(tf.layer_defs(cfg), gen, pdt,
+                                     place=place))
             for _ in range(math.prod(tf.layer_stack(cfg))))
         if cfg.family == "vlm":
             self.cross = nn.ModuleList(
-                ParamTree(init_from_defs(tf.cross_block_defs(cfg), gen, pdt))
+                ParamTree(init_from_defs(tf.cross_block_defs(cfg), gen, pdt,
+                                         place=place))
                 for _ in range(cfg.n_layers // cfg.cross_attn_period))
 
+    def param_defs(self) -> Dict[str, ParamDef]:
+        """Each named parameter's definition (a layer's without the
+        reference's stacked dims)."""
+        cfg = self.cfg
+        out = dict(_flatten(tf.top_defs(cfg)))
+        for i in range(len(self.layers)):
+            out.update(_flatten(tf.layer_defs(cfg), f"layers.{i}."))
+        for g in range(len(getattr(self, "cross", ()))):
+            out.update(_flatten(tf.cross_block_defs(cfg), f"cross.{g}."))
+        return out
+
+    def _place(self, d: ParamDef, t: torch.Tensor):
+        """A tensor of definition ``d``, whole and equal on every rank, as
+        this rank's shard: a DTensor of ``d``'s placements (a sharded
+        one's own copy, so the whole tensor is freed)."""
+        return distribute(t.to(self.device), self.mesh,
+                          self.plan.placements(d.logical, self.mesh))
+
     def load_jax_params(self, tree) -> "Model":
-        """Copy the reference's parameter tree into this model."""
-        self.load_state_dict(load_jax_params(tree, self.cfg))
+        """Copy the reference's parameter tree into this model (each
+        rank's shard of it, when distributed)."""
+        state = load_jax_params(tree, self.cfg)
+        if self.mesh is not None:
+            defs = self.param_defs()
+            state = {k: self._place(defs[k], t) for k, t in state.items()}
+        self.load_state_dict(state)
         return self
+
+    def shard(self, t: torch.Tensor, logical) -> torch.Tensor:
+        """An input every rank holds whole (a batch's tokens or labels,
+        the positions) as this rank's shard of a DTensor of the plan's
+        placements for ``logical``; ``t`` itself on one device."""
+        if self.mesh is None:
+            return t
+        return distribute(t.contiguous(), self.mesh,
+                          self.plan.placements(logical, self.mesh))
 
     def _attn_layout(self, i: int):
         """Layer ``i``'s attention in a dense, moe, audio or vlm model: (the
@@ -276,15 +355,18 @@ class Model(nn.Module):
         return x @ self.projector.to(self.dtype)
 
     def _embed(self, batch):
-        cfg = self.cfg
+        cfg, plan = self.cfg, self.plan
         if cfg.embed_inputs:
-            x = F.embedding(self._index(batch["tokens"]), self.embed).to(
-                self.dtype)
+            tokens = self.shard(self._index(batch["tokens"]),
+                                ("batch", "seq"))
+            # the lookup takes the table's vocab shards whole in d
+            table = plan.constrain(self.embed, ("vocab", None))
+            x = F.embedding(tokens, table).to(self.dtype)
         else:
             x = self._project(batch["embeddings"])
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
-        return x
+        return plan.constrain(x, ("batch", "seq", None))
 
     def _media(self, batch):
         """A vlm batch's media (B, M, media_embed_dim) projected to
@@ -293,10 +375,12 @@ class Model(nn.Module):
 
     def logits(self, hidden):
         cfg = self.cfg
-        h = rms_norm(hidden, self.final_ln, cfg.norm_eps)
+        h = self.plan.constrain(rms_norm(hidden, self.final_ln, cfg.norm_eps),
+                                ("batch", None, None))
         head = self.embed.T if cfg.tie_embeddings else self.head
         # h.dtype operands, float32 products and sums
         out = h.float() @ head.to(h.dtype).float()
+        out = self.plan.constrain(out, ("batch", None, "vocab"))
         return softcap(out, cfg.final_softcap)
 
     def final_hidden(self, hidden):
@@ -313,7 +397,8 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed(batch)
         B, S = x.shape[:2]
-        positions = torch.arange(S, device=self.device).expand(B, S)
+        positions = self.shard(torch.arange(S, device=self.device).expand(
+            B, S), ("batch", None))
         cache_len = cache_len or S
         cache, aux = None, {}
         if cfg.family == "vlm":

@@ -11,10 +11,12 @@ self-attention blocks, ``k = cross_attn_period``, beside ``cross``, its
 g gated cross-attention blocks ``(g, ...)``); the port's ``Model`` holds
 one module per block and loops over them in Python where the reference
 runs ``lax.scan``.  Block functions take ``p`` as anything indexable by
-the reference's keys (a ``ParamTree`` module or a nested dict).  On one
-device the reference's ``plan.constrain`` is the identity and its
-column/row-parallel projections are ``x @ w.astype(x.dtype)``, written
-out here.
+the reference's keys (a ``ParamTree`` module or a nested dict).  The
+dense block calls ``plan.constrain`` and the plan's column/row-parallel
+projections where the reference does (q, k, v, the MLP's gate, the
+projections and both residuals): under a multi-device plan they place
+the block's DTensors, on one device the constraint is the identity and
+a projection is ``x @ w.to(x.dtype)``.
 
 Each block runs in two modes: full sequence (prefill, returning the K/V
 or SSM state for the cache) and one-token decode against a cache.  A moe
@@ -36,7 +38,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import activate, rms_norm, rope
 from repro_torch.models.moe import moe_ffn
-from repro_torch.sharding import ParamDef, stack_defs
+from repro_torch.sharding import ParamDef, single_device_plan, stack_defs
+
+_SINGLE = single_device_plan()
 
 
 # =========================== parameter definitions ========================= #
@@ -209,44 +213,55 @@ def model_defs(cfg) -> Dict[str, Any]:
 
 # ============================ block forwards =============================== #
 
-def _qkv(p, x, cfg, positions):
+def _qkv(p, x, cfg, plan, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, KV, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, KV, hd)
+    x = plan.constrain(x, ("batch", None, None))      # the sequence whole
+    q = plan.col_parallel_project(x, p["wq"]).reshape(B, S, H, hd)
+    # K/V gathered over the model axis before they split into heads (KV
+    # need not divide the TP degree)
+    k = plan.constrain(x @ p["wk"].to(x.dtype), ("batch", None, None)
+                       ).reshape(B, S, KV, hd)
+    v = plan.constrain(x @ p["wv"].to(x.dtype), ("batch", None, None)
+                       ).reshape(B, S, KV, hd)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = plan.constrain(q, ("batch", None, "heads", None))
+    # K/V keep their KV heads replicated over the model axis; each rank's
+    # attention picks the ones its q heads read (ops.local_kv_heads)
+    k = plan.constrain(k, ("batch", None, None, None))
+    v = plan.constrain(v, ("batch", None, None, None))
     return q, k, v
 
 
 def self_attention_block(p, x, cfg, positions, *, window=None,
-                         impl: str = "cuda"):
+                         impl: str = "cuda", plan=_SINGLE):
     """Pre-norm attention sub-block (full sequence, positions
     ``arange(S)``).  Returns (y, (k, v))."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(p["attn"], h, cfg, positions)
+    q, k, v = _qkv(p["attn"], h, cfg, plan, positions)
     o = ops.flash_attention(q, k, v, causal=True, window=window,
                             attn_softcap=cfg.attn_softcap, impl=impl)
     B, S = x.shape[:2]
-    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
-        p["attn"]["wo"].to(o.dtype)
+    o = plan.row_parallel_project(
+        o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["attn"]["wo"])
     if cfg.post_norms:
         o = rms_norm(o, p["ln1p"], cfg.norm_eps)
     return o, (k, v)
 
 
-def mlp_block(p, x, cfg):
+def mlp_block(p, x, cfg, plan=_SINGLE):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    g = h @ p["mlp"]["w1"].to(h.dtype)
+    g = plan.col_parallel_project(h, p["mlp"]["w1"])
+    g = plan.constrain(g, ("batch", None, "ff"))
     u = None
     if "w3" in p["mlp"]:
-        u = h @ p["mlp"]["w3"].to(h.dtype)
+        u = plan.col_parallel_project(h, p["mlp"]["w3"])
     a = activate(g, u, cfg.activation)
-    o = a @ p["mlp"]["w2"].to(a.dtype)
+    o = plan.row_parallel_project(a, p["mlp"]["w2"])
     if cfg.post_norms:
         o = rms_norm(o, p["ln2p"], cfg.norm_eps)
     return o
@@ -256,7 +271,7 @@ def ffn_block(p, x, cfg, plan):
     """The block's feed-forward half: the MLP, or the MoE FFN with its
     aux losses.  Returns (y, aux or None)."""
     if "moe" not in p:
-        return mlp_block(p, x, cfg), None
+        return mlp_block(p, x, cfg, plan), None
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = moe_ffn(p["moe"], h, cfg, plan)
     if cfg.post_norms:
@@ -269,10 +284,10 @@ def dense_block(p, x, cfg, plan, positions, *, window=None,
     """Full transformer block.  Returns (x_out, kv, aux): aux is the MoE
     layer's losses, None for an MLP block."""
     o, kv = self_attention_block(p, x, cfg, positions, window=window,
-                                 impl=impl)
-    x = x + o
+                                 impl=impl, plan=plan)
+    x = plan.constrain(x + o, ("batch", "seq", None))
     y, aux = ffn_block(p, x, cfg, plan)
-    return x + y, kv, aux
+    return plan.constrain(x + y, ("batch", "seq", None)), kv, aux
 
 
 def cross_attn_block(p, x, media_kv, cfg, *, media_valid=None):
@@ -322,14 +337,15 @@ def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
 
 # ============================ decode sub-blocks ============================ #
 
-def attn_block_decode(p, x, cfg, cache, q_pos, *, window=None):
+def attn_block_decode(p, x, cfg, cache, q_pos, *, window=None,
+                      plan=_SINGLE):
     """One-token attention block against a cache slice.
 
     cache: dict(k: (B,S,KV,hd), v, slot_pos: (B,S)), written in place.
     Returns (y, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     positions = q_pos[:, None]
-    q, k_new, v_new = _qkv(p["attn"], h, cfg, positions)
+    q, k_new, v_new = _qkv(p["attn"], h, cfg, plan, positions)
     ck, cv, sp = attn.write_cache(cache["k"], cache["v"], cache["slot_pos"],
                                   k_new, v_new, positions,
                                   rolling_window=window)
@@ -344,6 +360,7 @@ def attn_block_decode(p, x, cfg, cache, q_pos, *, window=None):
 
 
 def dense_block_decode(p, x, cfg, plan, cache, q_pos, *, window=None):
-    o, cache = attn_block_decode(p, x, cfg, cache, q_pos, window=window)
+    o, cache = attn_block_decode(p, x, cfg, cache, q_pos, window=window,
+                                 plan=plan)
     x = x + o
     return x + ffn_block(p, x, cfg, plan)[0], cache

@@ -12,6 +12,11 @@ sync).  It updates the parameters a group of tensors at a time, at most
 ``GROUP_ELEMENTS`` elements a group (or one larger tensor), so its float32
 temporaries stay that small whatever the model's size; every element's
 arithmetic is the same in any grouping.
+
+Under a multi-device plan the parameters, gradients (already placed like
+their parameters, ``runtime.steps``) and moments are DTensors of one
+placement each: the global norm reduces across the ranks, and the
+update, elementwise, runs on each rank's shards in place.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from repro_torch.optim.compression import GradCompression
+from repro_torch.sharding import is_dtensor, local
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -36,11 +42,31 @@ class OptState(NamedTuple):
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor (a dict's values or a
-    sequence), in float32."""
+    sequence), in float32.  Of DTensors on one mesh (Shard or Replicate
+    placements), the norm of the whole tensors, the same on every rank:
+    each rank squares its shards' norms, counting a tensor replicated
+    over a mesh dim only at coordinate 0 of that dim, and one sum over
+    the mesh adds them up (a collective: every rank calls it)."""
     leaves = list(tensors.values()) if isinstance(tensors, dict) \
         else list(tensors)
-    norms = torch._foreach_norm([t.float() for t in leaves])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    norms = torch._foreach_norm([local(t).float() for t in leaves])
+    if not leaves or not is_dtensor(leaves[0]):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    mine = []
+    for t, n in zip(leaves, norms):
+        if t.device_mesh != mesh or any(p.is_partial()
+                                        for p in t.placements):
+            raise ValueError("global_norm takes DTensors of one mesh, "
+                             "sharded or replicated")
+        if all(c == 0 for p, c in zip(t.placements, coord)
+               if p.is_replicate()):
+            mine.append(n * n)
+    sq = torch.stack(mine).sum() if mine else norms[0].new_zeros(())
+    total = DTensor.from_local(sq, mesh, [Partial()] * mesh.ndim)
+    return torch.sqrt(total.full_tensor())
 
 
 def _groups(names, params: Tensors):
@@ -70,8 +96,8 @@ class AdamW:
 
     def init(self, params: Tensors) -> OptState:
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            return {k: torch.zeros_like(p, dtype=torch.float32,
+                                        requires_grad=False)
                     for k, p in params.items()}
         err = self.compression.init(params) if self.compression else None
         dev = next(iter(params.values())).device if params else None
@@ -92,6 +118,11 @@ class AdamW:
             grads, err = self.compression.apply(grads, err)
         names = list(params)
         gnorm = global_norm([grads[k] for k in names])
+        # elementwise from here: each rank's shards, in place
+        ps = {k: local(params[k]) for k in names}
+        gs = {k: local(grads[k]) for k in names}
+        ms = {k: local(state.m[k]) for k in names}
+        vs = {k: local(state.v[k]) for k in names}
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -100,19 +131,19 @@ class AdamW:
         mhat_c = 1.0 / (1 - torch.pow(b1, t))
         vhat_c = 1.0 / (1 - torch.pow(b2, t))
         lr = self._lr(step)
-        for group in _groups(names, params):
-            g = [grads[k].float() for k in group]
+        for group in _groups(names, ps):
+            g = [gs[k].float() for k in group]
             if scale is not None:
                 g = torch._foreach_mul(g, scale)
-            m = [state.m[k] for k in group]
-            v = [state.v[k] for k in group]
+            m = [ms[k] for k in group]
+            v = [vs[k] for k in group]
             torch._foreach_mul_(m, b1)
             torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
             torch._foreach_mul_(v, b2)
             torch._foreach_add_(v, torch._foreach_mul(
                 torch._foreach_mul(g, g), 1 - b2))
             del g
-            p = [params[k] for k in group]
+            p = [ps[k] for k in group]
             pf = [x.float() for x in p]
             den = torch._foreach_mul(v, vhat_c)
             torch._foreach_sqrt_(den)

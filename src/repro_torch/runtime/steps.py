@@ -16,6 +16,15 @@ family's "embeddings" (B, S, media_embed_dim), and a vlm's "media" (B, M,
 media_embed_dim), numpy arrays or tensors, which the model moves to its
 device; training batches add "labels".  A decode step's inputs are
 {"tokens": (B, 1)} or {"embeddings": (B, 1, media_embed_dim)}.
+
+Under a multi-device plan (a distributed model: its parameters
+DTensors, ``models.model``) every rank calls the step on the same whole
+batch, and the model shards it.  Each gradient comes out of autograd
+with the placements its last redistribution left (data-parallel
+gradients are partial sums over the data axes) and is redistributed to
+its parameter's placements before the update: the all-reduce over
+``("pod", "data")``, FSDP's reduce-scatter over ``"data"``.  The metrics
+are gathered whole on every rank (collectives).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 
 from repro_torch.models.common import chunked_cross_entropy
 from repro_torch.models.moe import moe_aux_total
+from repro_torch.sharding import full, is_dtensor
 
 
 class TrainState(NamedTuple):
@@ -45,8 +55,9 @@ def make_loss_fn(model):
         hidden, aux, _ = model.forward(batch)
         h = model.final_hidden(hidden)
         head = model.embed.T if cfg.tie_embeddings else model.head
-        labels = model._index(batch["labels"])
-        tot, cnt = chunked_cross_entropy(h, head, labels, cfg=cfg)
+        labels = model.shard(model._index(batch["labels"]), ("batch", "seq"))
+        tot, cnt = chunked_cross_entropy(h, head, labels, cfg=cfg,
+                                         plan=model.plan)
         ce = tot / torch.clamp(cnt, min=1.0)
         loss = ce
         metrics = {"ce": ce, "tokens": cnt}
@@ -70,6 +81,14 @@ def _split_microbatches(batch, n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _placed_like(g, p):
+    """A DTensor gradient redistributed to its parameter's placements
+    (reducing partial sums); a plain one as it is."""
+    if not is_dtensor(g) or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def make_train_step(model, optimizer):
     """Returns train_step(state, batch) -> (state, metrics): metrics
     ``loss``, ``ce``, ``tokens``, ``grad_norm`` and ``lr`` (and a moe
@@ -82,8 +101,8 @@ def make_train_step(model, optimizer):
             loss, metrics = loss_fn(batch)
             grads = torch.autograd.grad(loss, list(params.values()),
                                         materialize_grads=True)
-        return dict(zip(params, grads)), \
-            {k: v.detach() for k, v in metrics.items()}
+        grads = {k: _placed_like(g, params[k]) for k, g in zip(params, grads)}
+        return grads, {k: full(v.detach()) for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch):
         params = state.params

@@ -1,44 +1,253 @@
-"""Parameter definitions and the single-device parallel plan (the port's
-part of ``repro.sharding``).
+"""Logical-axis sharding: parallelism plans -> DTensor placements (the port
+of ``repro.sharding``).
+
+Model code annotates tensors with *logical* axis names ("batch", "seq",
+"embed", "heads", "kv", "ff", "experts", "vocab", "inner", ...).  A
+``ParallelPlan`` maps logical names to mesh axes, giving DP / TP / SP /
+FSDP(ZeRO) / EP as pure rule-sets, as the reference's does.  Where the
+reference turns a rule-set into a ``PartitionSpec`` for GSPMD, the port
+turns it into ``torch.distributed.tensor`` placements on a
+``DeviceMesh`` whose dims are named like the reference's mesh axes
+(``("pod", "data", "model")`` or ``("data", "model")``): ``spec`` gives
+the tuple of mesh-axis assignments a ``PartitionSpec`` holds,
+``placements`` the DTensor placements of that tuple (a tensor dim
+assigned a tuple of axes is ``Shard`` on each of them, in mesh order, as
+GSPMD nests them major to minor), and ``constrain`` redistributes a
+DTensor to them (the identity on a plain tensor or under a disabled
+plan, so one device runs exactly as before).
 
 ``ParamDef``, ``stack_defs`` and ``init_from_defs`` are the single source
-of truth for shapes, logical axes and initialisation.  ``ParallelPlan``
-carries only the fields a single-device step reads (``remat``,
-``microbatch``, ``ssm_chunk`` and the MoE grouping, ``moe_group_size`` and
-``moe_target_groups``); the reference's sharding rules, mesh and
-tensor-parallel modes wait for the multi-device slice.  On one device the
-reference's ``ParallelPlan.constrain`` is the identity and its
-``col_parallel_project`` / ``row_parallel_project`` are ``x @
-w.astype(x.dtype)``; the model code writes those out directly.  The
-logical axis names are kept so a later multi-GPU slice can map them.
+of truth for shapes, logical axes and initialisation; ``defs_to_specs``
+and ``defs_to_shapes`` map a definition tree to its specs and to meta
+tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+AxisAssignment = Union[None, str, Tuple[str, ...]]
+
+
+def mesh_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's axis names (a ``DeviceMesh``'s ``mesh_dim_names``)."""
+    return tuple(mesh.mesh_dim_names)
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis name: size} (the reference's ``mesh.shape``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """A parallelism plan for one (arch x shape), cut to one device."""
+    """A parallelism 'query plan' for one (arch x shape).
+
+    rules: logical axis name -> mesh axis (or tuple of mesh axes, or None).
+    When ``enabled`` is False every constraint is the identity (one
+    device)."""
+    name: str = "single"
+    rules: Tuple[Tuple[str, AxisAssignment], ...] = ()
+    enabled: bool = False
     # per layer: none | nothing_saveable (torch.utils.checkpoint) |
     # dots_saveable (a selective checkpoint that keeps matmul outputs)
     remat: str = "nothing_saveable"
     microbatch: int = 1               # gradient-accumulation steps
+    seq_shard: bool = True            # Megatron-SP residual stream
+    attention_schedule: str = "dense" # dense | causal_skip
     moe_group_size: int = 2048        # tokens routed together (a group)
     moe_target_groups: int = 1        # aim for >= this many groups
     # time steps the selective scan's backward recomputes at a time
     ssm_chunk: int = 256
+    # gspmd: projections are matmuls of DTensors and a constraint, DTensor
+    # picks the collectives; shard_map (the reference's explicit Megatron
+    # g-bar) is not ported (ROADMAP §1)
+    tp_mode: str = "gspmd"
+    mesh: Any = None                  # the DeviceMesh the rules refer to
+    pipeline_stages: int = 1          # >1 => GPipe over the 'pod' axis
+
+    def rule(self, logical: Optional[str]) -> AxisAssignment:
+        if logical is None:
+            return None
+        for k, v in self.rules:
+            if k == logical:
+                return v
+        return None
+
+    def spec(self, logical_axes: Sequence[Optional[str]]) -> tuple:
+        """The mesh-axis assignment of each tensor dim (what the
+        reference's ``PartitionSpec`` holds)."""
+        return tuple(self.rule(a) for a in logical_axes)
+
+    def placements(self, logical_axes: Sequence[Optional[str]], mesh=None):
+        """DTensor placements on ``mesh`` (default the plan's) for a tensor
+        whose dims carry ``logical_axes``: ``Shard(dim)`` on each mesh dim
+        a tensor dim is assigned to, ``Replicate()`` on the others."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = mesh_axes(self.mesh if mesh is None else mesh)
+        out = [Replicate()] * len(names)
+        for dim, assign in enumerate(self.spec(logical_axes)):
+            axes = (assign,) if isinstance(assign, str) else (assign or ())
+            for a in axes:
+                if a in names:
+                    out[names.index(a)] = Shard(dim)
+                elif self.mesh is None or mesh_shape(self.mesh).get(a) != 1:
+                    # only an axis of size 1 may be left out (active_mesh)
+                    raise ValueError(f"logical axis {logical_axes[dim]!r} "
+                                     f"maps to {a!r}, not an axis of the "
+                                     f"mesh {names}")
+        return out
+
+    def constrain(self, x, logical_axes: Sequence[Optional[str]]):
+        """Redistribute a DTensor to the plan's placements; the identity
+        when the plan is disabled or ``x`` is no DTensor."""
+        if not self.enabled or not is_dtensor(x):
+            return x
+        if len(logical_axes) != x.ndim:
+            raise ValueError(f"{len(logical_axes)} logical axes "
+                             f"{tuple(logical_axes)} for a tensor of shape "
+                             f"{tuple(x.shape)}")
+        return x.redistribute(x.device_mesh,
+                              self.placements(logical_axes, x.device_mesh))
 
     def with_(self, **kw) -> "ParallelPlan":
         return dataclasses.replace(self, **kw)
 
+    # ---------------------- tensor-parallel projections ------------------ #
+    def _gspmd_only(self):
+        if self.tp_mode != "gspmd":
+            raise NotImplementedError(
+                f"tp_mode={self.tp_mode!r}: the explicit-collective "
+                f"projections are not ported (ROADMAP §1, tp_mode="
+                f"\"shard_map\"); plan_for never sets it")
+
+    def row_parallel_project(self, x, w):
+        """y = x @ w with the contraction dim sharded over 'model'
+        (Megatron's row-parallel half): the product, then the
+        sequence-sharded constraint (a reduce-scatter of the partial
+        sums onto the sequence)."""
+        self._gspmd_only()
+        return self.constrain(x @ w.to(x.dtype), ("batch", "seq", None))
+
+    def col_parallel_project(self, x, w):
+        """y = x @ w with the output dim sharded over 'model' (Megatron's
+        column-parallel half): the sequence-sharded input is gathered
+        whole in the sequence first (Megatron-SP's all-gather)."""
+        self._gspmd_only()
+        x = self.constrain(x, ("batch", None, None))
+        return x @ w.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Canonical plans.  Mesh axes: ("pod", "data", "model") multi-pod,
+# ("data", "model") single pod.
+# --------------------------------------------------------------------------- #
+
+def _base_rules(data_axes: Tuple[str, ...], fsdp: Tuple[str, ...],
+                model: str, seq_shard: bool
+                ) -> Tuple[Tuple[str, AxisAssignment], ...]:
+    return (
+        ("batch",   data_axes if len(data_axes) != 1 else data_axes[0]),
+        ("seq",     model if seq_shard else None),      # residual-stream SP
+        ("kv_seq",  model),                             # decode cache sequence shard
+        ("kv_heads", None),                             # cache KV-head dim (seq takes 'model')
+        ("tokens",  data_axes + (model,)),              # MoE pre-dispatch groups
+        ("embed",   fsdp if len(fsdp) != 1 else (fsdp[0] if fsdp else None)),
+        ("heads",   model),
+        ("kv",      model),
+        ("ff",      model),
+        ("inner",   model),                             # mamba d_inner
+        ("experts", model),
+        ("ff_expert", None),        # flips to `model` when EP impossible
+        ("vocab",   model),
+        ("media",   None),
+        ("state",   None),
+    )
+
+
+def moe_rules_for(plan: ParallelPlan, n_experts: int,
+                  model_size: int) -> ParallelPlan:
+    """Resolve expert sharding: EP over the model axis when divisible,
+    otherwise TP-within-expert (shard the expert FFN dim)."""
+    if n_experts % model_size == 0:
+        return plan
+    rules = tuple(
+        (k, (None if k == "experts" else "model" if k == "ff_expert" else v))
+        for k, v in plan.rules)
+    return plan.with_(rules=rules)
+
+
+def train_plan(mesh_axes: Sequence[str], *, fsdp: bool = True,
+               seq_shard: bool = True, remat: str = "nothing_saveable",
+               microbatch: int = 1, name: str = "") -> ParallelPlan:
+    """Default training plan: DP over (pod,data), TP over model, Megatron-SP
+    residuals, FSDP(ZeRO) param rows over data."""
+    mesh_axes = tuple(mesh_axes)
+    data_axes = tuple(a for a in mesh_axes if a in ("pod", "data"))
+    fsdp_axes = ("data",) if fsdp and "data" in mesh_axes else ()
+    return ParallelPlan(
+        name=name or ("train_dp_tp_sp" + ("_fsdp" if fsdp else "")),
+        rules=_base_rules(data_axes, fsdp_axes, "model", seq_shard),
+        enabled=True,
+        remat=remat,
+        microbatch=microbatch,
+        seq_shard=seq_shard,
+    )
+
+
+def serve_plan(mesh_axes: Sequence[str], *, global_batch: int,
+               weight_mode: str = "stationary", name: str = "") -> ParallelPlan:
+    """Serving plan.  KV cache: batch over data axes (when divisible),
+    sequence over 'model' (flash-decoding / context parallelism).  Weights:
+      stationary : params sharded over 'model' only (no per-layer gather)
+      gathered   : params 2-D sharded (model x data), all-gathered per layer
+    For batch < 16 (long-context) batch is left unsharded and the cache
+    sequence is sharded over (data, model)."""
+    mesh_axes = tuple(mesh_axes)
+    data_axes = tuple(a for a in mesh_axes if a in ("pod", "data"))
+    small_batch = global_batch < 16   # long-context: leave batch unsharded
+    batch_assign: AxisAssignment = None if small_batch else (
+        data_axes if len(data_axes) != 1 else data_axes[0])
+    kv_seq_assign: AxisAssignment = (data_axes + ("model",)) if small_batch \
+        else "model"
+    fsdp_axes: Tuple[str, ...] = ("data",) if weight_mode == "gathered" \
+        else ()
+    rules = (
+        ("batch",   batch_assign),
+        ("seq",     None),
+        ("kv_seq",  kv_seq_assign),
+        ("kv_heads", None),
+        ("tokens",  data_axes + ("model",) if not small_batch else None),
+        ("embed",   fsdp_axes[0] if fsdp_axes else None),
+        ("heads",   "model"),
+        ("kv",      "model"),
+        ("ff",      "model"),
+        ("inner",   "model"),
+        ("experts", "model"),
+        ("ff_expert", None),
+        ("vocab",   "model"),
+        ("media",   None),
+        ("state",   None),
+    )
+    return ParallelPlan(
+        name=name or f"serve_{weight_mode}",
+        rules=rules,
+        enabled=True,
+        remat="none",
+        seq_shard=False,
+    )
+
 
 def single_device_plan() -> ParallelPlan:
-    return ParallelPlan(remat="none")
+    return ParallelPlan(name="single", enabled=False, remat="none",
+                        seq_shard=False)
 
+
+# --------------------------------------------------------------------------- #
+# Param definitions: single source of truth for shapes, logical axes, init.
+# --------------------------------------------------------------------------- #
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -52,21 +261,41 @@ class ParamDef:
         assert len(self.shape) == len(self.logical), (self.shape, self.logical)
 
 
+def map_defs(fn, tree):
+    """``fn`` applied to every ParamDef leaf of a nested dict."""
+    if isinstance(tree, ParamDef):
+        return fn(tree)
+    return {k: map_defs(fn, v) for k, v in tree.items()}
+
+
 def stack_defs(tree, n: int):
     """Prepend a stacked-layers dim of size n to every ParamDef leaf."""
-    if isinstance(tree, ParamDef):
-        return dataclasses.replace(tree, shape=(n,) + tree.shape,
-                                   logical=(None,) + tree.logical)
-    return {k: stack_defs(v, n) for k, v in tree.items()}
+    return map_defs(lambda d: dataclasses.replace(
+        d, shape=(n,) + d.shape, logical=(None,) + d.logical), tree)
+
+
+def defs_to_specs(defs, plan: ParallelPlan):
+    """Each leaf's ``plan.spec`` (a tuple of mesh-axis assignments)."""
+    return map_defs(lambda d: plan.spec(d.logical), defs)
+
+
+def defs_to_shapes(defs, dtype: torch.dtype):
+    """Each leaf as a meta tensor of its shape and ``dtype`` (the
+    reference's ``ShapeDtypeStruct``): no memory."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
 
 
 def init_from_defs(defs, generator: torch.Generator, dtype: torch.dtype,
-                   device=None) -> Dict[str, Any]:
+                   device=None, place=None) -> Dict[str, Any]:
     """Materialise params from defs with the reference's distributions:
     normal x scale, normal x fan_in^-1/2 ("scaled", fan_in = shape[-2]),
     zeros, ones, const.  Leaves are drawn in sorted key order (the order
     jax flattens a dict) from ``generator``, which lives on ``device``;
-    the numbers differ from jax.random's for the same seed."""
+    the numbers differ from jax.random's for the same seed.  ``place(def,
+    leaf)``, when given, takes each leaf as soon as it is drawn (a
+    distributed model keeps only its shard, so no more than one whole
+    leaf is ever held)."""
     device = generator.device if device is None else torch.device(device)
 
     def draw(d: ParamDef) -> torch.Tensor:
@@ -85,7 +314,48 @@ def init_from_defs(defs, generator: torch.Generator, dtype: torch.dtype,
 
     def walk(tree):
         if isinstance(tree, ParamDef):
-            return draw(tree)
+            return draw(tree) if place is None else place(tree, draw(tree))
         return {k: walk(tree[k]) for k in sorted(tree)}
 
     return walk(defs)
+
+
+def distribute(t: torch.Tensor, mesh, placements):
+    """``t``, which every rank holds whole and equal, as a DTensor of
+    ``placements`` on ``mesh``: each rank keeps its own shard, with no
+    communication."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def active_mesh(mesh):
+    """The submesh of ``mesh``'s dims of size > 1 (its last dim when all
+    are 1), where a distributed model's DTensors live: a placement on a
+    dim of size 1 shards nothing, and each dim more multiplies the
+    placement strategies DTensor's sharding propagation weighs for every
+    new operator (a first training step of minutes on a 3-D mesh, of
+    seconds on its 2-D submesh).  ``ParallelPlan.placements`` skips the
+    size-1 axes a rule names."""
+    names = mesh_axes(mesh)
+    keep = tuple(n for n, size in zip(names, mesh.shape) if size > 1) \
+        or names[-1:]
+    if keep == names:
+        return mesh
+    return mesh[keep[0]] if len(keep) == 1 else mesh[keep]
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def full(t):
+    """A DTensor gathered whole on every rank (a collective: every rank
+    of its mesh must call it); a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def local(t):
+    """This rank's shard of a DTensor (sharing its storage when
+    gradients are off); a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t

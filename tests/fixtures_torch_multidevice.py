@@ -1,0 +1,315 @@
+"""The worker side of tests/test_torch_multidevice.py: worlds of CPU
+processes over gloo, each running the port's multi-device path.
+
+Free of JAX (every spawned process imports this module): the test
+computes the reference's numbers with JAX in its own process and passes
+inputs and results through ``.npz`` files.  ``spawn`` starts one world
+and waits for it; each worker function runs on every rank and writes its
+results from rank 0.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+AXES = ("pod", "data", "model")
+LR = 1e-3
+STEPS = 3
+# test_torch_train.py's tolerances (that file imports JAX; this one may not)
+LOSS_TOL = 1e-5
+GRAD_TOL = 1e-5
+PARAM_TOL = 2e-2 * LR
+
+
+def spawn(fn, world: int, *args, timeout: float = 300.0) -> None:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined
+    in one gloo process group (rendezvous through a file, so concurrent
+    worlds never share a port); raises if any rank fails."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _entry, args=(fn, world, os.path.join(tmp, "rdzv"), args),
+            nprocs=world, start_method="spawn", join=False)
+        while not ctx.join(timeout=timeout):
+            pass
+
+
+def _entry(rank, fn, world, init_file, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def unflatten(flat):
+    """A nested dict from "a/b/c" keys (the reference's parameter tree as
+    ``np.savez`` stores it)."""
+    tree = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def smoke_cfg():
+    from repro_torch.configs import REGISTRY
+    return dataclasses.replace(REGISTRY["smollm-360m"].smoke(),
+                               dtype="float32")
+
+
+def _model(mesh_shape, params_npz, B, S, seed=0, **plan_kw):
+    """The smoke smollm-360m under plan_for's train plan on a mesh of
+    ``mesh_shape``, with the parameters in ``params_npz`` (or its own,
+    drawn from ``seed``, when None)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import plan_for
+    from repro_torch.models.model import build_model
+    cfg = smoke_cfg()
+    mesh = make_mesh(mesh_shape, AXES)
+    plan = plan_for(cfg, ShapeConfig("train", S, B, "train"), mesh,
+                    **plan_kw)
+    model = build_model(cfg, plan, device="cpu", seed=seed)
+    if params_npz is not None:
+        with np.load(params_npz) as f:
+            model.load_jax_params(unflatten(dict(f)))
+    return model
+
+
+def _full_params(state):
+    from repro_torch.sharding import full
+    return {k: full(p.detach()).numpy().copy()
+            for k, p in state.params.items()}
+
+
+def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
+                 microbatch=1):
+    """STEPS AdamW steps (lr LR) on the batch in ``batch_npz`` from the
+    parameters in ``params_npz`` (drawn from seed 0 when None); rank 0
+    writes each step's loss and grad norm, the whole parameters after it,
+    the placements of the embedding and a layer's wq, the collectives one
+    ``global_norm`` of the parameters makes, and whether every
+    parameter's shard owns its storage (holds no whole tensor alive)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.sharding import local
+    with np.load(batch_npz) as f:
+        batch = dict(f)
+    B, S = batch["labels"].shape
+    model = _model(mesh_shape, params_npz, B, S, microbatch=microbatch)
+    opt = AdamW(lr=LR)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt)
+    out = {}
+    for i in range(1, STEPS + 1):
+        state, m = step(state, batch)
+        out[f"loss_{i}"] = float(m["loss"])
+        out[f"grad_norm_{i}"] = float(m["grad_norm"])
+        for k, v in _full_params(state).items():
+            out[f"p{i}/{k}"] = v
+    out["placements"] = np.array([
+        str(tuple(model.embed.placements)),
+        str(tuple(model.layers[0].attn.wq.placements))])
+    with CommDebugMode() as comm:
+        global_norm(state.params)
+    out["norm_collectives"] = comm.get_total_counts()
+    shards = [local(p) for p in state.params.values()]
+    out["own_storage"] = all(
+        t.untyped_storage().nbytes() == t.numel() * t.element_size()
+        for t in shards)
+    if rank == 0:
+        np.savez(out_npz, **out)
+
+
+def gpipe_worker(rank, world, mesh_shape, case_npz, out_npz, n_micro):
+    """``gpipe_apply`` over the "pod" axis of a ``mesh_shape`` mesh on
+    the reference's case (tanh layers); rank 0 writes the output and the
+    gradients of its sum."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.pipeline import gpipe_apply
+    mesh = make_mesh(mesh_shape, AXES)
+    with np.load(case_npz) as f:
+        ws, bs, x = (torch.from_numpy(f[k]).requires_grad_()
+                     for k in ("ws", "bs", "x"))
+
+    def body(stage_p, h):
+        w, b = stage_p
+        for i in range(w.shape[0]):
+            h = torch.tanh(h @ w[i] + b[i])
+        return h
+
+    out = gpipe_apply((ws, bs), x, body, mesh=mesh, stage_axis="pod",
+                      n_micro=n_micro)
+    out.sum().backward()
+    res = {"out": out.detach().numpy(), "gw": ws.grad.numpy(),
+           "gb": bs.grad.numpy(), "gx": x.grad.numpy()}
+    # every rank holds the same output and gradients
+    for k, v in list(res.items()):
+        lo, hi = torch.from_numpy(v).clone(), torch.from_numpy(v).clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        res[f"spread_{k}"] = np.float64((hi - lo).abs().max())
+    if rank == 0:
+        np.savez(out_npz, **res)
+
+
+def checkpoint_worker(rank, world, mesh_shape, params_npz, batch_npz,
+                      ckpt_dir, out_npz):
+    """Save the initial state (the parameters of ``params_npz``, zero
+    moments), take one step and save again, then restore both into a
+    model drawn from another seed; rank 0 writes the whole state after the
+    step and after each restore."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.sharding import full
+    with np.load(batch_npz) as f:
+        batch = dict(f)
+    B, S = batch["labels"].shape
+
+    def whole(state):
+        return {f"{part}/{k}": full(t.detach()).numpy().copy()
+                for part, tree in (("p", state.params),
+                                   ("m", state.opt_state.m),
+                                   ("v", state.opt_state.v))
+                for k, t in tree.items()}
+
+    model = _model(mesh_shape, params_npz, B, S)
+    opt = AdamW(lr=LR)
+    state = init_train_state(model, opt)
+    ckpt = CheckpointManager(ckpt_dir, keep=3)
+    ckpt.save(0, state, extras={"data_step": 0})
+    state, _ = make_train_step(model, opt)(state, batch)
+    ckpt.save(1, state, extras={"data_step": 1})
+    out = {f"stepped/{k}": v for k, v in whole(state).items()}
+    fresh = _model(mesh_shape, None, B, S, seed=7)
+    out.update({f"drawn7/{k}": full(p.detach()).numpy().copy()
+                for k, p in fresh.named_parameters()})
+    target = init_train_state(fresh, opt)
+    for s in (0, 1):
+        restored, extras = ckpt.restore(target, step=s)
+        assert extras["data_step"] == s
+        out.update({f"restored{s}/{k}": v
+                    for k, v in whole(restored).items()})
+    out["steps"] = np.array(ckpt.steps())
+    if rank == 0:
+        np.savez(out_npz, **out)
+
+
+def batch(cfg, B: int, S: int, seed: int = 1, pads: int = 3):
+    """Tokens and labels with ``pads`` -1s (test_torch_train's batch of a
+    dense model)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels[0, S - pads:] = -1
+    return {"tokens": toks, "labels": labels}
+
+
+def one_device_trajectory(batch_np, microbatch: int = 1):
+    """STEPS AdamW steps of the smoke model on one CPU device (no plan),
+    from seed 0: [(loss, grad norm, {name: parameters}) after each]."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.sharding import single_device_plan
+    plan = single_device_plan().with_(microbatch=microbatch)
+    model = build_model(smoke_cfg(), plan, device="cpu", seed=0)
+    opt = AdamW(lr=LR)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt)
+    out = []
+    for _ in range(STEPS):
+        state, m = step(state, batch_np)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: p.detach().numpy().copy()
+                     for k, p in state.params.items()}))
+    return out
+
+
+def main() -> int:
+    """Worlds of CPU processes over gloo against the port's single-device
+    path, with no JAX: training at the meshes of test_torch_multidevice
+    from seed 0 (losses, grad norms, parameters at test_torch_train's
+    tolerances) and ``gpipe_apply`` at 2 stages against the sequential
+    layers (1e-5, 1e-4).  Checks the DTensor path on whatever torch is
+    installed (the suite's reference comparison needs JAX).
+
+        PYTHONPATH=src python tests/fixtures_torch_multidevice.py
+    """
+    import time
+    import fixtures_torch_multidevice as fx
+    print(f"torch {torch.__version__}", flush=True)
+    B, S = 4, 48
+    bad = 0
+    with tempfile.TemporaryDirectory() as d:
+        bpath = os.path.join(d, "batch.npz")
+        b = batch(smoke_cfg(), B, S)
+        np.savez(bpath, **b)
+        for mesh, mb in (((1, 2, 2), 1), ((2, 2, 1), 1), ((1, 1, 4), 1),
+                         ((1, 2, 2), 2)):
+            t0 = time.perf_counter()
+            want = one_device_trajectory(b, mb)
+            path = os.path.join(d, "out.npz")
+            spawn(fx.train_worker, int(np.prod(mesh)), mesh, None, bpath,
+                  path, mb)
+            with np.load(path) as f:
+                got = dict(f)
+            lrel = max(abs(float(got[f"loss_{i}"]) / want[i - 1][0] - 1)
+                       for i in range(1, STEPS + 1))
+            grel = max(abs(float(got[f"grad_norm_{i}"]) / want[i - 1][1]
+                           - 1) for i in range(1, STEPS + 1))
+            pmax = max(float(np.abs(got[f"p{i}/{k}"] - v).max())
+                       for i in range(1, STEPS + 1)
+                       for k, v in want[i - 1][2].items())
+            ok = lrel <= LOSS_TOL and grel <= GRAD_TOL and pmax <= PARAM_TOL
+            bad += not ok
+            print(f"mesh {mesh} microbatch {mb}: loss max rel {lrel:.3g} "
+                  f"(tol {LOSS_TOL}), grad norm max rel {grel:.3g} (tol "
+                  f"{GRAD_TOL}), params max abs {pmax:.3g} (tol "
+                  f"{PARAM_TOL}), global_norm collectives "
+                  f"{int(got['norm_collectives'])}, "
+                  f"{time.perf_counter() - t0:.1f} s: "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        rng = np.random.default_rng(0)
+        case = {"ws": rng.standard_normal((8, 32, 32)).astype(np.float32)
+                * 0.2,
+                "bs": rng.standard_normal((8, 32)).astype(np.float32) * 0.1,
+                "x": rng.standard_normal((8, 16, 32)).astype(np.float32)}
+        cpath, path = os.path.join(d, "case.npz"), os.path.join(d, "g.npz")
+        np.savez(cpath, **case)
+        spawn(fx.gpipe_worker, 2, (2, 1, 1), cpath, path, 4)
+        ws, bs, x = (torch.from_numpy(case[k]).requires_grad_()
+                     for k in ("ws", "bs", "x"))
+        h = x
+        for i in range(ws.shape[0]):
+            h = torch.tanh(h @ ws[i] + bs[i])
+        h.sum().backward()
+        with np.load(path) as f:
+            fe = float(np.abs(f["out"] - h.detach().numpy()).max())
+            ge = max(float(np.abs(f[k] - t.grad.numpy()).max())
+                     for k, t in (("gw", ws), ("gb", bs), ("gx", x)))
+        ok = fe < 1e-5 and ge < 1e-4
+        bad += not ok
+        print(f"gpipe 2 stages: forward max abs {fe:.3g} (tol 1e-5), "
+              f"gradients max abs {ge:.3g} (tol 1e-4): "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())
