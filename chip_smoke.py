@@ -194,15 +194,21 @@ Phases (any failure exits nonzero; there is no CPU path):
              table, its hash and the severity counts;
 15. multi-device path, world of one — (runs after 14) an NCCL process
              group of one rank and a (1, 1, 1) ("pod", "data", "model")
-             mesh: smollm-360m at full width and depth (32 layers,
-             float32, B=2, S=256) takes TRAIN_F32_STEPS AdamW steps under
-             launch.specs.plan_for's train plan (its parameters DTensors,
-             K7 under local_map) from the same seeded state as the
-             single-device path beside it: losses, grad norms and
+             mesh: smollm-360m at full width and depth (32 layers), then
+             qwen3-moe-30b-a3b (2 of 48 layers: the moe FFN's two
+             local_maps), falcon-mamba-7b (2 of 64: K8 under its
+             local_map on the rank's channels) and zamba2-2.7b (one group
+             of 6 Mamba2 blocks and the shared block: K7 at hd 80 under
+             local_map), each float32, B=2, S=256, take TRAIN_F32_STEPS
+             AdamW steps under launch.specs.plan_for's train plan (remat
+             none; the parameters DTensors) from the same seeded state as
+             the single-device path beside it (zamba2's each step from the
+             single run's state, REPLAYED): losses, grad norms and
              parameters within LOSS_TOL, GRAD_TOL and PARAM_SHARE_TOL, and
-             K7's launch counter risen by exactly as much (32 a step);
-             then pipeline.gpipe_apply at one stage against the sequential
-             layers on the card (forward 1e-5, gradients 1e-4).
+             K7's and K8's launch counters risen by exactly as much on
+             both (one a layer a step); then pipeline.gpipe_apply at one
+             stage against the sequential layers on the card (forward
+             1e-5, gradients 1e-4).
 
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
@@ -212,8 +218,8 @@ qwen3-moe-30b-a3b's as moe_path_ms and moe_train_path_ms, zamba2-2.7b's
 as hybrid_path_ms and hybrid_train_path_ms, mixtral-8x7b's as swa_*,
 gemma2-9b's as local_global_*, llama-3.2-vision-11b's as vlm_*,
 musicgen-medium's as audio_*, and its times at hd 80 and 256 as hd80_*
-and hd256_*, at 24:24 hd 64 as mha_*, and phase 15's launches as
-multidevice_path_launches), and
+and hd256_*, at 24:24 hd 64 as mha_*; K7's and K8's launches over phase
+15's mesh runs as multidevice_path_launches), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
@@ -1531,50 +1537,68 @@ def train_parity(torch, cfg, B, S):
     torch.cuda.empty_cache()
 
 
-def replayed_steps(torch, f32, plan, batch):
-    """TRAIN_F32_STEPS AdamW steps of the kernels model and the plain one,
-    the kernels model taking the plain run's parameters and moments
-    before each step, so each step's update is compared from one state:
-    (the largest share over the steps of elements more than 2% of lr
-    apart, the largest difference in lr, elements, [(kernels loss, plain
-    loss)] a step).  Both models and their moments stay on the card."""
-    from repro_torch.models.model import build_model
+def replay_steps(torch, models, batch):
+    """TRAIN_F32_STEPS AdamW steps (lr TRAIN_LR) of two models, the first
+    taking the second's parameters and moments before each step, so each
+    step's update is compared from one state: ([losses, grad norms, step
+    seconds, launch counts] of each model, the largest share over the
+    steps of elements more than 2% of lr apart, the largest difference in
+    lr, elements).  Either may be distributed (a world of one: its local
+    shards are the whole tensors)."""
+    from repro_torch.kernels import ops
     from repro_torch.optim import AdamW
     from repro_torch.runtime.steps import init_train_state, make_train_step
-    runs = {}
-    for impl in ("cuda", "ref"):
-        model = open_gates(torch, build_model(f32, plan, device="cuda",
-                                              seed=0, impl=impl))
+    from repro_torch.sharding import full, local
+    runs = []
+    for model in models:
         opt = AdamW(lr=TRAIN_LR)
-        runs[impl] = [model, init_train_state(model, opt),
-                      make_train_step(model, opt)]
-    share, pmax, n, losses = 0.0, 0.0, 0, []
+        runs.append([init_train_state(model, opt), make_train_step(model, opt),
+                     ([], [], [], dict.fromkeys(launch_counts(), 0))])
+    share, pmax, n = 0.0, 0.0, 0
     for _ in range(TRAIN_F32_STEPS):
-        pair = []
-        for run in runs.values():
-            run[1], m = run[2](run[1], batch)
-            pair.append(float(m["loss"]))
-        losses.append(tuple(pair))
-        (_, ks, _), (_, ps, _) = runs["cuda"], runs["ref"]
+        for run in runs:
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            run[0], m = run[1](run[0], batch)
+            losses, norms, secs, launches = run[2]
+            losses.append(float(m["loss"]))                 # syncs
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t)
+            for k, v in launch_counts().items():
+                launches[k] += v
+        (follower, *_), (leader, *_) = runs
         n = beyond = 0
         with torch.no_grad():
-            for k, p in ps.params.items():
-                d = (ks.params[k] - p).abs()
+            for k, p in leader.params.items():
+                d = (full(follower.params[k]) - full(p)).abs()
                 pmax = max(pmax, float(d.max()) / TRAIN_LR)
                 n += d.numel()
                 beyond += int((d > 0.02 * TRAIN_LR).sum())
-            share = max(share, beyond / n)
-            for k, p in ps.params.items():
-                ks.params[k].copy_(p)
-                ks.opt_state.m[k].copy_(ps.opt_state.m[k])
-                ks.opt_state.v[k].copy_(ps.opt_state.v[k])
-        runs["cuda"][1] = ks._replace(
-            opt_state=ks.opt_state._replace(step=ps.opt_state.step.clone()),
-            step=ps.step.clone())
-    del runs
+                local(follower.params[k]).copy_(local(p))
+                local(follower.opt_state.m[k]).copy_(
+                    local(leader.opt_state.m[k]))
+                local(follower.opt_state.v[k]).copy_(
+                    local(leader.opt_state.v[k]))
+        share = max(share, beyond / n)
+        runs[0][0] = follower._replace(
+            opt_state=follower.opt_state._replace(
+                step=leader.opt_state.step.clone()), step=leader.step.clone())
+    return [run[2] for run in runs], share, pmax, n
+
+
+def replayed_steps(torch, f32, plan, batch):
+    """Phase 13's ``replay_steps`` of the kernels model after the plain
+    one: (share, max difference in lr, elements, [(kernels loss, plain
+    loss)] a step).  Both models and their moments stay on the card."""
+    from repro_torch.models.model import build_model
+    models = [open_gates(torch, build_model(f32, plan, device="cuda",
+                                            seed=0, impl=impl))
+              for impl in ("cuda", "ref")]
+    runs, share, pmax, n = replay_steps(torch, models, batch)
+    del models
     gc.collect()
     torch.cuda.empty_cache()
-    return share, pmax, n, losses
+    return share, pmax, n, list(zip(runs[0][0], runs[1][0]))
 
 
 def train_plan(cfg):
@@ -2761,6 +2785,12 @@ def sharding_phase(torch, dev):
 
 MULTI_AXES = ("pod", "data", "model")
 MULTI_TRAIN = ("smollm-360m", 2, 256)      # arch, B, S (float32)
+# phase 15's other families, each at a cut depth (float32 masters, grads
+# and moments of two models in turn; PERF.md §4): qwen3 2 of 48 layers
+# (~1.9B parameters, ~30 GB of state a model), falcon 2 of 64, zamba2 one
+# group of 6 Mamba2 blocks and the shared block (its float32 trajectory is
+# chaotic, REPLAYED: the mesh takes one device's state before each step)
+MULTI_FAMILIES = {MOE: 2, "falcon-mamba-7b": 2, HYBRID: 6}
 GPIPE = dict(L=8, B=8, S=16, d=32, n_micro=4)
 # forward max |diff|; each gradient's max |diff| over its max |g|
 GPIPE_TOL = (1e-5, 1e-4)
@@ -2775,8 +2805,8 @@ def _free_port() -> int:
 
 def _f32_steps(torch, model, batch):
     """TRAIN_F32_STEPS AdamW steps (lr TRAIN_LR) from the model's state:
-    ([loss], [grad norm], [step seconds], K7 launches, the whole
-    parameters after them on the host)."""
+    ([loss], [grad norm], [step seconds], the model kernels' launches,
+    the whole parameters after them on the host)."""
     from repro_torch.kernels import ops
     from repro_torch.optim import AdamW
     from repro_torch.runtime.steps import init_train_state, make_train_step
@@ -2792,53 +2822,59 @@ def _f32_steps(torch, model, batch):
         losses.append(float(m["loss"]))                 # syncs
         norms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t)
-    launches = launch_counts()["flash_attention"]
+    launches = launch_counts()
     params = {k: full(p.detach()).cpu() for k, p in state.params.items()}
     return losses, norms, secs, launches, params
 
 
-def multidevice_phase(torch, device: str = "cuda") -> int:
-    """Phase 15: the multi-device path as a world of one (module
-    docstring; ``device="cpu"`` runs it over gloo, a rehearsal with the
-    plain versions).  Returns K7's launches on its training run."""
-    import torch.distributed as dist
+def _expected_launches(cfg) -> dict:
+    """K7's and K8's launches in TRAIN_F32_STEPS steps without remat."""
+    attn = 0 if cfg.family == "ssm" else cfg.n_layers // (
+        cfg.hybrid_period if cfg.family == "hybrid" else 1)
+    scan = cfg.n_layers if cfg.family == "ssm" and cfg.ssm_version == 1 \
+        else 0
+    return {"flash_attention": attn * TRAIN_F32_STEPS,
+            "selective_scan": scan * TRAIN_F32_STEPS}
+
+
+def multidevice_train(torch, mesh, arch, layers, B, S, device):
+    """One family of phase 15: ``arch`` (at ``layers`` layers, None for
+    the config's) in float32 takes TRAIN_F32_STEPS AdamW steps under
+    ``plan_for``'s train plan on ``mesh`` and on one device from seed 0;
+    losses, grad norms and parameters held to LOSS_TOL, GRAD_TOL and
+    PARAM_SHARE_TOL, K7's and K8's launches equal on both and to one a
+    layer a step.  Returns the mesh run's launches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticPipeline
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.specs import plan_for
     from repro_torch.models.model import build_model
-    from repro_torch.pipeline import gpipe_apply
     from repro_torch.sharding import single_device_plan
-    print(f"phase 15 on {card()}", flush=True)
-    arch, B, S = MULTI_TRAIN
-    cfg = dataclasses.replace(get_config(arch), dtype="float32")
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    dist.init_process_group(
-        "nccl" if device == "cuda" else "gloo",
-        init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
-    try:
-        mesh = make_mesh((1, 1, 1), MULTI_AXES)
-        # remat none on both paths, so each launches K7 once a layer a step
-        plan = plan_for(cfg, ShapeConfig("train", S, B, "train"), mesh,
-                        remat="none")
-        batch = SyntheticPipeline(cfg, B, S, seed=0).batch_at(0)
-        runs = {}
-        for name, p in (("single", single_device_plan()), ("mesh", plan)):
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              **({} if layers is None else
+                                 {"n_layers": layers}))
+    # remat none on both paths, so each launches K7 / K8 once a layer a step
+    plan = plan_for(cfg, ShapeConfig("train", S, B, "train"), mesh,
+                    remat="none")
+    one = single_device_plan().with_(moe_target_groups=plan.moe_target_groups)
+    batch = SyntheticPipeline(cfg, B, S, seed=0).batch_at(0)
+    replay = arch in REPLAYED
+    if replay:        # the mesh takes one device's state before each step
+        ((l2, n2, s2, k2), (l1, n1, s1, k1)), share, pmax, n = replay_steps(
+            torch, [build_model(cfg, p, device=device, seed=0)
+                    for p in (plan, one)], batch)
+        limit = 2
+    else:
+        runs = []
+        for p in (one, plan):
             model = build_model(cfg, p, device=device, seed=0)
-            runs[name] = _f32_steps(torch, model, batch)
+            runs.append(_f32_steps(torch, model, batch))
             del model
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
-        (l1, n1, s1, k1, p1), (l2, n2, s2, k2, p2) = \
-            runs["single"], runs["mesh"]
-        rel = max(abs(a / b - 1) for a, b in zip(l2, l1))
-        check(rel <= LOSS_TOL, f"phase 15: losses {l2} vs one device {l1}")
-        nrel = max(abs(a / b - 1) for a, b in zip(n2, n1))
-        check(nrel <= GRAD_TOL, f"phase 15: grad norms {n2} vs one device "
-              f"{n1}")
+        (l1, n1, s1, k1, p1), (l2, n2, s2, k2, p2) = runs
         n = beyond = 0
         pmax = 0.0
         for k, want in p1.items():
@@ -2846,22 +2882,57 @@ def multidevice_phase(torch, device: str = "cuda") -> int:
             pmax = max(pmax, float(d.max()) / TRAIN_LR)
             n += d.numel()
             beyond += int((d > 0.02 * TRAIN_LR).sum())
-        check(beyond <= PARAM_SHARE_TOL * n and
-              pmax <= 2 * TRAIN_F32_STEPS,
-              f"phase 15: {beyond} of {n} parameters beyond 2% of lr (max "
-              f"{pmax} lr)")
-        per_step = cfg.n_layers * TRAIN_F32_STEPS
-        check(k1 == k2 == per_step,
-              f"phase 15: flash_attention launched {k2} times on the mesh, "
-              f"{k1} on one device (want {per_step})")
-        print(f"multidevice {arch} float32 B={B} S={S} ({cfg.n_layers} "
-              f"layers) on a (1, 1, 1) mesh, plan {plan.name}: losses "
-              f"{l2} vs one device {l1} (max rel {rel:.3g}); grad norms "
-              f"max rel {nrel:.3g}; after {TRAIN_F32_STEPS} AdamW steps max "
-              f"|diff| {pmax:.4g} lr, {beyond} of {n} beyond 2% of lr; "
-              f"flash_attention launches {k2} (one device {k1}); step s "
-              f"mesh {[round(x, 4) for x in s2]} vs one device "
-              f"{[round(x, 4) for x in s1]}", flush=True)
+        share, limit = beyond / n, 2 * TRAIN_F32_STEPS
+    rel = max(abs(a / b - 1) for a, b in zip(l2, l1))
+    check(rel <= LOSS_TOL, f"phase 15 {arch}: losses {l2} vs one device "
+          f"{l1}")
+    nrel = max(abs(a / b - 1) for a, b in zip(n2, n1))
+    check(nrel <= GRAD_TOL, f"phase 15 {arch}: grad norms {n2} vs one "
+          f"device {n1}")
+    how = " (each step from one device's state)" if replay else ""
+    check(share <= PARAM_SHARE_TOL and pmax <= limit,
+          f"phase 15 {arch}: {share} of {n} parameters beyond 2% of lr{how} "
+          f"(max {pmax} lr)")
+    want = _expected_launches(cfg) if device == "cuda" else \
+        {k: 0 for k in k1}
+    check(k1 == k2 == want, f"phase 15 {arch}: launches {k2} on the mesh, "
+          f"{k1} on one device (want {want})")
+    print(f"multidevice {arch} float32 B={B} S={S} ({cfg.n_layers} layers) "
+          f"on a (1, 1, 1) mesh, plan {plan.name}: losses {l2} vs one "
+          f"device {l1} (max rel {rel:.3g}); grad norms max rel {nrel:.3g}; "
+          f"after {TRAIN_F32_STEPS} AdamW steps{how} max |diff| {pmax:.4g} "
+          f"lr, {share:.3g} of {n} elements beyond 2% of lr; launches {k2} "
+          f"(one device {k1}); step s mesh {[round(x, 4) for x in s2]} vs "
+          f"one device {[round(x, 4) for x in s1]}", flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    lap(f"multidevice {arch}", t0)
+    return k2
+
+
+def multidevice_phase(torch, device: str = "cuda") -> dict:
+    """Phase 15: the multi-device path as a world of one (module
+    docstring; ``device="cpu"`` runs it over gloo, a rehearsal with the
+    plain versions).  Returns K7's and K8's launches over its training
+    runs on the mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.pipeline import gpipe_apply
+    print(f"phase 15 on {card()}", flush=True)
+    arch, B, S = MULTI_TRAIN
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), MULTI_AXES)
+        launches = {"flash_attention": 0, "selective_scan": 0}
+        for name, layers in [(arch, None)] + list(MULTI_FAMILIES.items()):
+            for k, v in multidevice_train(torch, mesh, name, layers, B, S,
+                                          device).items():
+                launches[k] += v
 
         g = torch.Generator(device=device).manual_seed(2)
         L, Bp, Sp, d = (GPIPE[k] for k in ("L", "B", "S", "d"))
@@ -2893,7 +2964,7 @@ def multidevice_phase(torch, device: str = "cuda") -> int:
               f"{max(errs[1:]):.3g}", flush=True)
     finally:
         dist.destroy_process_group()
-    return k2
+    return launches
 
 
 def main() -> int:
@@ -3409,9 +3480,9 @@ def main() -> int:
     w = lap("phase 14 (plan-lint)", w)
 
     # 15. the multi-device path, as a world of one ------------------------ #
-    launches = multidevice_phase(torch)
-    next(k for k in kernels if k["name"] == "flash_attention")[
-        "multidevice_path_launches"] = launches
+    for name, n in multidevice_phase(torch).items():
+        next(k for k in kernels if k["name"] == name)[
+            "multidevice_path_launches"] = n
     lap("phase 15 (multi-device, world of one)", w)
     lap("total", t_start)
     print(card(), flush=True)      # again, for readers of the output's tail

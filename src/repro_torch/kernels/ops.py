@@ -21,6 +21,11 @@ replicated over the heads' axis as the reference keeps them, and each
 rank hands the kernel the KV heads its own q heads read
 (``local_kv_heads``).  Their gradients come back partial sums over the
 heads' axis, which the autograd of the redistributions before reduces.
+``selective_scan`` of a DTensor u runs K8 the same way on each rank's
+channels (``_selective_scan_sharded``: u, dt, A and h0 sharded along
+Mamba's d_inner, "inner" over "model", B and C whole in N with partial
+gradients).  A DTensor on the card launches the kernel or raises: there
+is no fallback to the plain version (``sharding.map_local``).
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ from repro_torch.kernels import hash_join as _hj
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import merge_join as _mj
 from repro_torch.kernels import ref
-from repro_torch.sharding import is_dtensor
+from repro_torch.sharding import (is_dtensor, map_channels, map_local,
+                                  placements_like)
 
 IMPLS = ("cuda", "ref")
 
@@ -74,38 +80,52 @@ def local_kv_heads(H: int, KV: int, tp: int, m: int):
 
 def _flash_attention_sharded(q, k, v, causal, window, attn_softcap, impl):
     """K7 on each rank's shard of DTensor q, k, v (module docstring)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Replicate, Shard
     mesh = q.device_mesh
     # q: batch and heads may stay sharded, anything else is gathered
-    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
-            for p in q.placements]
+    q_pl = placements_like(q, (0, 2), (0, 2))
     heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
     if len(heads) > 1:
         raise NotImplementedError("q heads sharded over more than one mesh "
                                   "axis")
     kv_pl = [Replicate() if i in heads else p for i, p in enumerate(q_pl)]
-    kv_grad = [Partial() if i in heads else p for i, p in enumerate(q_pl)]
     tp = mesh.size(heads[0]) if heads else 1
     m = mesh.get_local_rank(heads[0]) if heads else 0
     pick = local_kv_heads(q.shape[2], k.shape[2], tp, m)
 
     def attend(ql, kl, vl):
         kl, vl = kl[:, :, pick], vl[:, :, pick]
-        return flash_attention(ql.contiguous(), kl.contiguous(),
-                               vl.contiguous(), causal=causal, window=window,
-                               attn_softcap=attn_softcap, impl=impl)
+        return (flash_attention(ql.contiguous(), kl.contiguous(),
+                                vl.contiguous(), causal=causal, window=window,
+                                attn_softcap=attn_softcap, impl=impl),)
 
-    return local_map(attend, out_placements=q_pl,
-                     in_placements=(q_pl, kv_pl, kv_pl),
-                     in_grad_placements=(q_pl, kv_grad, kv_grad),
-                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    return map_local(attend, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
+                     mesh)[0]
+
+
+def _selective_scan_sharded(u, dt, A, Bmat, Cmat, h0, impl, chunk):
+    """K8 on each rank's channels of DTensor u, dt (B, S, D), A (D, N)
+    and h0 (B, D, N), sharded along D where u is and along the batch where
+    u is, every other shard (the sequence's) gathered; Bmat and Cmat (B,
+    S, N) whole in N, their gradients partial sums over the channels'
+    axis.  Returns y (B, S, D) and h_last (B, D, N) with D's shard."""
+    args = (u, dt, A, Bmat, Cmat) + (() if h0 is None else (h0,))
+    # each argument's (batch dim, channel dim)
+    dims = ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (0, 1))
+
+    def scan(*local):
+        return selective_scan(*(t.contiguous() for t in local), impl=impl,
+                              chunk=chunk)
+
+    return map_channels(scan, args, dims[:len(args)], ((0, 2), (0, 1)), u)
 
 
 def selective_scan(u, dt, A, Bmat, Cmat, h0=None, impl: str = "cuda",
                    chunk: int = 256):
     """``chunk``: the time steps the backward recomputes at a time."""
     _check_impl(impl)
+    if is_dtensor(u):
+        return _selective_scan_sharded(u, dt, A, Bmat, Cmat, h0, impl, chunk)
     if impl == "ref":
         return ref.selective_scan_ref(u, dt, A, Bmat, Cmat, h0)
     return _ms.SelectiveScan.apply(u, dt, A, Bmat, Cmat, h0, chunk)

@@ -31,8 +31,9 @@ outside the mesh and exit 0.  The reference passes the planner no
 budget, so on fewer than its 32-chip choice its mesh cannot be built;
 the port's budget is the world.  More than one visible GPU in a process
 not started by torchrun raises, as one GPU of many would otherwise train
-alone.  Under a plan only the dense family with full
-attention trains yet (``models.model``; ROADMAP §1).
+alone.  Under a plan the dense, moe, ssm and hybrid families train,
+with full or swa attention; the local_global schedule and the vlm and
+audio families raise (``models.model``; ROADMAP §1).
 """
 from __future__ import annotations
 

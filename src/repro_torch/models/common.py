@@ -7,7 +7,9 @@ activations are DTensors; RoPE's frequencies then join them as
 replicated DTensors (``like``), and the loss's logits are constrained
 to the plan's vocab sharding as the reference's are (the log-sum-exp
 and the label gather over that sharded dim are DTensor reductions
-across the ranks, not per-shard ones).
+across the ranks, not per-shard ones).  ``rms_norm`` over a sharded last
+dim (Mamba2's gated norm over d_inner) is one all-reduce of the ranks'
+sums of squares.
 """
 from __future__ import annotations
 
@@ -18,14 +20,27 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding import is_dtensor
+from repro_torch.sharding import is_dtensor, replicate
+
+
+def _sharded_last(x) -> bool:
+    """Whether DTensor ``x`` is sharded along its last dim."""
+    from torch.distributed.tensor import Shard
+    return is_dtensor(x) and any(isinstance(p, Shard) and p.dim == x.ndim - 1
+                                 for p in x.placements)
 
 
 def rms_norm(x, scale, eps: float, *, offset: float = 1.0):
     """RMSNorm in fp32 accumulate.  gemma-style (1+scale) when offset=1."""
     dt = x.dtype
     xf = x.float()
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if _sharded_last(xf):
+        # the mean over a dim the ranks share: each rank's sum of squares,
+        # then one all-reduce over the mesh dims that shard it
+        var = replicate(torch.sum(torch.square(xf), dim=-1, keepdim=True)) \
+            / xf.shape[-1]
+    else:
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (offset + scale.float())).to(dt)
 

@@ -83,9 +83,16 @@ placements (``ParallelPlan.placements``) as soon as it is drawn, so the
 multi-device model starts from the single-device one's numbers and a
 rank never holds more than one whole parameter besides its shards; the
 batch's inputs and the positions are sharded by the plan as they enter
-(``shard``), and the blocks' constraints place the activations.  Only
-the dense family with full attention and the ``"dense"`` schedule runs
-under a plan yet (ROADMAP §1, multi-device training).
+(``shard``), and the blocks' constraints place the activations.  The
+dense, moe, ssm and hybrid families run under a plan, with full or swa
+attention and the ``"dense"`` schedule (``_check_plan`` names what
+raises: local_global, the vlm and audio families, ``tp_mode=
+"shard_map"``, pipeline stages, and a model axis that does not divide
+the heads, Mamba's channels or the experts; ROADMAP §1).  A hybrid's
+``shared_attn`` block is one set of DTensor parameters that every group
+reads: autograd sums their gradients over the groups, placed like the
+parameters before the update (``runtime.steps``).  A moe model's aux
+losses are replicated 0-d DTensors (``models.moe``).
 """
 from __future__ import annotations
 
@@ -145,27 +152,40 @@ def check_supported(cfg: ModelConfig,
 
 
 def _check_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
-    todo = "is not ported yet (ROADMAP §1, multi-device training)"
-    if cfg.family != "dense" or cfg.attention != "full":
+    todo = "is not ported yet (ROADMAP §1, multi-device training"
+    if cfg.family in ("vlm", "audio") or cfg.attention == "local_global":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family with {cfg.attention} "
-            f"attention under a multi-device plan {todo}; the dense family "
-            f"with full attention runs")
+            f"attention under a multi-device plan {todo}, item 4.3); the "
+            f"dense, moe, ssm and hybrid families with full or swa "
+            f"attention run")
     if plan.attention_schedule != "dense" or plan.tp_mode != "gspmd" or \
             plan.pipeline_stages != 1:
         raise NotImplementedError(
             f"{plan.name}: attention_schedule={plan.attention_schedule!r}, "
             f"tp_mode={plan.tp_mode!r}, pipeline_stages="
-            f"{plan.pipeline_stages} {todo}")
+            f"{plan.pipeline_stages} {todo})")
     if plan.mesh is None:
         raise ValueError(f"{plan.name}: an enabled plan needs its mesh "
                          f"(launch.specs.plan_for sets it)")
     names = tuple(plan.mesh.mesh_dim_names)
     tp = plan.mesh.size(names.index("model")) if "model" in names else 1
-    if cfg.n_heads % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads over a model axis of {tp}: "
-            f"a tensor-parallel degree must divide the head count")
+    split = []              # (what, count) the model axis must divide
+    if cfg.family != "ssm":
+        split.append(("attention heads", cfg.n_heads))
+    if cfg.family in ("ssm", "hybrid"):
+        split.append(("Mamba channels (d_inner)", cfg.d_inner))
+        if cfg.ssm_version == 2:
+            split.append(("Mamba2 heads", cfg.n_ssm_heads))
+    if cfg.is_moe and cfg.n_experts % tp:
+        # moe_rules_for's TP-within-expert shards each expert's FFN dim
+        split.append((f"expert FFN dims (d_ff; {cfg.n_experts} experts do "
+                      f"not split over it)", cfg.d_ff))
+    for what, n in split:
+        if n % tp:
+            raise NotImplementedError(
+                f"{cfg.name}: {n} {what} over a model axis of {tp}: a "
+                f"tensor-parallel degree must divide them")
 
 
 REMATS = ("none", "nothing_saveable", "dots_saveable")
@@ -498,8 +518,8 @@ class Model(nn.Module):
         block], the shared block's (k, v) or None)."""
         cfg, states = self.cfg, []
         for p in self.layers[g * k:(g + 1) * k]:
-            x, conv_st, ssm_st = tf.mamba_block(
-                p, x, cfg, impl=self.impl, ssm_chunk=self.plan.ssm_chunk)
+            x, conv_st, ssm_st = tf.mamba_block(p, x, cfg, self.plan,
+                                                impl=self.impl)
             states.append((conv_st, ssm_st))
         kv = None
         if cfg.family == "hybrid":

@@ -10,6 +10,26 @@ the reference (no Pallas kernel), so it is plain torch here, term for
 term: the chunked quadratic form for prefill (a Python loop over chunks
 where the reference runs ``lax.scan``), the O(1) recurrence for decode.
 Decode of either is plain torch.
+
+Under a multi-device plan (``plan`` enabled, the activations DTensors)
+the mixers place their activations as the reference constrains them:
+``xin`` to ("batch", None, "inner"), Mamba's channels (Mamba1's d_inner,
+Mamba2's heads and their d_inner) over "model", the sequence whole.  The
+depthwise conv, K8 (``ops.selective_scan``) and the SSD run on each
+rank's own batch rows and channels (``sharding.map_channels``); Mamba1's
+``x_proj`` contracts over the sharded d_inner, so dt_low, B and C are one
+all-reduce over "model" (``constrain`` of the partial sums), and
+Mamba2's gated RMSNorm reduces over it the same way (``rms_norm``).
+``in_proj`` / ``in_proj_xz`` are (d, 2 d_inner) with "inner" on all 2
+d_inner columns, so a rank's columns of ``x @ w`` are not its shard of
+``xin`` and its shard of ``z``; splitting the product would gather the
+whole (B, S, 2 d_inner) activation every layer.  ``_in_proj`` splits the
+weight instead: it is gathered over "model" (d x 2 d_inner elements a
+layer, over FSDP's shard of d; its gradient comes back by one gather of
+each half, as much again), each rank keeps its columns of each half (no
+communication) and projects onto them, so xin and z come out sharded
+along d_inner.  On one device every constraint is the identity and the
+mixers run as before.
 """
 from __future__ import annotations
 
@@ -18,12 +38,20 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import rms_norm, softplus
+from repro_torch.sharding import is_dtensor, map_channels, single_device_plan
+
+_SINGLE = single_device_plan()
 
 
 def causal_conv1d(x, w, b, state=None):
     """Depthwise causal conv.  x: (B, S, C); w: (C, K); b: (C,).
     state: (B, K-1, C) trailing context from the previous segment (or None).
     Returns (y, new_state)."""
+    if is_dtensor(x):               # each rank's own batch rows and channels
+        args = (x, w, b) + (() if state is None else (state,))
+        return map_channels(causal_conv1d, args,
+                            ((0, 2), (None, 0), (None, 0), (0, 2))[
+                                :len(args)], ((0, 2), (0, 2)), x)
     B, S, C = x.shape
     K = w.shape[1]
     if state is None:
@@ -47,18 +75,30 @@ def selective_scan_step(h, u, dt, A, Bvec, Cvec):
     return h, y
 
 
-def mamba1_mix(p, x, cfg, *, conv_state=None, ssm_state=None,
-               decode: bool = False, impl: str = "cuda",
-               ssm_chunk: int = 256):
+def _in_proj(x, w, di: int, plan):
+    """(xin, z): the two halves of ``x @ w`` for w (d, 2 di); under a plan
+    each projected on its own half of the weight (module docstring)."""
+    if not plan.enabled or not is_dtensor(x):
+        return torch.split(x @ w.to(x.dtype), di, dim=-1)
+    w = plan.constrain(w, ("embed", None))
+    return tuple(plan.col_parallel_project(
+        x, plan.constrain(half, ("embed", "inner")))
+        for half in (w[:, :di], w[:, di:]))
+
+
+def mamba1_mix(p, x, cfg, plan=_SINGLE, *, conv_state=None, ssm_state=None,
+               decode: bool = False, impl: str = "cuda"):
     """Full Mamba1 mixer.  x: (B, S, d_model).  Returns (y, conv_state,
-    ssm_state).  ``ssm_chunk``: the time steps the scan's backward
-    recomputes at a time (``ParallelPlan.ssm_chunk``)."""
+    ssm_state).  ``plan.ssm_chunk``: the time steps the scan's backward
+    recomputes at a time."""
     di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    xz = x @ p["in_proj"].to(x.dtype)
-    xin, z = torch.split(xz, di, dim=-1)
+    xin, z = _in_proj(x, p["in_proj"], di, plan)
+    xin = plan.constrain(xin, ("batch", None, "inner"))
     xin, conv_state = causal_conv1d(xin, p["conv_w"], p["conv_b"], conv_state)
     xin = F.silu(xin)
-    dbc = xin @ p["x_proj"].to(xin.dtype)
+    # a contraction over the sharded d_inner: one sum over "model"
+    dbc = plan.constrain(xin @ p["x_proj"].to(xin.dtype),
+                         ("batch", None, None))
     dt_low, Bmat, Cmat = torch.split(dbc, [R, N, N], dim=-1)
     dt = softplus((dt_low @ p["dt_proj"].to(xin.dtype)).float()
                   + p["dt_bias"].float())
@@ -70,10 +110,10 @@ def mamba1_mix(p, x, cfg, *, conv_state=None, ssm_state=None,
     else:
         y, ssm_state = ops.selective_scan(xin, dt, A, Bmat, Cmat,
                                           h0=ssm_state, impl=impl,
-                                          chunk=ssm_chunk)
+                                          chunk=plan.ssm_chunk)
     y = y + xin.float() * p["D"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["out_proj"].to(y.dtype)
+    out = plan.row_parallel_project(y, p["out_proj"])
     return out, conv_state, ssm_state
 
 
@@ -85,7 +125,15 @@ def ssd_chunked(xh, dt, A, Bmat, Cmat, *, chunk: int = 128, h0=None):
     xh: (B, S, H, P); dt: (B, S, H) (post-softplus); A: (H,) negative;
     Bmat, Cmat: (B, S, N) (shared across heads).  S is padded with zeros
     to a multiple of ``chunk`` (a zero dt leaves the state unchanged).
-    Returns (y: (B, S, H, P) f32, h_last: (B, H, P, N) f32)."""
+    Returns (y: (B, S, H, P) f32, h_last: (B, H, P, N) f32).  DTensor
+    inputs run on each rank's own batch rows and heads."""
+    if is_dtensor(xh):
+        args = (xh, dt, A, Bmat, Cmat) + (() if h0 is None else (h0,))
+        dims = ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (0, 1))
+        return map_channels(
+            lambda *a: ssd_chunked(*a[:5], chunk=chunk,
+                                   h0=a[5] if len(a) > 5 else None),
+            args, dims[:len(args)], ((0, 2), (0, 1)), xh)
     Bsz, S, H, Pdim = xh.shape
     N = Bmat.shape[-1]
     chunk = min(chunk, S)
@@ -139,15 +187,18 @@ def ssd_step(h, xh, dt, A, Bvec, Cvec):
     return h, y
 
 
-def mamba2_mix(p, x, cfg, *, conv_state=None, ssm_state=None,
-               decode: bool = False, ssm_chunk: int = 256):
+def mamba2_mix(p, x, cfg, plan=_SINGLE, *, conv_state=None, ssm_state=None,
+               decode: bool = False, ssm_chunk=None):
     """Mamba2 mixer.  x: (B, S, d_model).  Returns (y, conv_state,
-    ssm_state).  The SSD's chunk is ``min(128, ssm_chunk)``, the
-    reference's ``min(128, plan.ssm_chunk)``."""
+    ssm_state).  The SSD's chunk is the reference's ``min(128,
+    plan.ssm_chunk)`` (``ssm_chunk`` in place of ``plan.ssm_chunk`` when
+    given)."""
     di, N = cfg.d_inner, cfg.ssm_state
     H, Pdim = cfg.n_ssm_heads, cfg.ssm_head_dim
     Bsz, S, _ = x.shape
-    xin, z = torch.split(x @ p["in_proj_xz"].to(x.dtype), di, dim=-1)
+    xin, z = _in_proj(x, p["in_proj_xz"], di, plan)
+    xin = plan.constrain(xin, ("batch", None, "inner"))
+    x = plan.constrain(x, ("batch", None, None))       # the sequence whole
     Bmat, Cmat = torch.split(x @ p["in_proj_bc"].to(x.dtype), N, dim=-1)
     dt_raw = x @ p["in_proj_dt"].to(x.dtype)
     dt = softplus(dt_raw.float() + p["dt_bias"].float())
@@ -161,10 +212,12 @@ def mamba2_mix(p, x, cfg, *, conv_state=None, ssm_state=None,
         y = y[:, None]
     else:
         y, ssm_state = ssd_chunked(xh, dt, A, Bmat, Cmat,
-                                   chunk=min(128, ssm_chunk), h0=ssm_state)
+                                   chunk=min(128,
+                                             ssm_chunk or plan.ssm_chunk),
+                                   h0=ssm_state)
     y = y + xh.float() * p["D"].float()[:, None]
     y = y.reshape(Bsz, S, di)
     # gated RMSNorm (mamba2) then output projection
     y = rms_norm(y * F.silu(z.float()), p["norm"], cfg.norm_eps).to(x.dtype)
-    out = y @ p["out_proj"].to(y.dtype)
+    out = plan.row_parallel_project(y, p["out_proj"])
     return out, conv_state, ssm_state

@@ -320,19 +320,20 @@ def media_kv_for(p_attn, media, cfg):
     return k, v
 
 
-def mamba_block(p, x, cfg, *, conv_state=None, ssm_state=None,
-                decode=False, impl: str = "cuda", ssm_chunk: int = 256):
+def mamba_block(p, x, cfg, plan=_SINGLE, *, conv_state=None,
+                ssm_state=None, decode=False, impl: str = "cuda"):
     """Pre-norm Mamba block: the Mamba1 mixer (its scan through K8 under
-    ``impl``) or the Mamba2 mixer (plain torch), by ``cfg.ssm_version``."""
+    ``impl``) or the Mamba2 mixer (plain torch), by ``cfg.ssm_version``;
+    the residual constrained as the dense block's is."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    kw = dict(conv_state=conv_state, ssm_state=ssm_state, decode=decode,
-              ssm_chunk=ssm_chunk)
+    kw = dict(conv_state=conv_state, ssm_state=ssm_state, decode=decode)
     if cfg.ssm_version == 1:
-        y, conv_state, ssm_state = ssm_mod.mamba1_mix(p, h, cfg, impl=impl,
-                                                      **kw)
+        y, conv_state, ssm_state = ssm_mod.mamba1_mix(p, h, cfg, plan,
+                                                      impl=impl, **kw)
     else:
-        y, conv_state, ssm_state = ssm_mod.mamba2_mix(p, h, cfg, **kw)
-    return x + y, conv_state, ssm_state
+        y, conv_state, ssm_state = ssm_mod.mamba2_mix(p, h, cfg, plan, **kw)
+    return plan.constrain(x + y, ("batch", "seq", None)), conv_state, \
+        ssm_state
 
 
 # ============================ decode sub-blocks ============================ #

@@ -14,7 +14,12 @@ the tuple of mesh-axis assignments a ``PartitionSpec`` holds,
 assigned a tuple of axes is ``Shard`` on each of them, in mesh order, as
 GSPMD nests them major to minor), and ``constrain`` redistributes a
 DTensor to them (the identity on a plain tensor or under a disabled
-plan, so one device runs exactly as before).
+plan, so one device runs exactly as before).  ``map_local`` runs a
+function on each rank's local shards (``local_map``, for the kernels,
+which take raw pointers, and the moe FFN's per-group work), giving each
+input's gradient ``Partial()`` where the ranks computed different parts;
+``map_channels`` places a per-channel function's arguments by a
+(batch, sequence, channels) DTensor's shards.
 
 ``ParamDef``, ``stack_defs`` and ``init_from_defs`` are the single source
 of truth for shapes, logical axes and initialisation; ``defs_to_specs``
@@ -347,6 +352,65 @@ def active_mesh(mesh):
 def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
+
+
+def placements_like(like, keep: Sequence[int], dims: Sequence[Optional[int]]):
+    """Placements on ``like``'s mesh for a tensor that carries, at its
+    dims ``dims``, the roles of ``like``'s dims ``keep`` (None: it lacks
+    that one): ``Shard`` of its dim on each mesh dim on which ``like`` is
+    ``Shard`` of a dim in ``keep``, ``Replicate()`` on every other mesh
+    dim (a shard of ``like``'s other dims is gathered)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in like.placements:
+        role = keep.index(p.dim) if isinstance(p, Shard) and \
+            p.dim in keep else None
+        d = None if role is None else dims[role]
+        out.append(Replicate() if d is None else Shard(d))
+    return out
+
+
+def map_local(fn, args, in_placements, out_placements, mesh):
+    """``fn`` (returning a tuple) on each rank's local shards of the
+    DTensors ``args``, redistributed to ``in_placements``, its outputs
+    DTensors of ``out_placements`` (``local_map``: a kernel that takes
+    raw pointers never sees a DTensor).  An input's gradient takes its
+    placements, except ``Partial()`` on each mesh dim over which the input
+    is replicated and an output is not: the ranks computed different parts
+    there, so each holds a part of the gradient."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    split = {i for pl in out_placements for i, p in enumerate(pl)
+             if not isinstance(p, Replicate)}
+    grads = tuple([Partial() if i in split and isinstance(p, Replicate)
+                   else p for i, p in enumerate(pl)] for pl in in_placements)
+    return local_map(fn, out_placements=tuple(out_placements),
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def map_channels(fn, args, dims, out_dims, like):
+    """``map_local`` of a function that acts on each batch row and channel
+    on its own (a depthwise conv, a selective scan, Mamba2's SSD over its
+    heads): ``like`` is (B, S, C, ...), and each of ``args`` and of
+    ``fn``'s outputs carries its batch and channel roles at its dims in
+    ``dims`` / ``out_dims`` (``placements_like``), so each rank computes
+    its own batch rows and channels, with the sequence gathered."""
+    pls = [placements_like(like, (0, 2), d) for d in dims]
+    outs = [placements_like(like, (0, 2), d) for d in out_dims]
+    return map_local(fn, args, pls, outs, like.device_mesh)
+
+
+def replicate(t):
+    """A DTensor's ``Partial()`` placements reduced (an all-reduce over
+    each of their mesh dims); a plain tensor as it is."""
+    from torch.distributed.tensor import Partial, Replicate
+    if not is_dtensor(t) or not any(isinstance(p, Partial)
+                                    for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p for p in t.placements])
 
 
 def full(t):

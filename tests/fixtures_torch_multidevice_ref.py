@@ -1,0 +1,226 @@
+"""The reference's side of the multi-device family tests
+(test_torch_multidevice_moe.py, test_torch_multidevice_ssm.py): a smoke
+model's parameters, trajectory and gradients from ``repro`` in the port's
+names, each world of the port's path (``fixtures_torch_multidevice``,
+which imports no JAX) run against them, and the placements the
+reference's specs give each parameter.
+
+The moe oracle: a moe model's capacity, and so which slots drop, depends
+on the group size ``Sg = min(moe_group_size, T // moe_target_groups)``,
+and ``plan_for`` sets ``moe_target_groups`` to the world's size, so a
+world of n is held against the reference's single device under
+``single_device_plan().with_(moe_target_groups=n)``.
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from torch.distributed.tensor import Replicate, Shard
+
+import fixtures_torch_multidevice as fx
+from repro.configs import REGISTRY as RREGISTRY
+from repro.configs.base import ShapeConfig as RShapeConfig
+from repro.launch.specs import plan_for as rplan_for
+from repro.models import build_model as rbuild
+from repro.models.transformer import model_defs as rmodel_defs
+from repro.optim import AdamW as RAdamW
+from repro.runtime.steps import TrainState as RTrainState
+from repro.runtime.steps import make_loss_fn as rmake_loss_fn
+from repro.runtime.steps import make_train_step as rmake_train_step
+from repro.sharding import defs_to_specs as rdefs_to_specs
+from repro.sharding import single_device_plan as rsingle_device_plan
+from repro_torch.models.model import load_jax_params
+from repro_torch.models.transformer import layer_stack
+
+B, S = 4, 48
+STEPS = range(1, fx.STEPS + 1)
+
+
+def _flat_tree(tree, prefix="", leaf=np.asarray):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/", leaf))
+        else:
+            out[f"{prefix}{k}"] = leaf(v)
+    return out
+
+
+def _numpy(tree, cfg):
+    return {k: v.numpy() for k, v in load_jax_params(
+        jax.tree_util.tree_map(np.asarray, tree), cfg).items()}
+
+
+def run_id(run):
+    arch, over, mesh = run
+    return "-".join([arch] + [f"{k}{v}" for k, v in (over or {}).items()] +
+                    ["x".join(map(str, mesh))])
+
+
+def trained(d, runs, seed: int = 0):
+    """Each run (arch, config overrides, mesh) of ``runs`` from the
+    reference's parameters drawn from ``seed`` on ``fx.batch``'s batch of
+    seed 1 + ``seed``: {run_id(run):
+    (the reference's trajectory [{loss, grad_norm, moe metrics, params}]
+    and its first step's gradients {name: array}, the world's results)};
+    one reference for the runs that share a config and a world size."""
+    refs, out = {}, {}
+    for arch, over, mesh in runs:
+        world = int(np.prod(mesh))
+        key = (arch, tuple(sorted((over or {}).items())), world)
+        tag = run_id((arch, over, (world,)))
+        if key not in refs:
+            refs[key] = _reference(d, tag, arch, over or {}, world, seed)
+        path = d / f"{run_id((arch, over, mesh))}.npz"
+        fx.spawn(fx.train_worker, world, mesh, str(d / f"{tag}_params.npz"),
+                 str(d / f"{tag}_batch.npz"), str(path), 1, arch, over)
+        with np.load(path) as f:
+            out[run_id((arch, over, mesh))] = (refs[key], dict(f))
+    return out
+
+
+def _reference(d, tag, arch, over, groups, seed=0):
+    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32",
+                               **over)
+    cfg = fx.smoke_cfg(arch, **over)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    rmodel = rbuild(rcfg, rsingle_device_plan().with_(
+        moe_target_groups=groups))
+    params = rmodel.init(jax.random.PRNGKey(seed))
+    batch = fx.batch(cfg, B, S, seed=1 + seed)
+    np.savez(d / f"{tag}_params.npz", **_flat_tree(params))
+    np.savez(d / f"{tag}_batch.npz", **batch)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    grad = jax.jit(jax.grad(lambda p: rmake_loss_fn(rmodel)(p, jbatch)[0]))
+    opt = RAdamW(lr=fx.LR)
+    state = RTrainState(params, opt.init(params), jnp.zeros((), jnp.int32))
+    step = jax.jit(rmake_train_step(rmodel, opt))
+    grad0 = _numpy(grad(state.params), cfg)
+    traj = []
+    for _ in STEPS:
+        state, m = step(state, jbatch)
+        traj.append({**{k: float(v) for k, v in m.items()},
+                     "params": _numpy(state.params, cfg)})
+    return traj, grad0
+
+
+def check_step(arch, ref, got, step: int) -> None:
+    """The world's loss, grad norm and every parameter after ``step``
+    against the reference's, at test_torch_train's tolerances (the
+    parameters as ``fx.params_agree`` holds ``arch``'s)."""
+    traj, grad0 = ref
+    want = traj[step - 1]
+    for k, tol in (("loss", fx.LOSS_TOL), ("grad_norm", fx.GRAD_TOL)):
+        rel = abs(float(got[f"{k}_{step}"]) / want[k] - 1)
+        assert rel <= tol, f"{k} {rel:.3g} relative (tol {tol})"
+    names = sorted(k[len(f"p{step}/"):] for k in got
+                   if k.startswith(f"p{step}/"))
+    assert names == sorted(want["params"])
+    failed = fx.params_agree({k: got[f"p{step}/{k}"] for k in names},
+                             want["params"], grad0, step,
+                             arch in fx.NEAR_ZERO_RULE)
+    assert not failed, failed
+
+
+def reference_placements(arch, over, mesh):
+    """{parameter name: str(placements)} from the reference's
+    ``plan_for`` and ``defs_to_specs`` for a mesh of ``mesh``'s shape (its
+    PartitionSpec's axes as ``Shard`` on the mesh's dims of size > 1)."""
+    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32",
+                               **(over or {}))
+    axes = fx.AXES
+    stand_in = SimpleNamespace(axis_names=axes, shape=dict(zip(axes, mesh)))
+    rplan = rplan_for(rcfg, RShapeConfig("train", S, B, "train"), stand_in)
+    specs = _flat_tree(rdefs_to_specs(rmodel_defs(rcfg), rplan), leaf=tuple)
+    active = [a for a, n in zip(axes, mesh) if n > 1] or [axes[-1]]
+    stacked = len(layer_stack(rcfg))
+
+    def placed(spec):
+        out = [Replicate()] * len(active)
+        for dim, assign in enumerate(spec):
+            for a in (assign,) if isinstance(assign, str) else (assign or ()):
+                if a in active:
+                    out[active.index(a)] = Shard(dim)
+        return str(tuple(out))
+
+    return {(name if name.startswith("layers/") else
+             name.replace("/", ".")):
+            placed(spec[stacked if name.startswith("layers/") else 0:])
+            for name, spec in specs.items()}
+
+
+def check_placements(arch, over, mesh, got) -> None:
+    """Every parameter of the world is placed as the reference's spec of
+    its leaf says (a layer's as its stacked leaf's, less the stacked
+    dims)."""
+    want = reference_placements(arch, over, mesh)
+    placed = {k[len("placed/"):]: str(v) for k, v in got.items()
+              if k.startswith("placed/")}
+    assert placed
+    for name, p in placed.items():
+        key = "layers/" + name.split(".", 2)[2].replace(".", "/") \
+            if name.startswith("layers.") else name
+        assert p == want[key], (name, p, want[key])
+
+
+def main(argv=None) -> int:
+    """A non-moe ``arch``'s worlds at (1, 2, 2) and (1, 1, 4) and its
+    one-device path, each against the reference from ``--seed``'s
+    parameters and batch: each step's loss and grad norm error, the
+    verdict of ``check_step``, and every element beyond PARAM_TOL with
+    its first gradient over GRAD_TOL x max.
+
+        PYTHONPATH=src:tests JAX_PLATFORMS=cpu \\
+            python tests/fixtures_torch_multidevice_ref.py ARCH [--seed N]
+    """
+    import argparse
+    import tempfile
+    from pathlib import Path
+    ap = argparse.ArgumentParser()
+    ap.add_argument("arch")
+    ap.add_argument("--seed", type=int, default=0)
+    a = ap.parse_args(argv)
+    bad = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        runs = [(a.arch, None, m) for m in ((1, 2, 2), (1, 1, 4))]
+        out = trained(d, runs, a.seed)
+        ref = next(iter(out.values()))[0]
+        worlds = [(run_id(r), out[run_id(r)][1]) for r in runs]
+        tag = run_id((a.arch, None, (4,)))
+        with np.load(d / f"{tag}_batch.npz") as f:
+            one = fx.one_device_trajectory(
+                dict(f), arch=a.arch,
+                params_npz=d / f"{tag}_params.npz")[0]
+        worlds.append(("one device", {
+            k: v for i, (loss, gnorm, params) in enumerate(one, 1)
+            for k, v in [(f"loss_{i}", loss), (f"grad_norm_{i}", gnorm)] +
+            [(f"p{i}/{n}", p) for n, p in params.items()]}))
+        for name, got in worlds:
+            for i in STEPS:
+                want = ref[0][i - 1]
+                try:
+                    check_step(a.arch, ref, got, i)
+                    verdict = "ok"
+                except AssertionError as e:
+                    verdict, bad = f"FAILS {e}", bad + 1
+                far, _ = fx.beyond_tol(
+                    {k: got[f"p{i}/{k}"] for k in want["params"]},
+                    want["params"], ref[1])
+                print(f"{a.arch} seed {a.seed} {name} step {i}: loss rel "
+                      f"{abs(got[f'loss_{i}'] / want['loss'] - 1):.3g}, "
+                      f"grad norm rel "
+                      f"{abs(got[f'grad_norm_{i}'] / want['grad_norm'] - 1):.3g}"
+                      f", {len(far)} beyond PARAM_TOL: {verdict}",
+                      flush=True)
+                for n, idx, diff, r in far[:8]:
+                    print(f"  {n}{idx}: {diff:.3g}, |g1| {r:.3g} x "
+                          f"GRAD_TOL max", flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())

@@ -40,6 +40,7 @@ from repro_torch.kernels import ref
 from repro_torch.launch.serve import serve
 from repro_torch.service import StreamingPlannerService, poisson_trace
 
+import fixtures_torch_multidevice as fx
 from fixtures_torch_media import inputs, open_gates
 
 pytestmark = pytest.mark.cuda
@@ -798,3 +799,63 @@ def test_sharding_planner_on_kernels_matches_torch(dev):
                 assert (got.resources, got.plan_choice,
                         got.objective_value) == \
                     (want.resources, want.plan_choice, want.objective_value)
+
+
+@pytest.mark.parametrize("arch,kernel,path", [
+    ("falcon-mamba-7b", "selective_scan", "_selective_scan_sharded"),
+    ("mixtral-8x7b", "flash_attention", "_flash_attention_sharded"),
+    ("zamba2-2.7b", "flash_attention", "_flash_attention_sharded")])
+def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
+                                                      kernel, path):
+    """A world of one over NCCL: the smoke model's loss and gradients on
+    the (1, 1, 1) mesh under plan_for's train plan equal one device's
+    (LOSS_TOL; GRAD_TOL of each tensor's largest), and its kernel (K8 for
+    falcon; K7 for mixtral, its window of 16 engaged at S=64, and for
+    zamba2's shared block) launches as often on both, each launch on the
+    mesh through its ``local_map`` wrapper in ``kernels.ops``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import plan_for
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.steps import make_loss_fn
+    from repro_torch.sharding import full
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        cfg = fx.smoke_cfg(arch)
+        batch = fx.batch(cfg, 2, 64)
+        mesh = make_mesh((1, 1, 1), fx.AXES)
+        sharded = getattr(ops, path)
+        calls = []
+        monkeypatch.setattr(ops, path,
+                            lambda *a: calls.append(1) or sharded(*a))
+        out = {}
+        # remat none on both, so each launches its kernel once a layer
+        for name, plan in (("one", None), ("mesh", plan_for(
+                cfg, ShapeConfig("train", 64, 2, "train"), mesh,
+                remat="none"))):
+            model = build_model(cfg, plan, device="cuda", seed=0)
+            ops.reset_launch_counts()
+            loss, _ = make_loss_fn(model)(batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            out[name] = (float(loss.detach()),
+                         [full(g).cpu() for g in grads],
+                         getattr({"selective_scan": ms,
+                                  "flash_attention": fa}[kernel],
+                                 kernel).launches)
+        (l1, g1, k1), (l2, g2, k2) = out["one"], out["mesh"]
+        assert k1 == k2 == len(calls) > 0
+        assert abs(l2 / l1 - 1) <= fx.LOSS_TOL
+        for a, b in zip(g2, g1):
+            assert float((a - b).abs().max() / b.abs().max()) <= fx.GRAD_TOL
+    finally:
+        dist.destroy_process_group()
