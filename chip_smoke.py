@@ -37,7 +37,11 @@ Phases (any failure exits nonzero; there is no CPU path):
              both kernels must have launched and neighbor_step must not
              have; then "ensemble" at 100K x 100 through the kernel, timed, with the device time of all its climb launches (its
              plans are not compared: the plain climb would take ~1e5 host
-             steps a request);
+             steps a request); and the exact backend's float64 cost
+             surfaces on CUDA tensors (3 model families x SMJ/BHJ x
+             time/money at 3 (ss, ls) points, paper_cluster(100, 10) and
+             scaled_cluster(1_000, 100)) bit-equal to the scalar cost and
+             to the same grid on CPU tensors (``cost_grid_check``);
 5. times   — each kernel at the main path's largest wave shape against its
              plain version and its bound (bytes or FP32 operations); the
              climb at the largest climb group of the 1K and of the 100K
@@ -697,6 +701,68 @@ def sass_loop(instrs, marker: str):
         if hits and (best is None or len(body) < best[0]):
             best = (len(body), hits)
     return best
+
+
+# phase 4's float64 surface check: test_batched_costing.py's (ss, ls)
+# points, on the paper's grid and on a 100K-row scaled grid
+COST_GRID_POINTS = ((0.5, 74.0), (2.0, 10.0), (6.0, 200.0))
+COST_GRID_FAMILIES = ("paper_models", "simulator_models",
+                      "simulator_cost_models")
+
+
+def cost_grid_check(torch, dev) -> None:
+    """The exact backend's float64 cost surfaces (``OperatorCosting.
+    _op_cost_grid``: ``cost_grid``, and the money objective around it) on
+    CUDA tensors, for the three model families x SMJ/BHJ x time/money at
+    COST_GRID_POINTS over paper_cluster(100, 10) and scaled_cluster(1_000,
+    100): each point bit-equal to the scalar cost (``_op_cost_at``), inf
+    included, and to the same grid on CPU tensors.  Prints one line with
+    the point count and the points that differ; fails if any does."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.cluster import paper_cluster, scaled_cluster
+    from repro_torch.core.planning_backend import enumerate_configs
+    from repro_torch.core.plans import OperatorCosting
+    t0 = time.perf_counter()
+    points = vs_scalar = vs_cpu = 0
+    for cluster in (paper_cluster(100, 10), scaled_cluster(1_000, 100)):
+        cpu = torch.as_tensor(enumerate_configs(cluster))
+        card_cfgs = cpu.to(dev)
+        rows = [tuple(r) for r in cpu.tolist()]
+        for family in COST_GRID_FAMILIES:
+            models = getattr(cm, family)()
+            for impl in ("SMJ", "BHJ"):
+                for ss, ls in COST_GRID_POINTS:
+                    # ``_op_cost_at`` of both objectives from one scalar
+                    # cost a configuration
+                    times = [models[impl].cost(ss, cs, nc, ls=ls)
+                             for nc, cs in rows]
+                    scalar = {"time": times, "money": [
+                        cm.monetary_cost(t, cs, nc) if math.isfinite(t)
+                        else math.inf for t, (nc, cs) in zip(times, rows)]}
+                    for objective in ("time", "money"):
+                        costing = OperatorCosting(
+                            models=models, cluster=cluster,
+                            objective=objective, backend="torch")
+                        g = costing._op_cost_grid(impl, ss, ls, card_cfgs)
+                        check(g.dtype == torch.float64 and
+                              g.device == card_cfgs.device,
+                              f"cost_grid left the card: {g.dtype} "
+                              f"{g.device}")
+                        g = g.cpu()
+                        want = torch.tensor(scalar[objective],
+                                            dtype=torch.float64)
+                        on_cpu = costing._op_cost_grid(impl, ss, ls, cpu)
+                        points += len(rows)
+                        vs_scalar += int((g != want).sum())
+                        vs_cpu += int((g != on_cpu).sum())
+    print(f"main cost_grid float64 on the card: {points} points (3 model "
+          f"families x SMJ/BHJ x time/money x {len(COST_GRID_POINTS)} "
+          f"(ss, ls) over 1,000 + 100,000 configurations), {vs_scalar} "
+          f"differ from the scalar cost, {vs_cpu} from the CPU grid "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(vs_scalar == 0 and vs_cpu == 0,
+          f"float64 cost_grid on the card differs from the scalar cost at "
+          f"{vs_scalar} points and from the CPU grid at {vs_cpu}")
 
 
 def plan_signature(jp):
@@ -3221,6 +3287,7 @@ def main() -> int:
               f"re-searches {broker.f64_researches}; the plans of its "
               f"first {PLAIN_QUERIES} queries equal the plain version's "
               f"(plain {plain[name][1]:.3f} s)", flush=True)
+    cost_grid_check(torch, dev)
     print(f"main launches: {launches} (neighbor_step: the ensemble climb "
           f"no longer steps from the host)", flush=True)
     check(launches["scan_argmin"] > 0 and launches["ensemble_climb"] > 0,

@@ -25,7 +25,9 @@ The port differs from the reference in four places:
 * Division by a Python constant goes through ``_div``: PyTorch's CUDA
   kernel multiplies by the reciprocal of a host-scalar divisor, which can
   be an ulp off the true quotient that numpy, XLA and the CUDA scan
-  kernel compute.
+  kernel compute.  A Python number divided by a tensor goes through
+  ``_rdiv`` for the same reason: PyTorch computes it as a reciprocal
+  times the number, on the CPU as on the card.
 * The external-sort ``log2`` term: in float64 it is computed on the host
   exactly as the reference does (``math.log2`` for one request — the
   reference sees a numpy scalar there — and ``np.log2`` for a stacked
@@ -88,6 +90,17 @@ def _div(x, c: float):
     if isinstance(x, torch.Tensor):
         return x / x.new_full((), c)
     return x / c
+
+
+def _rdiv(c, t):
+    """``c / t`` for a Python-number dividend, as a true IEEE division on
+    every device: the dividend becomes a 0-d tensor of t's dtype on t's
+    device, since PyTorch computes ``number / tensor`` as a reciprocal
+    times the number (off by an ulp in about a fifth of float64 quotients
+    on the CPU)."""
+    if isinstance(t, torch.Tensor) and not isinstance(c, torch.Tensor):
+        return t.new_full((), c) / t
+    return c / t
 
 
 def _maximum(a, b):
@@ -225,19 +238,19 @@ class HiveSimulator:
 
     def smj_grid(self, ss, ls, cs, nc):
         total = ss + ls
-        shuffle = total / (self.net_gbps * nc)
-        per_c = total / nc
+        shuffle = _rdiv(total, self.net_gbps * nc)
+        per_c = _rdiv(total, nc)
         spill = torch.clamp_min(per_c / torch.clamp_min(cs * 0.5, 1e-3), 1.0)
         sort = self.sort_const * total * _sort_log2(total) \
             * spill / (self.disk_gbps * 80 * nc)
-        merge = total / (self.probe_gbps * nc)
+        merge = _rdiv(total, self.probe_gbps * nc)
         return self.container_startup_s + shuffle + sort + merge
 
     def bhj_grid(self, ss, ls, cs, nc):
         broadcast = ss * nc / (self.net_gbps * nc) \
             + _div(ss, self.net_gbps) * 0.1
         build = _div(ss, self.build_gbps)
-        probe = ls / (self.probe_gbps * nc)
+        probe = _rdiv(ls, self.probe_gbps * nc)
         out = self.container_startup_s + broadcast + build + probe
         return torch.where(ss > self.bhj_mem_frac * cs, math.inf, out)
 

@@ -169,6 +169,18 @@ def params_agree(got, want, grad0, step: int, near_zero: bool) -> str:
     return ""
 
 
+def _grads(model, batch, full=lambda t: t):
+    """{name: the whole gradient of the model's loss on ``batch``} at its
+    parameters as they are (``full`` gathers a DTensor's)."""
+    from repro_torch.runtime.steps import make_loss_fn
+    params = dict(model.named_parameters())
+    with torch.enable_grad():
+        loss, _ = make_loss_fn(model)(batch)
+        g = torch.autograd.grad(loss, list(params.values()),
+                                materialize_grads=True)
+    return {k: full(v.detach()).numpy().copy() for k, v in zip(params, g)}
+
+
 def _full_params(state):
     from repro_torch.sharding import full
     return {k: full(p.detach()).numpy().copy()
@@ -176,12 +188,18 @@ def _full_params(state):
 
 
 def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
-                 microbatch=1, arch="smollm-360m", overrides=None):
+                 microbatch=1, arch="smollm-360m", overrides=None,
+                 grads=False, replay=()):
     """STEPS AdamW steps (lr LR) of ``arch``'s smoke model (with the
     config ``overrides``) on the batch in ``batch_npz`` from the
     parameters in ``params_npz`` (drawn from seed 0 when None); rank 0
     writes each step's loss, grad norm and moe metrics, the whole
-    parameters after it, every parameter's placements (``placed/<name>``;
+    parameters after it (with ``grads``, also the whole gradients the
+    step takes, ``g<step>/<name>``, from one more forward and backward
+    of the loss before it), after the steps the whole gradients at each
+    parameter file of ``replay`` in turn (``r<j>/<name>``, j from 1: the
+    ops alone, held at another trajectory's parameters), every
+    parameter's placements (``placed/<name>``;
     a dense model's embedding and first wq also as ``placements``), the
     collectives one ``global_norm`` of the parameters makes, and whether
     every parameter's shard owns its storage (holds no whole tensor
@@ -190,7 +208,7 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
     from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import global_norm
     from repro_torch.runtime.steps import init_train_state, make_train_step
-    from repro_torch.sharding import local
+    from repro_torch.sharding import full, local
     with np.load(batch_npz) as f:
         batch = dict(f)
     B, S = batch["labels"].shape
@@ -202,16 +220,24 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
     step = make_train_step(model, opt)
     out = {}
     for i in range(1, STEPS + 1):
+        if grads:
+            out.update({f"g{i}/{k}": v
+                        for k, v in _grads(model, batch, full).items()})
         state, m = step(state, batch)
         for k in ("loss", "grad_norm") + MOE_METRICS:
             if k in m:
                 out[f"{k}_{i}"] = float(m[k])
         for k, v in _full_params(state).items():
             out[f"p{i}/{k}"] = v
-    for k, p in state.params.items():
-        out[f"placed/{k}"] = np.array(str(tuple(p.placements)))
     for k, n in paths.items():
         out[f"path/{k}"] = n
+    for j, path in enumerate(replay, 1):
+        with np.load(path) as f:
+            model.load_jax_params(unflatten(dict(f)))
+        out.update({f"r{j}/{k}": v
+                    for k, v in _grads(model, batch, full).items()})
+    for k, p in state.params.items():
+        out[f"placed/{k}"] = np.array(str(tuple(p.placements)))
     if "attn" in model.layers[0]:
         out["placements"] = np.array([
             str(tuple(model.embed.placements)),
@@ -225,6 +251,17 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
         for t in shards)
     if rank == 0:
         np.savez(out_npz, **out)
+
+
+def one_device_grads(batch_np, params_npz, arch: str = "smollm-360m"):
+    """The whole gradients of ``arch``'s smoke model's loss on
+    ``batch_np`` at the parameters in ``params_npz``, on one CPU device
+    (no plan)."""
+    from repro_torch.models.model import build_model
+    model = build_model(smoke_cfg(arch), None, device="cpu", seed=0)
+    with np.load(params_npz) as f:
+        model.load_jax_params(unflatten(dict(f)))
+    return _grads(model, batch_np)
 
 
 def gpipe_worker(rank, world, mesh_shape, case_npz, out_npz, n_micro):
@@ -322,8 +359,7 @@ def one_device_trajectory(batch_np, microbatch: int = 1,
     each], and each step's gradients [{name: array}]."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW
-    from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
-                                           make_train_step)
+    from repro_torch.runtime.steps import init_train_state, make_train_step
     from repro_torch.sharding import single_device_plan
     plan = single_device_plan().with_(microbatch=microbatch,
                                       moe_target_groups=groups)
@@ -337,10 +373,7 @@ def one_device_trajectory(batch_np, microbatch: int = 1,
     step = make_train_step(model, opt)
     out, grads = [], []
     for _ in range(STEPS):
-        loss, _ = make_loss_fn(model)(batch_np)
-        grads.append({k: g.numpy() for k, g in zip(
-            state.params, torch.autograd.grad(loss,
-                                              list(state.params.values())))})
+        grads.append(_grads(model, batch_np))
         state, m = step(state, batch_np)
         out.append((float(m["loss"]), float(m["grad_norm"]),
                     {k: p.detach().numpy().copy()

@@ -59,13 +59,17 @@ def run_id(run):
                     ["x".join(map(str, mesh))])
 
 
-def trained(d, runs, seed: int = 0):
+def trained(d, runs, seed: int = 0, grads: bool = False, replay=()):
     """Each run (arch, config overrides, mesh) of ``runs`` from the
     reference's parameters drawn from ``seed`` on ``fx.batch``'s batch of
     seed 1 + ``seed``: {run_id(run):
-    (the reference's trajectory [{loss, grad_norm, moe metrics, params}]
-    and its first step's gradients {name: array}, the world's results)};
-    one reference for the runs that share a config and a world size."""
+    (the reference's trajectory [{loss, grad_norm, moe metrics, params,
+    grads: the gradients the step takes}] and its first step's gradients
+    {name: array}, the world's results: with ``grads`` each step's
+    gradients on its own trajectory (``g<step>/``), and for the archs of
+    ``replay`` its gradients at the reference's parameters before each
+    step (``r<step>/``))}; one reference for the runs that share a config
+    and a world size."""
     refs, out = {}, {}
     for arch, over, mesh in runs:
         world = int(np.prod(mesh))
@@ -75,10 +79,18 @@ def trained(d, runs, seed: int = 0):
             refs[key] = _reference(d, tag, arch, over or {}, world, seed)
         path = d / f"{run_id((arch, over, mesh))}.npz"
         fx.spawn(fx.train_worker, world, mesh, str(d / f"{tag}_params.npz"),
-                 str(d / f"{tag}_batch.npz"), str(path), 1, arch, over)
+                 str(d / f"{tag}_batch.npz"), str(path), 1, arch, over,
+                 grads, step_params(d, tag) if arch in replay else ())
         with np.load(path) as f:
             out[run_id((arch, over, mesh))] = (refs[key], dict(f))
     return out
+
+
+def step_params(d, tag):
+    """The reference's parameter files before each step of ``tag``'s
+    trajectory (its initial ones, then after each step but the last)."""
+    return [str(d / (f"{tag}_params.npz" if i == 1 else
+                     f"{tag}_params_{i - 1}.npz")) for i in STEPS]
 
 
 def _reference(d, tag, arch, over, groups, seed=0):
@@ -97,13 +109,37 @@ def _reference(d, tag, arch, over, groups, seed=0):
     opt = RAdamW(lr=fx.LR)
     state = RTrainState(params, opt.init(params), jnp.zeros((), jnp.int32))
     step = jax.jit(rmake_train_step(rmodel, opt))
-    grad0 = _numpy(grad(state.params), cfg)
     traj = []
-    for _ in STEPS:
+    for i in STEPS:
+        g = _numpy(grad(state.params), cfg)
         state, m = step(state, jbatch)
+        if i < STEPS[-1]:
+            np.savez(d / f"{tag}_params_{i}.npz", **_flat_tree(state.params))
         traj.append({**{k: float(v) for k, v in m.items()},
-                     "params": _numpy(state.params, cfg)})
-    return traj, grad0
+                     "params": _numpy(state.params, cfg), "grads": g})
+    return traj, traj[0]["grads"]
+
+
+def grads_agree(got, want):
+    """Each tensor's gradient ``got`` against the reference's ``want``
+    ({name: array}) as test_torch_train holds gradients: max |diff| over
+    max |want| within GRAD_TOL.  [(name, that ratio)] of the tensors
+    beyond it, worst first, and the worst ratio of all."""
+    rel = {n: float(np.abs(np.asarray(got[n], np.float64) - w).max() /
+                    max(float(np.abs(w).max()), 1e-30))
+           for n, w in want.items()}
+    far = sorted(((n, r) for n, r in rel.items() if r > fx.GRAD_TOL),
+                 key=lambda x: -x[1])
+    return far, max(rel.values())
+
+
+def check_step_grads(ref, got, step: int) -> None:
+    """The world's gradients at the reference's parameters before
+    ``step`` (``trained``'s ``replay``) against the reference's, tensor
+    by tensor, as ``grads_agree`` holds them."""
+    want = ref[0][step - 1]["grads"]
+    far, worst = grads_agree({k: got[f"r{step}/{k}"] for k in want}, want)
+    assert not far, (worst, far[:5])
 
 
 def check_step(arch, ref, got, step: int) -> None:
@@ -169,8 +205,11 @@ def main(argv=None) -> int:
     """A non-moe ``arch``'s worlds at (1, 2, 2) and (1, 1, 4) and its
     one-device path, each against the reference from ``--seed``'s
     parameters and batch: each step's loss and grad norm error, the
-    verdict of ``check_step``, and every element beyond PARAM_TOL with
-    its first gradient over GRAD_TOL x max.
+    verdict of ``check_step``, every element beyond PARAM_TOL with its
+    first gradient over GRAD_TOL x max, and the gradients the step takes
+    against the reference's, tensor by tensor (``grads_agree``: the worst
+    max |diff| / max |g| and the tensors beyond GRAD_TOL).  Exits 1 if a
+    ``check_step`` or a gradient check fails.
 
         PYTHONPATH=src:tests JAX_PLATFORMS=cpu \\
             python tests/fixtures_torch_multidevice_ref.py ARCH [--seed N]
@@ -186,18 +225,28 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
         runs = [(a.arch, None, m) for m in ((1, 2, 2), (1, 1, 4))]
-        out = trained(d, runs, a.seed)
+        out = trained(d, runs, a.seed, grads=True, replay=(a.arch,))
         ref = next(iter(out.values()))[0]
         worlds = [(run_id(r), out[run_id(r)][1]) for r in runs]
         tag = run_id((a.arch, None, (4,)))
         with np.load(d / f"{tag}_batch.npz") as f:
-            one = fx.one_device_trajectory(
+            one, one_grads = fx.one_device_trajectory(
                 dict(f), arch=a.arch,
-                params_npz=d / f"{tag}_params.npz")[0]
+                params_npz=d / f"{tag}_params.npz")
         worlds.append(("one device", {
-            k: v for i, (loss, gnorm, params) in enumerate(one, 1)
+            k: v for i, ((loss, gnorm, params), g) in enumerate(
+                zip(one, one_grads), 1)
             for k, v in [(f"loss_{i}", loss), (f"grad_norm_{i}", gnorm)] +
-            [(f"p{i}/{n}", p) for n, p in params.items()]}))
+            [(f"p{i}/{n}", p) for n, p in params.items()] +
+            [(f"g{i}/{n}", x) for n, x in g.items()]}))
+        # the one device's gradients at the reference's parameters before
+        # each step, as the worlds' replay gives them
+        with np.load(d / f"{tag}_batch.npz") as f:
+            worlds[-1][1].update({
+                f"r{i}/{k}": v
+                for i, pnpz in enumerate(step_params(d, tag), 1)
+                for k, v in fx.one_device_grads(dict(f), pnpz,
+                                                a.arch).items()})
         for name, got in worlds:
             for i in STEPS:
                 want = ref[0][i - 1]
@@ -218,6 +267,23 @@ def main(argv=None) -> int:
                 for n, idx, diff, r in far[:8]:
                     print(f"  {n}{idx}: {diff:.3g}, |g1| {r:.3g} x "
                           f"GRAD_TOL max", flush=True)
+                gfar, worst = grads_agree(
+                    {k: got[f"g{i}/{k}"] for k in want["grads"]},
+                    want["grads"])
+                print(f"  gradients of step {i} on its own trajectory: "
+                      f"worst max |diff| / max |g| {worst:.3g} (GRAD_TOL "
+                      f"{fx.GRAD_TOL}), {len(gfar)} tensors beyond",
+                      flush=True)
+                # the same gradients at the reference's parameters of step
+                # i: the ops alone, without the earlier steps' updates
+                gfar, worst = grads_agree(
+                    {k: got[f"r{i}/{k}"] for k in want["grads"]},
+                    want["grads"])
+                bad += bool(gfar)
+                print(f"  gradients of step {i} at the reference's "
+                      f"parameters: worst {worst:.3g}, {len(gfar)} tensors "
+                      f"beyond: {'ok' if not gfar else gfar[:4]}",
+                      flush=True)
     return 1 if bad else 0
 
 

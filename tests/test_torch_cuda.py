@@ -859,3 +859,156 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
             assert float((a - b).abs().max() / b.abs().max()) <= fx.GRAD_TOL
     finally:
         dist.destroy_process_group()
+
+
+# ---- the planning twins' float32 lanes on the card ------------------------ #
+# The reference's jax lanes (test_plan_broker.py, test_planning_backend.py,
+# test_lockstep.py) are the CUDA backend's: here on the card, held against
+# the port's exact "torch" backend, which the CPU twins hold against the
+# reference's numpy backend.
+
+def _twin_ops(rng, n):
+    impls = ("SMJ", "BHJ")
+    return [(impls[int(rng.integers(2))],
+             float(np.round(rng.uniform(0.2, 8.0), 3)),
+             float(np.round(rng.uniform(5.0, 300.0), 3))) for _ in range(n)]
+
+
+def _twin_ragged():
+    return ClusterConditions(dims=(
+        ResourceDim("num_containers", 1, 38, step=3),
+        ResourceDim("container_gb", 1, 10, values=(1, 2, 3, 5, 8, 10))))
+
+
+@pytest.mark.parametrize("mode", ["batched", "ensemble"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_broker_on_kernels_matches_torch(dev, mode, ragged):
+    """test_plan_broker.py's jax lane: brokered planning on the kernels
+    plans what the exact backend plans (winners re-committed in float64
+    on both)."""
+    from repro_torch.core.plans import OperatorCosting
+    for seed in range(6):
+        ops = _twin_ops(np.random.default_rng(seed), 5)
+        res = {}
+        for name, be in (("cuda", ps.CudaPlanBackend()), ("torch", "torch")):
+            c = OperatorCosting(models=cm.simulator_cost_models(),
+                                cluster=_twin_ragged() if ragged else
+                                paper_cluster(30, 8),
+                                resource_planning=mode,
+                                broker=PlanBroker(be), backend=be)
+            for op in ops:
+                c.prefetch(*op)
+            res[name] = [c.plan_resources(*op) for op in ops]
+        for (rj, cj), (rn, cn) in zip(res["cuda"], res["torch"]):
+            if np.isinf(cn):
+                assert np.isinf(cj)
+            else:
+                assert rj == rn and cj == pytest.approx(cn, rel=1e-12)
+
+
+def test_float32_lane_on_kernels_matches_torch(dev):
+    """test_planning_backend.py's jax lane: scans and ensemble climbs of
+    integer tables (exact in float32) on the kernels equal the exact
+    backend's, ties and OOM cells included."""
+    from repro_torch.core.planning_backend import get_backend
+    rng = np.random.default_rng(7)
+    for ragged in (False, True) * 4:
+        if ragged:
+            cluster = _twin_ragged()
+        else:
+            cluster = paper_cluster(int(rng.integers(2, 12)),
+                                    int(rng.integers(2, 9)))
+        shape = tuple(len(d.grid()) for d in cluster.dims)
+        table = rng.integers(0, 1 << 20, size=shape).astype(np.float64)
+        table[rng.random(shape) < 0.15] = np.inf
+        s = cm.Surface(cm.CostTable.of(cluster, table))
+
+        def fn(cfgs, params):
+            return s(cfgs, params)
+        fn.surface = s
+        zero = np.zeros(1)
+        cuda, exact = ps.CudaPlanBackend(), get_backend("torch")
+        assert cuda.argmin_grid(fn, cluster, params=zero) == \
+            exact.argmin_grid(fn, cluster, params=zero)
+        for n_random in (0, 6):
+            assert cuda.hill_climb_ensemble(fn, cluster, params=zero,
+                                            n_random=n_random, seed=3) == \
+                exact.hill_climb_ensemble(fn, cluster, params=zero,
+                                          n_random=n_random, seed=3)
+
+
+@pytest.mark.parametrize("objective", ["time", "money"])
+def test_operator_costing_on_kernels_matches_torch(dev, objective):
+    from repro_torch.core.plans import OperatorCosting
+    for ss, ls in ((0.5, 74.0), (2.0, 10.0), (6.0, 200.0)):
+        got, want = (OperatorCosting(
+            models=cm.simulator_cost_models(), cluster=paper_cluster(100, 10),
+            objective=objective, resource_planning="batched",
+            backend=be).plan_resources("SMJ", ss, ls)
+            for be in (None, "torch"))
+        assert got[0] == want[0]
+        assert got[1] == pytest.approx(want[1], rel=1e-12)
+
+
+def test_lockstep_on_8_logical_shards_of_the_card(dev):
+    """test_lockstep.py's 8-simulated-device lane: 8 logical shards of the
+    card plan lockstep as sequentially, as one device, and as the exact
+    backend, in fewer waves."""
+    schema = random_schema(8, seed=3)
+    queries = [random_query(schema, k, seed=q)
+               for q, k in enumerate((5, 3, 1, 4, 5))]
+
+    def run(backend):
+        def raqo(broker):
+            return RAQO(schema, cluster=paper_cluster(24, 8),
+                        backend=backend, resource_planning="batched",
+                        broker=broker)
+        b_lock, b_seq = PlanBroker(backend), PlanBroker(backend)
+        lock = raqo(b_lock).plan_queries(queries)
+        r_seq = raqo(b_seq)
+        seq = [r_seq.joint(q) for q in queries]
+        sig = [(jp.plan.describe(), jp.exec_time) for jp in lock]
+        assert sig == [(jp.plan.describe(), jp.exec_time) for jp in seq]
+        sl, ss = b_lock.counters_snapshot(), b_seq.counters_snapshot()
+        assert sl["requests"] - sl["dedup_hits"] == \
+            ss["requests"] - ss["dedup_hits"]
+        assert sl["waves"] < ss["waves"]
+        return sig
+
+    sharded = ps.CudaPlanBackend(devices=["cuda"] * 8)
+    assert sharded.device_count() == 8
+    assert run(sharded) == run(ps.CudaPlanBackend(devices=1)) == run("torch")
+
+
+COST_GRID_FAMILIES = ("paper_models", "simulator_models",
+                      "simulator_cost_models")
+# test_batched_costing.py's (ss, ls) points
+COST_GRID_POINTS = ((0.5, 74.0), (2.0, 10.0), (6.0, 200.0))
+
+
+def test_cost_grid_float64_on_card_bit_equal_scalar(dev):
+    """The float64 cost surfaces on CUDA tensors equal the scalar cost
+    and the same grid on CPU tensors bit for bit, infinities included
+    (chip_smoke.py phase 4 runs the same check on a larger grid)."""
+    from repro_torch.core.plans import OperatorCosting
+    from repro_torch.core.planning_backend import enumerate_configs
+    cluster = paper_cluster(100, 10)
+    cpu = torch.as_tensor(enumerate_configs(cluster))
+    on_card = cpu.to(dev)
+    for family in COST_GRID_FAMILIES:
+        models = getattr(cm, family)()
+        for objective in ("time", "money"):
+            c = OperatorCosting(models=models, cluster=cluster,
+                                objective=objective, backend="torch")
+            for impl in ("SMJ", "BHJ"):
+                for ss, ls in COST_GRID_POINTS:
+                    g = c._op_cost_grid(impl, ss, ls, on_card)
+                    assert g.dtype == torch.float64
+                    assert g.device == on_card.device
+                    g = g.cpu()
+                    assert torch.equal(g, c._op_cost_grid(impl, ss, ls, cpu))
+                    want = torch.tensor([c._op_cost_at(impl, ss, ls, tuple(r))
+                                         for r in cpu.tolist()],
+                                        dtype=torch.float64)
+                    assert torch.equal(g, want), (family, objective, impl,
+                                                  ss, ls)

@@ -15,7 +15,11 @@ reference (``fixtures_torch_multidevice_ref``).
   parameters each within PARAM_TOL, zamba2's as test_torch_train holds
   the moe model's (``fx.NEAR_ZERO_RULE``: on this batch its one-device
   path already moves 4 elements beyond PARAM_TOL, each where the first
-  gradient is ~0, and each mesh moves 2 such).
+  gradient is ~0, and each mesh moves 2 such).  Beside that update
+  check, zamba2's gradients at the reference's parameters before each
+  step (the world replays them after its steps) equal the reference's
+  tensor by tensor within GRAD_TOL: the ops agree, and the drift is
+  AdamW's first updates of near-zero gradients.
 - **Placements**: every parameter is placed as the reference's
   PartitionSpec of its leaf says (``in_proj`` whole over "model" on its
   2 d_inner columns, the per-channel parameters on d_inner).
@@ -53,13 +57,26 @@ SHAPE = ShapeConfig("train", 32, 8, "train")
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    return ref.trained(tmp_path_factory.mktemp("multidevice_ssm"), RUNS)
+    return ref.trained(tmp_path_factory.mktemp("multidevice_ssm"), RUNS,
+                       replay=(ZAMBA,))
 
 
 @pytest.mark.parametrize("step", ref.STEPS)
 @pytest.mark.parametrize("run", RUNS, ids=IDS)
 def test_training_matches_reference(trained, run, step):
     ref.check_step(run[0], *trained[ref.run_id(run)], step)
+
+
+@pytest.mark.parametrize("step", ref.STEPS)
+@pytest.mark.parametrize("run", RUNS[2:], ids=IDS[2:])
+def test_hybrid_gradients_match_reference(trained, run, step):
+    """zamba2's gradients at the reference's parameters before each step,
+    tensor by tensor within GRAD_TOL: the ops agree, so its parameters'
+    drift beyond PARAM_TOL is AdamW's first updates of near-zero
+    gradients (``fx.NEAR_ZERO_RULE``)."""
+    assert run[0] == ZAMBA
+    ref.check_step_grads(trained[ref.run_id(run)][0],
+                         trained[ref.run_id(run)][1], step)
 
 
 @pytest.mark.parametrize("run", RUNS, ids=IDS)

@@ -111,7 +111,8 @@ def _np_tree(tree):
 @functools.lru_cache(maxsize=None)
 def _reference(arch):
     """The reference's loss, grads and params after 1 and 3 steps, as
-    numpy state dicts in the port's names."""
+    numpy state dicts in the port's names, and its parameter trees before
+    each of the 3 steps."""
     rcfg, cfg = _cfgs(arch)
     rmodel = rbuild(rcfg)
     params = _open_gates(rmodel.init(jax.random.PRNGKey(0)), cfg)
@@ -121,15 +122,16 @@ def _reference(arch):
     opt = RAdamW(lr=LR)
     state = RTrainState(params, opt.init(params), jnp.zeros((), jnp.int32))
     step = jax.jit(rmake_train_step(rmodel, opt))
-    after = {}
+    after, trees = {}, []
     for i in range(1, 4):
+        trees.append(_np_tree(state.params))
         state, m = step(state, batch)
         if i in (1, 3):
             after[i] = (load_jax_params(_np_tree(state.params), cfg),
                         float(m["loss"]), float(m["grad_norm"]))
     return (_np_tree(params), float(loss),
             {k: float(v) for k, v in metrics.items()},
-            load_jax_params(_np_tree(grads), cfg), after)
+            load_jax_params(_np_tree(grads), cfg), after, trees)
 
 
 def _port(arch, plan=None):
@@ -145,7 +147,7 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_matches_reference(arch):
-    _, rloss, rmetrics, _, _ = _reference(arch)
+    rloss, rmetrics = _reference(arch)[1:3]
     model, cfg = _port(arch)
     with torch.no_grad():
         loss, metrics = make_loss_fn(model)(_batch(cfg))
@@ -180,7 +182,7 @@ def test_grads_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_adamw_steps_match_reference(arch):
-    rgrads, after = _reference(arch)[3:]
+    rgrads, after = _reference(arch)[3:5]
     model, cfg = _port(arch)
     opt = AdamW(lr=LR)
     state = init_train_state(model, opt)
@@ -213,6 +215,33 @@ def test_adamw_steps_match_reference(arch):
             assert (diff <= LR * i).all(), name
             beyond += int(far.sum())
         assert beyond <= MOE_PARAM_SHARE * total, (beyond, total)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b"])
+def test_step_gradients_match_reference(arch):
+    """Beside the update check: the gradients each AdamW step takes, at
+    the reference's parameters before that step, equal ``jax.grad``'s to
+    GRAD_TOL, tensor by tensor.  On its own trajectory the hybrid's
+    parameters part from the reference's beyond PARAM_TOL where AdamW's
+    first update of a near-zero gradient divides rounding by rounding, and
+    its later gradients follow them; at the same parameters its ops
+    agree."""
+    rcfg, cfg = _cfgs(arch)
+    rmodel = rbuild(rcfg)
+    batch = _batch(cfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    rgrad = jax.jit(jax.grad(
+        lambda p: rmake_loss_fn(rmodel)(p, jbatch)[0]))
+    for i, tree in enumerate(_reference(arch)[5], 1):
+        want = load_jax_params(_np_tree(rgrad(tree)), cfg)
+        model = build_model(cfg, None, device="cpu").load_jax_params(tree)
+        loss, _ = make_loss_fn(model)(batch)
+        named = list(model.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        assert sorted(n for n, _ in named) == sorted(want)
+        for (name, _), g in zip(named, grads):
+            assert _rel_err(g.numpy(), want[name].numpy()) <= GRAD_TOL, \
+                (i, name)
 
 
 def test_microbatch_grad_accumulation_matches():
