@@ -201,16 +201,24 @@ Phases (any failure exits nonzero; there is no CPU path):
              mesh: smollm-360m at full width and depth (32 layers), then
              qwen3-moe-30b-a3b (2 of 48 layers: the moe FFN's two
              local_maps), falcon-mamba-7b (2 of 64: K8 under its
-             local_map on the rank's channels) and zamba2-2.7b (one group
+             local_map on the rank's channels), zamba2-2.7b (one group
              of 6 Mamba2 blocks and the shared block: K7 at hd 80 under
-             local_map), each float32, B=2, S=256, take TRAIN_F32_STEPS
+             local_map), gemma2-9b (one (local, global) pair of 42
+             layers: K7 at 16:8 hd 256 with softcap 50 under local_map,
+             windowed and global), llama-3.2-vision-11b (one group of 5
+             of 40 layers: 4 self blocks, K7 at 32:8 hd 128, and the
+             gated cross block, its cross attention under its own
+             local_map; the gates opened first) and musicgen-medium (all
+             48 layers, K7 at 24:24 hd 64, on frame embeddings), each
+             float32, B=2, S=256, take TRAIN_F32_STEPS
              AdamW steps under launch.specs.plan_for's train plan (remat
              none; the parameters DTensors) from the same seeded state as
              the single-device path beside it (zamba2's each step from the
              single run's state, REPLAYED): losses, grad norms and
              parameters within LOSS_TOL, GRAD_TOL and PARAM_SHARE_TOL, and
              K7's and K8's launch counters risen by exactly as much on
-             both (one a layer a step); then pipeline.gpipe_apply at one
+             both (one a layer a step, a vlm's self blocks only); then
+             pipeline.gpipe_apply at one
              stage against the sequential layers on the card (forward
              1e-5, gradients 1e-4).
 
@@ -2855,8 +2863,12 @@ MULTI_TRAIN = ("smollm-360m", 2, 256)      # arch, B, S (float32)
 # and moments of two models in turn; PERF.md §4): qwen3 2 of 48 layers
 # (~1.9B parameters, ~30 GB of state a model), falcon 2 of 64, zamba2 one
 # group of 6 Mamba2 blocks and the shared block (its float32 trajectory is
-# chaotic, REPLAYED: the mesh takes one device's state before each step)
-MULTI_FAMILIES = {MOE: 2, "falcon-mamba-7b": 2, HYBRID: 6}
+# chaotic, REPLAYED: the mesh takes one device's state before each step),
+# gemma2 one (local, global) pair of 42 layers (~1.31B, ~21 GB), the vlm
+# one group of 5 of 40 (4 self blocks and the cross block, ~2.15B, ~34
+# GB), musicgen all 48 layers (~1.81B, ~29 GB)
+MULTI_FAMILIES = {MOE: 2, "falcon-mamba-7b": 2, HYBRID: 6, LOCAL_GLOBAL: 2,
+                  VLM: 5, AUDIO: None}
 GPIPE = dict(L=8, B=8, S=16, d=32, n_micro=4)
 # forward max |diff|; each gradient's max |diff| over its max |g|
 GPIPE_TOL = (1e-5, 1e-4)
@@ -2872,7 +2884,9 @@ def _free_port() -> int:
 def _f32_steps(torch, model, batch):
     """TRAIN_F32_STEPS AdamW steps (lr TRAIN_LR) from the model's state:
     ([loss], [grad norm], [step seconds], the model kernels' launches,
-    the whole parameters after them on the host)."""
+    the whole parameters after them, on the model's device: compared
+    there, they spare the host a copy and a pass over each of the ~2B
+    float32 elements of phase 15's larger models)."""
     from repro_torch.kernels import ops
     from repro_torch.optim import AdamW
     from repro_torch.runtime.steps import init_train_state, make_train_step
@@ -2889,14 +2903,18 @@ def _f32_steps(torch, model, batch):
         norms.append(float(m["grad_norm"]))
         secs.append(time.perf_counter() - t)
     launches = launch_counts()
-    params = {k: full(p.detach()).cpu() for k, p in state.params.items()}
+    params = {k: full(p.detach()) for k, p in state.params.items()}
     return losses, norms, secs, launches, params
 
 
 def _expected_launches(cfg) -> dict:
-    """K7's and K8's launches in TRAIN_F32_STEPS steps without remat."""
+    """K7's and K8's launches in TRAIN_F32_STEPS steps without remat: K7
+    one a layer (a hybrid's shared block once a group, a vlm's self blocks
+    only: its cross blocks' attention is plain torch)."""
     attn = 0 if cfg.family == "ssm" else cfg.n_layers // (
         cfg.hybrid_period if cfg.family == "hybrid" else 1)
+    if cfg.family == "vlm":
+        attn -= cfg.n_layers // cfg.cross_attn_period
     scan = cfg.n_layers if cfg.family == "ssm" and cfg.ssm_version == 1 \
         else 0
     return {"flash_attention": attn * TRAIN_F32_STEPS,
@@ -2928,13 +2946,16 @@ def multidevice_train(torch, mesh, arch, layers, B, S, device):
     replay = arch in REPLAYED
     if replay:        # the mesh takes one device's state before each step
         ((l2, n2, s2, k2), (l1, n1, s1, k1)), share, pmax, n = replay_steps(
-            torch, [build_model(cfg, p, device=device, seed=0)
+            torch, [open_gates(torch, build_model(cfg, p, device=device,
+                                                  seed=0))
                     for p in (plan, one)], batch)
         limit = 2
     else:
         runs = []
         for p in (one, plan):
-            model = build_model(cfg, p, device=device, seed=0)
+            # a vlm's gates opened on both, or its cross blocks add nothing
+            model = open_gates(torch, build_model(cfg, p, device=device,
+                                                  seed=0))
             runs.append(_f32_steps(torch, model, batch))
             del model
             gc.collect()

@@ -31,9 +31,11 @@ outside the mesh and exit 0.  The reference passes the planner no
 budget, so on fewer than its 32-chip choice its mesh cannot be built;
 the port's budget is the world.  More than one visible GPU in a process
 not started by torchrun raises, as one GPU of many would otherwise train
-alone.  Under a plan the dense, moe, ssm and hybrid families train,
-with full or swa attention; the local_global schedule and the vlm and
-audio families raise (``models.model``; ROADMAP §1).
+alone.  Under a plan every family trains, with each attention schedule
+(the vlm's media and the audio family's frame embeddings come from
+``SyntheticPipeline`` and are sharded as they enter the model); the
+plans it never makes (``tp_mode="shard_map"``, causal_skip, pipeline
+stages) raise (``models.model``; ROADMAP §1 item 3).
 """
 from __future__ import annotations
 

@@ -17,7 +17,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.ops import local_kv_heads
 from repro_torch.models.common import softcap
+from repro_torch.sharding import (is_dtensor, map_local,
+                                  placements_like)
 
 NEG_INF = -1e30
 
@@ -57,7 +60,13 @@ def cross_attention(q, k, v, media_valid=None):
     q: (B, Sq, H, hd); k, v: (B, M, KV, hd); media_valid: optional (B, M)
     bool, False masks a media position.  Scores in float32 (q and k's
     products and sums), the softmax in float32, its probabilities cast to
-    v's dtype, then float32 sums; the output in q's dtype."""
+    v's dtype, then float32 sums; the output in q's dtype.  DTensors run
+    on each rank's heads (``_cross_attention_sharded``)."""
+    if is_dtensor(q):
+        if media_valid is not None:
+            raise NotImplementedError("a media mask under a plan (the "
+                                      "model never passes one)")
+        return _cross_attention_sharded(q, k, v)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -70,6 +79,36 @@ def cross_attention(q, k, v, media_valid=None):
     out = torch.einsum("bkgqm,bmkd->bqkgd", p.to(v.dtype).float(),
                        v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _cross_attention_sharded(q, k, v):
+    """``cross_attention`` of DTensor q (B, Sq, H, hd), its batch and
+    heads sharded (any other shard gathered), onto DTensor k, v (B, M, KV,
+    hd): each rank attends from its own q heads onto the media K/V heads
+    they read, picked as K7's sharded path picks them
+    (``ops.local_kv_heads``) from K/V replicated over the heads' axis, or
+    its own shard of them where that axis splits the KV heads evenly
+    (``transformer.media_kv_for`` places them so).  The output is
+    head-sharded like q."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    q_pl = placements_like(q, (0, 2), (0, 2))
+    heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    if len(heads) > 1:
+        raise NotImplementedError("q heads sharded over more than one mesh "
+                                  "axis")
+    split = bool(heads) and k.placements[heads[0]] == Shard(2)
+    kv_pl = [p if i not in heads else (Shard(2) if split else Replicate())
+             for i, p in enumerate(q_pl)]
+    pick = slice(None) if split or not heads else local_kv_heads(
+        q.shape[2], k.shape[2], mesh.size(heads[0]),
+        mesh.get_local_rank(heads[0]))
+
+    def attend(ql, kl, vl):
+        return (cross_attention(ql, kl[:, :, pick], vl[:, :, pick]),)
+
+    return map_local(attend, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
+                     mesh)[0]
 
 
 # ------------------------------ cache utils ------------------------------- #

@@ -83,16 +83,20 @@ placements (``ParallelPlan.placements``) as soon as it is drawn, so the
 multi-device model starts from the single-device one's numbers and a
 rank never holds more than one whole parameter besides its shards; the
 batch's inputs and the positions are sharded by the plan as they enter
-(``shard``), and the blocks' constraints place the activations.  The
-dense, moe, ssm and hybrid families run under a plan, with full or swa
-attention and the ``"dense"`` schedule (``_check_plan`` names what
-raises: local_global, the vlm and audio families, ``tp_mode=
-"shard_map"``, pipeline stages, and a model axis that does not divide
-the heads, Mamba's channels or the experts; ROADMAP §1).  A hybrid's
-``shared_attn`` block is one set of DTensor parameters that every group
-reads: autograd sums their gradients over the groups, placed like the
-parameters before the update (``runtime.steps``).  A moe model's aux
-losses are replicated 0-d DTensors (``models.moe``).
+(``shard``; a vlm's media and the audio family's frame embeddings as
+the reference's ``batch_shardings`` places them, before ``projector``),
+and the blocks' constraints place the activations.  Every family runs
+under a plan, with each attention schedule and the ``"dense"`` block
+schedule (``_check_plan`` names what raises: ``tp_mode="shard_map"``,
+the causal_skip schedule and pipeline stages, ROADMAP §1 item 3, and a
+model axis that does not divide the heads, Mamba's channels or the
+experts).  A hybrid's ``shared_attn`` block is one set of DTensor
+parameters that every group reads: autograd sums their gradients over
+the groups, placed like the parameters before the update
+(``runtime.steps``).  A moe model's aux losses are replicated 0-d
+DTensors (``models.moe``).  A vlm's cross blocks attend on each rank's
+q heads (``attention.cross_attention``) onto media K/V placed by
+``transformer.media_kv_for``.
 """
 from __future__ import annotations
 
@@ -111,7 +115,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import rms_norm, softcap
+from repro_torch.models.common import like, rms_norm, softcap
 from repro_torch.sharding import (ParallelPlan, ParamDef, active_mesh,
                                   distribute, init_from_defs,
                                   single_device_plan)
@@ -152,26 +156,23 @@ def check_supported(cfg: ModelConfig,
 
 
 def _check_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
-    todo = "is not ported yet (ROADMAP §1, multi-device training"
-    if cfg.family in ("vlm", "audio") or cfg.attention == "local_global":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family with {cfg.attention} "
-            f"attention under a multi-device plan {todo}, item 4.3); the "
-            f"dense, moe, ssm and hybrid families with full or swa "
-            f"attention run")
     if plan.attention_schedule != "dense" or plan.tp_mode != "gspmd" or \
             plan.pipeline_stages != 1:
         raise NotImplementedError(
             f"{plan.name}: attention_schedule={plan.attention_schedule!r}, "
             f"tp_mode={plan.tp_mode!r}, pipeline_stages="
-            f"{plan.pipeline_stages} {todo})")
+            f"{plan.pipeline_stages} is not ported yet in a model under a "
+            f"plan (ROADMAP §1, item 3)")
     if plan.mesh is None:
         raise ValueError(f"{plan.name}: an enabled plan needs its mesh "
                          f"(launch.specs.plan_for sets it)")
     names = tuple(plan.mesh.mesh_dim_names)
     tp = plan.mesh.size(names.index("model")) if "model" in names else 1
     split = []              # (what, count) the model axis must divide
-    if cfg.family != "ssm":
+    if cfg.family == "vlm":
+        # the cross blocks' q heads are the self blocks' n_heads too
+        split.append(("attention heads (self and cross)", cfg.n_heads))
+    elif cfg.family != "ssm":
         split.append(("attention heads", cfg.n_heads))
     if cfg.family in ("ssm", "hybrid"):
         split.append(("Mamba channels (d_inner)", cfg.d_inner))
@@ -368,11 +369,18 @@ class Model(nn.Module):
         """Token ids or positions (numpy or torch) as int64 on the device."""
         return torch.as_tensor(x, device=self.device).to(torch.int64)
 
-    def _project(self, x) -> torch.Tensor:
+    def _project(self, x, logical) -> torch.Tensor:
         """Embeddings or media (numpy or torch, (B, n, media_embed_dim))
-        through ``projector``, in the compute dtype."""
-        x = torch.as_tensor(x, device=self.device).to(self.dtype)
-        return x @ self.projector.to(self.dtype)
+        through ``projector``, in the compute dtype.  Under a plan the
+        input enters sharded by ``logical``; the product takes it whole
+        but for the batch, and the projector, FSDP-sharded in d over
+        "data", whole (torch 2.11's DTensor refuses a matmul of a
+        sequence-sharded 3-D tensor: ROADMAP, "torch versions")."""
+        x = self.shard(torch.as_tensor(x, device=self.device).to(self.dtype),
+                       logical)
+        x = self.plan.constrain(x, ("batch", None, None))
+        w = self.plan.constrain(self.projector, (None, None))
+        return x @ w.to(self.dtype)
 
     def _embed(self, batch):
         cfg, plan = self.cfg, self.plan
@@ -383,15 +391,19 @@ class Model(nn.Module):
             table = plan.constrain(self.embed, ("vocab", None))
             x = F.embedding(tokens, table).to(self.dtype)
         else:
-            x = self._project(batch["embeddings"])
+            x = self._project(batch["embeddings"], ("batch", "seq", None))
         if cfg.scale_embeddings:
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
+            # the factor rounded to the compute dtype, as the reference's
+            # (a replicated DTensor beside a DTensor x)
+            x = x * like(torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype,
+                                      device=self.device), x)
         return plan.constrain(x, ("batch", "seq", None))
 
     def _media(self, batch):
         """A vlm batch's media (B, M, media_embed_dim) projected to
-        (B, M, d_model)."""
-        return self._project(batch["media"])
+        (B, M, d_model), the batch sharded as the reference's
+        ``batch_shardings`` places it."""
+        return self._project(batch["media"], ("batch", None, None))
 
     def logits(self, hidden):
         cfg = self.cfg
@@ -509,8 +521,8 @@ class Model(nn.Module):
         the cross block's media (k, v))."""
         x, kvs, _ = self._dense_group(x, g=g, k=k, positions=positions)
         p = self.cross[g]
-        mkv = tf.media_kv_for(p["attn"], media, self.cfg)
-        return tf.cross_attn_block(p, x, mkv, self.cfg), kvs, mkv
+        mkv = tf.media_kv_for(p["attn"], media, self.cfg, self.plan)
+        return tf.cross_attn_block(p, x, mkv, self.cfg, self.plan), kvs, mkv
 
     def _mamba_group(self, x, *, g: int, k: int, positions):
         """Group ``g``: Mamba blocks ``g*k .. g*k+k-1``, then a hybrid's
@@ -569,7 +581,8 @@ class Model(nn.Module):
                     g = i // k
                     x = tf.cross_attn_block(
                         self.cross[g], x,
-                        (cache["media_k"][g], cache["media_v"][g]), cfg)
+                        (cache["media_k"][g], cache["media_v"][g]), cfg,
+                        self.plan)
         cache["pos"] = q_pos + 1
         logits = self.logits(x)[:, 0]
         return logits, cache

@@ -290,33 +290,49 @@ def dense_block(p, x, cfg, plan, positions, *, window=None,
     return plan.constrain(x + y, ("batch", "seq", None)), kv, aux
 
 
-def cross_attn_block(p, x, media_kv, cfg, *, media_valid=None):
+def cross_attn_block(p, x, media_kv, cfg, plan=_SINGLE, *,
+                     media_valid=None):
     """Gated cross-attention block: pre-norm q from ``x`` (QK-norm, no
     RoPE) onto the media's (k, v), then the MLP; each residual scaled by
-    ``tanh`` of its 0-d gate."""
+    ``tanh`` of its 0-d gate.  Under a plan q is column-parallel (its
+    heads over "model"), the attention runs on each rank's heads
+    (``attention.cross_attention``) and ``wo`` projects row-parallel, as
+    in the self-attention block."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = (h @ p["attn"]["wq"].to(h.dtype)).reshape(B, S, H, hd)
+    q = plan.col_parallel_project(h, p["attn"]["wq"]).reshape(B, S, H, hd)
     if "q_norm" in p["attn"]:
         q = rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
+    q = plan.constrain(q, ("batch", None, "heads", None))
     k, v = media_kv
     o = attn.cross_attention(q, k, v, media_valid)
-    o = o.reshape(B, S, H * hd) @ p["attn"]["wo"].to(o.dtype)
+    o = plan.row_parallel_project(o.reshape(B, S, H * hd), p["attn"]["wo"])
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
-    y = mlp_block(p, x, cfg)
-    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * y
+    y = mlp_block(p, x, cfg, plan)
+    x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * y
+    return plan.constrain(x, ("batch", "seq", None))
 
 
-def media_kv_for(p_attn, media, cfg):
+def media_kv_for(p_attn, media, cfg, plan=_SINGLE):
     """A cross block's K/V (B, M, KV, hd) from the projected media
-    (B, M, d); k through the block's ``k_norm``."""
+    (B, M, d); k through the block's ``k_norm``.  Under a plan they are
+    placed as the reference constrains them, ("batch", "media", "kv",
+    None), where "model" divides the KV heads; else their heads stay
+    replicated over "model", as the self-attention blocks' K/V do
+    (a ``Shard`` of KV heads over more ranks than heads would leave ranks
+    empty)."""
     B, M, _ = media.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (media @ p_attn["wk"].to(media.dtype)).reshape(B, M, KV, hd)
+    kv = "kv" if plan.divides("kv", KV) else None
+    k = plan.constrain(media @ p_attn["wk"].to(media.dtype),
+                       ("batch", None, kv)).reshape(B, M, KV, hd)
     if "k_norm" in p_attn:
         k = rms_norm(k, p_attn["k_norm"], cfg.norm_eps)
-    v = (media @ p_attn["wv"].to(media.dtype)).reshape(B, M, KV, hd)
+    v = plan.constrain(media @ p_attn["wv"].to(media.dtype),
+                       ("batch", None, kv)).reshape(B, M, KV, hd)
+    k = plan.constrain(k, ("batch", "media", kv, None))
+    v = plan.constrain(v, ("batch", "media", kv, None))
     return k, v
 
 

@@ -29,6 +29,7 @@ tensors.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -104,6 +105,16 @@ class ParallelPlan:
                                      f"maps to {a!r}, not an axis of the "
                                      f"mesh {names}")
         return out
+
+    def divides(self, logical: Optional[str], n: int) -> bool:
+        """Whether the mesh axes ``logical`` maps to split ``n`` evenly
+        (always on one device or without a mesh)."""
+        if not self.enabled or self.mesh is None:
+            return True
+        assign = self.rule(logical)
+        axes = (assign,) if isinstance(assign, str) else (assign or ())
+        sizes = mesh_shape(self.mesh)
+        return n % math.prod(sizes.get(a, 1) for a in axes) == 0
 
     def constrain(self, x, logical_axes: Sequence[Optional[str]]):
         """Redistribute a DTensor to the plan's placements; the identity

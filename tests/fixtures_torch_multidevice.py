@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from fixtures_torch_media import open_gates
+
 AXES = ("pod", "data", "model")
 LR = 1e-3
 STEPS = 3
@@ -90,12 +92,14 @@ def _model(mesh_shape, params_npz, B, S, seed=0, arch="smollm-360m",
     if params_npz is not None:
         with np.load(params_npz) as f:
             model.load_jax_params(unflatten(dict(f)))
-    return model
+    return open_gates(model)
 
 
 # the sharded paths a world counts (``count_paths``): K7's and K8's
-# local_map, the moe FFN's, and the conv's and the SSD's over channels
+# local_map, the moe FFN's, the conv's and the SSD's over channels, and a
+# vlm's cross attention's
 PATHS = (("repro_torch.kernels.ops", "_flash_attention_sharded"),
+         ("repro_torch.models.attention", "_cross_attention_sharded"),
          ("repro_torch.kernels.ops", "_selective_scan_sharded"),
          ("repro_torch.models.moe", "_moe_ffn_sharded"),
          ("repro_torch.models.ssm", "causal_conv1d"),
@@ -104,16 +108,24 @@ PATHS = (("repro_torch.kernels.ops", "_flash_attention_sharded"),
 
 def count_paths():
     """Wrap each of PATHS to count its calls on DTensors: {name: count},
-    updated as the model runs."""
+    updated as the model runs; K7's calls with a window and with a
+    softcap also as ``<name>/window`` and ``<name>/softcap``."""
     import importlib
     from repro_torch.sharding import is_dtensor
+    k7 = "_flash_attention_sharded"
     counts = {name: 0 for _, name in PATHS}
+    counts.update({f"{k7}/window": 0, f"{k7}/softcap": 0})
     for mod, name in PATHS:
         mod = importlib.import_module(mod)
         fn = getattr(mod, name)
 
         def counted(*a, _fn=fn, _name=name, **kw):
-            counts[_name] += any(is_dtensor(t) for t in a)
+            sharded = any(is_dtensor(t) for t in a)
+            counts[_name] += sharded
+            if _name == k7 and sharded:
+                # (q, k, v, causal, window, attn_softcap, impl)
+                counts[f"{k7}/window"] += a[4] is not None
+                counts[f"{k7}/softcap"] += a[5] is not None
             return _fn(*a, **kw)
 
         setattr(mod, name, counted)
@@ -200,7 +212,7 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
     parameter file of ``replay`` in turn (``r<j>/<name>``, j from 1: the
     ops alone, held at another trajectory's parameters), every
     parameter's placements (``placed/<name>``;
-    a dense model's embedding and first wq also as ``placements``), the
+    a token model's embedding and first wq also as ``placements``), the
     collectives one ``global_norm`` of the parameters makes, and whether
     every parameter's shard owns its storage (holds no whole tensor
     alive)."""
@@ -238,7 +250,7 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
                     for k, v in _grads(model, batch, full).items()})
     for k, p in state.params.items():
         out[f"placed/{k}"] = np.array(str(tuple(p.placements)))
-    if "attn" in model.layers[0]:
+    if "attn" in model.layers[0] and model.cfg.embed_inputs:
         out["placements"] = np.array([
             str(tuple(model.embed.placements)),
             str(tuple(model.layers[0].attn.wq.placements))])
@@ -261,7 +273,7 @@ def one_device_grads(batch_np, params_npz, arch: str = "smollm-360m"):
     model = build_model(smoke_cfg(arch), None, device="cpu", seed=0)
     with np.load(params_npz) as f:
         model.load_jax_params(unflatten(dict(f)))
-    return _grads(model, batch_np)
+    return _grads(open_gates(model), batch_np)
 
 
 def gpipe_worker(rank, world, mesh_shape, case_npz, out_npz, n_micro):
@@ -341,12 +353,22 @@ def checkpoint_worker(rank, world, mesh_shape, params_npz, batch_npz,
 
 def batch(cfg, B: int, S: int, seed: int = 1, pads: int = 3):
     """Tokens and labels with ``pads`` -1s (test_torch_train's batch of a
-    dense model)."""
+    dense model); the audio family's frame embeddings in place of the
+    tokens, and a vlm's media, drawn after them from the same seed."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     labels[0, S - pads:] = -1
-    return {"tokens": toks, "labels": labels}
+    out = {"labels": labels}
+    if cfg.embed_inputs:
+        out["tokens"] = toks
+    else:
+        out["embeddings"] = rng.standard_normal(
+            (B, S, cfg.media_embed_dim)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["media"] = rng.standard_normal(
+            (B, cfg.n_media_tokens, cfg.media_embed_dim)).astype(np.float32)
+    return out
 
 
 def one_device_trajectory(batch_np, microbatch: int = 1,
@@ -368,6 +390,7 @@ def one_device_trajectory(batch_np, microbatch: int = 1,
     if params_npz is not None:
         with np.load(params_npz) as f:
             model.load_jax_params(unflatten(dict(f)))
+    open_gates(model)
     opt = AdamW(lr=LR)
     state = init_train_state(model, opt)
     step = make_train_step(model, opt)
@@ -389,7 +412,10 @@ WORLDS = [("smollm-360m", None, (1, 2, 2), 1),
     (arch, None, mesh, 1)
     for arch in ("qwen3-moe-30b-a3b", "mixtral-8x7b", "falcon-mamba-7b",
                  "zamba2-2.7b") for mesh in ((1, 2, 2), (1, 1, 4))] + [
-    ("qwen3-moe-30b-a3b", {"n_experts": 3}, (1, 2, 2), 1)]
+    ("qwen3-moe-30b-a3b", {"n_experts": 3}, (1, 2, 2), 1)] + [
+    (arch, None, mesh, 1)
+    for arch in ("gemma2-9b", "llama-3.2-vision-11b", "musicgen-medium")
+    for mesh in ((1, 2, 2), (1, 1, 4))]
 
 
 def main(argv=None) -> int:
@@ -415,12 +441,12 @@ def main(argv=None) -> int:
     bad = 0
     with tempfile.TemporaryDirectory() as d:
         bpath = os.path.join(d, "batch.npz")
-        b = batch(smoke_cfg(), B, S)
-        np.savez(bpath, **b)
         for arch, over, mesh, mb in WORLDS:
             if archs and arch not in archs:
                 continue
             t0 = time.perf_counter()
+            b = batch(smoke_cfg(arch), B, S)
+            np.savez(bpath, **b)
             world = int(np.prod(mesh))
             want, grads = one_device_trajectory(b, mb, arch, over,
                                                 groups=world)

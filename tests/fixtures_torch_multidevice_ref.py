@@ -20,6 +20,7 @@ import numpy as np
 from torch.distributed.tensor import Replicate, Shard
 
 import fixtures_torch_multidevice as fx
+from fixtures_torch_media import gate_values
 from repro.configs import REGISTRY as RREGISTRY
 from repro.configs.base import ShapeConfig as RShapeConfig
 from repro.launch.specs import plan_for as rplan_for
@@ -100,7 +101,7 @@ def _reference(d, tag, arch, over, groups, seed=0):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
     rmodel = rbuild(rcfg, rsingle_device_plan().with_(
         moe_target_groups=groups))
-    params = rmodel.init(jax.random.PRNGKey(seed))
+    params = _open_gates(rmodel.init(jax.random.PRNGKey(seed)), cfg)
     batch = fx.batch(cfg, B, S, seed=1 + seed)
     np.savez(d / f"{tag}_params.npz", **_flat_tree(params))
     np.savez(d / f"{tag}_batch.npz", **batch)
@@ -118,6 +119,17 @@ def _reference(d, tag, arch, over, groups, seed=0):
         traj.append({**{k: float(v) for k, v in m.items()},
                      "params": _numpy(state.params, cfg), "grads": g})
     return traj, traj[0]["grads"]
+
+
+def _open_gates(params, cfg):
+    """The reference's vlm parameters with its cross blocks' gates set to
+    ``gate_values`` (the port's side opens its own in
+    ``fx.train_worker``); other families' as they are."""
+    if cfg.family != "vlm":
+        return params
+    ga, gm = gate_values(cfg)
+    return dict(params, cross=dict(params["cross"], gate_attn=jnp.asarray(ga),
+                                   gate_mlp=jnp.asarray(gm)))
 
 
 def grads_agree(got, want):
@@ -171,7 +183,9 @@ def reference_placements(arch, over, mesh):
     rplan = rplan_for(rcfg, RShapeConfig("train", S, B, "train"), stand_in)
     specs = _flat_tree(rdefs_to_specs(rmodel_defs(rcfg), rplan), leaf=tuple)
     active = [a for a, n in zip(axes, mesh) if n > 1] or [axes[-1]]
-    stacked = len(layer_stack(rcfg))
+    # the stacked dims of a leaf: the layers' layer_stack, a vlm's cross
+    # blocks' (g,), none elsewhere
+    stacked = {"layers": len(layer_stack(rcfg)), "cross": 1}
 
     def placed(spec):
         out = [Replicate()] * len(active)
@@ -181,24 +195,29 @@ def reference_placements(arch, over, mesh):
                     out[active.index(a)] = Shard(dim)
         return str(tuple(out))
 
-    return {(name if name.startswith("layers/") else
+    return {(name if name.split("/")[0] in stacked else
              name.replace("/", ".")):
-            placed(spec[stacked if name.startswith("layers/") else 0:])
+            placed(spec[stacked.get(name.split("/")[0], 0):])
             for name, spec in specs.items()}
 
 
 def check_placements(arch, over, mesh, got) -> None:
     """Every parameter of the world is placed as the reference's spec of
-    its leaf says (a layer's as its stacked leaf's, less the stacked
-    dims)."""
+    its leaf says (a layer's, or a vlm's cross block's, as its stacked
+    leaf's, less the stacked dims); every leaf of the reference's has its
+    parameters."""
     want = reference_placements(arch, over, mesh)
     placed = {k[len("placed/"):]: str(v) for k, v in got.items()
               if k.startswith("placed/")}
     assert placed
+    seen = set()
     for name, p in placed.items():
-        key = "layers/" + name.split(".", 2)[2].replace(".", "/") \
-            if name.startswith("layers.") else name
+        top, *rest = name.split(".")
+        key = f"{top}/" + "/".join(rest[1:]) if top in ("layers", "cross") \
+            else name
         assert p == want[key], (name, p, want[key])
+        seen.add(key)
+    assert seen == set(want), sorted(set(want) ^ seen)
 
 
 def main(argv=None) -> int:

@@ -804,15 +804,20 @@ def test_sharding_planner_on_kernels_matches_torch(dev):
 @pytest.mark.parametrize("arch,kernel,path", [
     ("falcon-mamba-7b", "selective_scan", "_selective_scan_sharded"),
     ("mixtral-8x7b", "flash_attention", "_flash_attention_sharded"),
-    ("zamba2-2.7b", "flash_attention", "_flash_attention_sharded")])
+    ("zamba2-2.7b", "flash_attention", "_flash_attention_sharded"),
+    ("gemma2-9b", "flash_attention", "_flash_attention_sharded"),
+    ("llama-3.2-vision-11b", "flash_attention", "_flash_attention_sharded")])
 def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
                                                       kernel, path):
     """A world of one over NCCL: the smoke model's loss and gradients on
     the (1, 1, 1) mesh under plan_for's train plan equal one device's
     (LOSS_TOL; GRAD_TOL of each tensor's largest), and its kernel (K8 for
-    falcon; K7 for mixtral, its window of 16 engaged at S=64, and for
-    zamba2's shared block) launches as often on both, each launch on the
-    mesh through its ``local_map`` wrapper in ``kernels.ops``."""
+    falcon; K7 for mixtral, its window of 16 engaged at S=64, for
+    zamba2's shared block, for gemma2's (local, global) pair with its
+    softcap, the local layer's window of 16 engaged, and for the vlm's
+    self blocks, its gates open) launches as often on both, each launch
+    on the mesh through its ``local_map`` wrapper in ``kernels.ops``; the
+    vlm's cross blocks attend through their own on the mesh."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import socket
@@ -821,6 +826,7 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.specs import plan_for
+    from repro_torch.models import attention
     from repro_torch.models.model import build_model
     from repro_torch.runtime.steps import make_loss_fn
     from repro_torch.sharding import full
@@ -835,15 +841,19 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
         batch = fx.batch(cfg, 2, 64)
         mesh = make_mesh((1, 1, 1), fx.AXES)
         sharded = getattr(ops, path)
-        calls = []
+        calls, cross = [], []
         monkeypatch.setattr(ops, path,
                             lambda *a: calls.append(1) or sharded(*a))
+        cross_sharded = attention._cross_attention_sharded
+        monkeypatch.setattr(attention, "_cross_attention_sharded",
+                            lambda *a: cross.append(1) or cross_sharded(*a))
         out = {}
         # remat none on both, so each launches its kernel once a layer
         for name, plan in (("one", None), ("mesh", plan_for(
                 cfg, ShapeConfig("train", 64, 2, "train"), mesh,
                 remat="none"))):
-            model = build_model(cfg, plan, device="cuda", seed=0)
+            model = open_gates(build_model(cfg, plan, device="cuda",
+                                           seed=0))
             ops.reset_launch_counts()
             loss, _ = make_loss_fn(model)(batch)
             grads = torch.autograd.grad(loss, list(model.parameters()))
@@ -854,6 +864,8 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
                                  kernel).launches)
         (l1, g1, k1), (l2, g2, k2) = out["one"], out["mesh"]
         assert k1 == k2 == len(calls) > 0
+        assert len(cross) == (cfg.n_layers // cfg.cross_attn_period
+                              if cfg.family == "vlm" else 0)
         assert abs(l2 / l1 - 1) <= fx.LOSS_TOL
         for a, b in zip(g2, g1):
             assert float((a - b).abs().max() / b.abs().max()) <= fx.GRAD_TOL

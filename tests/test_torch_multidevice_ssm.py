@@ -26,10 +26,11 @@ reference (``fixtures_torch_multidevice_ref``).
 - **The sharded paths ran**: K8's ``local_map`` (falcon), the SSD's and
   the conv's over channels, K7's for zamba2's shared block.
 - **Refusals**: a model axis that does not divide d_inner or Mamba2's
-  heads raises, naming them; the local_global schedule and the vlm and
-  audio families still raise under a plan, naming their ROADMAP item, and
-  so do ``tp_mode="shard_map"``, pipeline stages and the causal_skip
-  schedule for the families this slice admits.
+  heads raises, naming them; ``tp_mode="shard_map"``, pipeline stages and
+  the causal_skip schedule raise, naming ROADMAP §1 item 3, for every
+  family that trains under a plan (the moe, ssm and hybrid families
+  here, gemma2's local_global schedule and the vlm and audio families of
+  ``test_torch_multidevice_{local_global,media}.py``).
 
 The card's twin (K8 launching through its ``local_map``, and K7 through
 its own at hd 80 and under a window, in a world of one over NCCL) is
@@ -129,23 +130,15 @@ def test_what_does_not_split_over_the_model_axis_refuses(arch, over, mesh,
                     device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "llama-3.2-vision-11b",
-                                  "musicgen-medium"])
-def test_local_global_vlm_and_audio_still_refuse(arch):
-    cfg = REGISTRY[arch].smoke()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1.*item 4\.3"):
-        build_model(cfg, plan_for(cfg, SHAPE, _stand_in((1, 2, 2))),
-                    device="cpu")
-
-
 @pytest.mark.parametrize("kw", [dict(tp_mode="shard_map"),
                                 dict(pipeline_stages=2),
                                 dict(attention_schedule="causal_skip")],
                          ids=["shard_map", "pipeline", "causal_skip"])
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b",
-                                  FALCON, ZAMBA])
+                                  FALCON, ZAMBA, "gemma2-9b",
+                                  "llama-3.2-vision-11b", "musicgen-medium"])
 def test_admitted_families_refuse_what_is_not_ported(arch, kw):
     cfg = REGISTRY[arch].smoke()
     plan = plan_for(cfg, SHAPE, _stand_in((1, 2, 2))).with_(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1, item 3"):
         build_model(cfg, plan, device="cpu")

@@ -213,38 +213,20 @@ DENSE_FULL = sorted(a for a, c in REGISTRY.items()
                     if c.family == "dense" and c.attention == "full")
 
 
-# the archs whose family or schedule no plan runs yet (ROADMAP §1 item 4)
-UNPORTED_UNDER_A_PLAN = sorted(
-    a for a, c in REGISTRY.items()
-    if c.family in ("vlm", "audio") or c.attention == "local_global")
-
-
-@pytest.mark.parametrize("arch", UNPORTED_UNDER_A_PLAN)
-def test_other_families_and_schedules_refuse_a_plan(arch):
-    """Under a multi-device plan the vlm and audio families and gemma2's
-    local_global schedule raise before a parameter is drawn (the dense,
-    moe, ssm and hybrid families run under ``plan_for``'s plan)."""
-    from repro_torch.models.model import build_model
-    cfg = REGISTRY[arch].smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, _train_plan_on(cfg), device="cpu")
-
-
 def test_dense_full_archs():
     assert DENSE_FULL == ["deepseek-67b", "nemotron-4-15b", "smollm-360m"]
 
 
 def test_dense_plans_refuse_what_is_not_ported():
-    """smollm-360m under a plan refuses the local_global schedule (swa
-    runs under a plan since the moe family's mixtral does), the
-    causal_skip block schedule, tp_mode="shard_map", pipeline stages and
-    a head count the model axis does not divide."""
-    from repro_torch.models.model import build_model
+    """smollm-360m under a plan admits the local_global schedule (and
+    swa), and refuses the causal_skip block schedule, tp_mode=
+    "shard_map", pipeline stages and a head count the model axis does
+    not divide."""
+    from repro_torch.models.model import build_model, check_supported
     cfg = REGISTRY["smollm-360m"]
-    local_global = dataclasses.replace(cfg.smoke(), attention="local_global")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(local_global, _train_plan_on(local_global),
-                    device="cpu")
+    for schedule in ("local_global", "swa"):
+        admitted = dataclasses.replace(cfg.smoke(), attention=schedule)
+        check_supported(admitted, _train_plan_on(admitted))
     small = cfg.smoke()
     for kw in (dict(attention_schedule="causal_skip"),
                dict(tp_mode="shard_map"), dict(pipeline_stages=2)):
