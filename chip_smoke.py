@@ -217,7 +217,13 @@ Phases (any failure exits nonzero; there is no CPU path):
              single run's state, REPLAYED): losses, grad norms and
              parameters within LOSS_TOL, GRAD_TOL and PARAM_SHARE_TOL, and
              K7's and K8's launch counters risen by exactly as much on
-             both (one a layer a step, a vlm's self blocks only); then
+             both (one a layer a step, a vlm's self blocks only).
+             smollm-360m again under tp_mode="shard_map" and the
+             causal_skip schedule, qwen3 and the vlm again under
+             tp_mode="shard_map" (MULTI_VARIANTS), each against the same
+             one-device run: the explicit Megatron projections over NCCL,
+             counted (_expected_projections; none in a moe FFN, a cross
+             block's attention, a Mamba mixer); then
              pipeline.gpipe_apply at one
              stage against the sequential layers on the card (forward
              1e-5, gradients 1e-4).
@@ -2869,6 +2875,12 @@ MULTI_TRAIN = ("smollm-360m", 2, 256)      # arch, B, S (float32)
 # GB), musicgen all 48 layers (~1.81B, ~29 GB)
 MULTI_FAMILIES = {MOE: 2, "falcon-mamba-7b": 2, HYBRID: 6, LOCAL_GLOBAL: 2,
                   VLM: 5, AUDIO: None}
+# plan variants phase 15 also trains, each against the same one-device run
+MULTI_VARIANTS = {
+    "smollm-360m": ({"tp_mode": "shard_map",
+                     "attention_schedule": "causal_skip"},),
+    MOE: ({"tp_mode": "shard_map"},),
+    VLM: ({"tp_mode": "shard_map"},)}
 GPIPE = dict(L=8, B=8, S=16, d=32, n_micro=4)
 # forward max |diff|; each gradient's max |diff| over its max |g|
 GPIPE_TOL = (1e-5, 1e-4)
@@ -2921,13 +2933,55 @@ def _expected_launches(cfg) -> dict:
             "selective_scan": scan * TRAIN_F32_STEPS}
 
 
-def multidevice_train(torch, mesh, arch, layers, B, S, device):
+def _expected_projections(cfg) -> tuple:
+    """The explicit (column, row) projections of TRAIN_F32_STEPS steps
+    under tp_mode="shard_map" without remat: q and wo of each
+    self-attention block, the gates and w2 of each MLP (a vlm's cross
+    blocks' MLPs and a hybrid's shared block's among them); none in a moe
+    FFN, a cross block's attention or a Mamba mixer."""
+    if cfg.family == "ssm":
+        return 0, 0
+    attn = cfg.n_layers // (cfg.hybrid_period if cfg.family == "hybrid"
+                            else 1)
+    mlp = 0 if cfg.is_moe else attn
+    if cfg.family == "vlm":
+        attn -= cfg.n_layers // cfg.cross_attn_period
+    gates = 2 if cfg.activation in ("swiglu", "geglu") else 1
+    return ((attn + gates * mlp) * TRAIN_F32_STEPS,
+            (attn + mlp) * TRAIN_F32_STEPS)
+
+
+def _counting_projections():
+    """Wrap the explicit projections (``sharding.explicit_col_project``,
+    ``explicit_row_project``) to count their calls: returns the counts
+    {"col": n, "row": n}, which the caller zeroes."""
+    from repro_torch import sharding
+    counts = {"col": 0, "row": 0}
+    for kind in counts:
+        name = f"explicit_{kind}_project"
+
+        def counted(*a, _fn=getattr(sharding, name), _kind=kind):
+            counts[_kind] += 1
+            return _fn(*a)
+
+        setattr(sharding, name, counted)
+    return counts
+
+
+def multidevice_train(torch, mesh, arch, layers, B, S, device, explicit,
+                      variants=({},)):
     """One family of phase 15: ``arch`` (at ``layers`` layers, None for
-    the config's) in float32 takes TRAIN_F32_STEPS AdamW steps under
-    ``plan_for``'s train plan on ``mesh`` and on one device from seed 0;
-    losses, grad norms and parameters held to LOSS_TOL, GRAD_TOL and
+    the config's) in float32 takes TRAIN_F32_STEPS AdamW steps on one
+    device from seed 0, then under ``plan_for``'s train plan on ``mesh``
+    with each of ``variants`` (plan overrides: ``tp_mode``,
+    ``attention_schedule``); each mesh run's losses, grad norms and
+    parameters held to one device's at LOSS_TOL, GRAD_TOL and
     PARAM_SHARE_TOL, K7's and K8's launches equal on both and to one a
-    layer a step.  Returns the mesh run's launches."""
+    layer a step, the explicit projections as many as
+    ``_expected_projections`` under shard_map and none under gspmd
+    (``explicit``: ``_counting_projections``' counts); a REPLAYED arch's
+    each step from one device's state.  Returns the mesh runs' launches,
+    summed."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticPipeline
@@ -2938,64 +2992,87 @@ def multidevice_train(torch, mesh, arch, layers, B, S, device):
     cfg = dataclasses.replace(get_config(arch), dtype="float32",
                               **({} if layers is None else
                                  {"n_layers": layers}))
+    shape = ShapeConfig("train", S, B, "train")
     # remat none on both paths, so each launches K7 / K8 once a layer a step
-    plan = plan_for(cfg, ShapeConfig("train", S, B, "train"), mesh,
-                    remat="none")
-    one = single_device_plan().with_(moe_target_groups=plan.moe_target_groups)
+    plans = [plan_for(cfg, shape, mesh, remat="none", **kw)
+             for kw in variants]
+    one = single_device_plan().with_(
+        moe_target_groups=plans[0].moe_target_groups)
     batch = SyntheticPipeline(cfg, B, S, seed=0).batch_at(0)
+
+    def build(plan):
+        # a vlm's gates opened on both, or its cross blocks add nothing
+        return open_gates(torch, build_model(cfg, plan, device=device,
+                                             seed=0))
+
+    def free():
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
     replay = arch in REPLAYED
-    if replay:        # the mesh takes one device's state before each step
-        ((l2, n2, s2, k2), (l1, n1, s1, k1)), share, pmax, n = replay_steps(
-            torch, [open_gates(torch, build_model(cfg, p, device=device,
-                                                  seed=0))
-                    for p in (plan, one)], batch)
-        limit = 2
-    else:
-        runs = []
-        for p in (one, plan):
-            # a vlm's gates opened on both, or its cross blocks add nothing
-            model = open_gates(torch, build_model(cfg, p, device=device,
-                                                  seed=0))
-            runs.append(_f32_steps(torch, model, batch))
+    if not replay:
+        model = build(one)
+        l1, n1, s1, k1, p1 = _f32_steps(torch, model, batch)
+        del model
+        free()
+    total = {}
+    for kw, plan in zip(variants, plans):
+        t1 = time.perf_counter()
+        explicit.update(col=0, row=0)
+        if replay:      # the mesh takes one device's state before each step
+            ((l2, n2, s2, k2), (l1, n1, s1, k1)), share, pmax, n = \
+                replay_steps(torch, [build(p) for p in (plan, one)], batch)
+            limit = 2
+        else:
+            model = build(plan)
+            l2, n2, s2, k2, p2 = _f32_steps(torch, model, batch)
             del model
-            gc.collect()
-            if device == "cuda":
-                torch.cuda.empty_cache()
-        (l1, n1, s1, k1, p1), (l2, n2, s2, k2, p2) = runs
-        n = beyond = 0
-        pmax = 0.0
-        for k, want in p1.items():
-            d = (p2[k] - want).abs()
-            pmax = max(pmax, float(d.max()) / TRAIN_LR)
-            n += d.numel()
-            beyond += int((d > 0.02 * TRAIN_LR).sum())
-        share, limit = beyond / n, 2 * TRAIN_F32_STEPS
-    rel = max(abs(a / b - 1) for a, b in zip(l2, l1))
-    check(rel <= LOSS_TOL, f"phase 15 {arch}: losses {l2} vs one device "
-          f"{l1}")
-    nrel = max(abs(a / b - 1) for a, b in zip(n2, n1))
-    check(nrel <= GRAD_TOL, f"phase 15 {arch}: grad norms {n2} vs one "
-          f"device {n1}")
-    how = " (each step from one device's state)" if replay else ""
-    check(share <= PARAM_SHARE_TOL and pmax <= limit,
-          f"phase 15 {arch}: {share} of {n} parameters beyond 2% of lr{how} "
-          f"(max {pmax} lr)")
-    want = _expected_launches(cfg) if device == "cuda" else \
-        {k: 0 for k in k1}
-    check(k1 == k2 == want, f"phase 15 {arch}: launches {k2} on the mesh, "
-          f"{k1} on one device (want {want})")
-    print(f"multidevice {arch} float32 B={B} S={S} ({cfg.n_layers} layers) "
-          f"on a (1, 1, 1) mesh, plan {plan.name}: losses {l2} vs one "
-          f"device {l1} (max rel {rel:.3g}); grad norms max rel {nrel:.3g}; "
-          f"after {TRAIN_F32_STEPS} AdamW steps{how} max |diff| {pmax:.4g} "
-          f"lr, {share:.3g} of {n} elements beyond 2% of lr; launches {k2} "
-          f"(one device {k1}); step s mesh {[round(x, 4) for x in s2]} vs "
-          f"one device {[round(x, 4) for x in s1]}", flush=True)
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
+            n = beyond = 0
+            pmax = 0.0
+            for k, want in p1.items():
+                d = (p2[k] - want).abs()
+                pmax = max(pmax, float(d.max()) / TRAIN_LR)
+                n += d.numel()
+                beyond += int((d > 0.02 * TRAIN_LR).sum())
+            del p2
+            share, limit = beyond / n, 2 * TRAIN_F32_STEPS
+        tag = f"{arch} {plan.tp_mode} {plan.attention_schedule}"
+        rel = max(abs(a / b - 1) for a, b in zip(l2, l1))
+        check(rel <= LOSS_TOL, f"phase 15 {tag}: losses {l2} vs one device "
+              f"{l1}")
+        nrel = max(abs(a / b - 1) for a, b in zip(n2, n1))
+        check(nrel <= GRAD_TOL, f"phase 15 {tag}: grad norms {n2} vs one "
+              f"device {n1}")
+        how = " (each step from one device's state)" if replay else ""
+        check(share <= PARAM_SHARE_TOL and pmax <= limit,
+              f"phase 15 {tag}: {share} of {n} parameters beyond 2% of "
+              f"lr{how} (max {pmax} lr)")
+        want = _expected_launches(cfg) if device == "cuda" else \
+            {k: 0 for k in k1}
+        check(k1 == k2 == want, f"phase 15 {tag}: launches {k2} on the "
+              f"mesh, {k1} on one device (want {want})")
+        proj = (explicit["col"], explicit["row"])
+        want_proj = _expected_projections(cfg) \
+            if plan.tp_mode == "shard_map" else (0, 0)
+        check(proj == want_proj, f"phase 15 {tag}: explicit projections "
+              f"(col, row) {proj}, want {want_proj}")
+        print(f"multidevice {arch} float32 B={B} S={S} ({cfg.n_layers} "
+              f"layers) on a (1, 1, 1) mesh, plan {plan.name} tp_mode "
+              f"{plan.tp_mode} schedule {plan.attention_schedule}: losses "
+              f"{l2} vs one device {l1} (max rel {rel:.3g}); grad norms "
+              f"max rel {nrel:.3g}; after {TRAIN_F32_STEPS} AdamW "
+              f"steps{how} max |diff| {pmax:.4g} lr, {share:.3g} of {n} "
+              f"elements beyond 2% of lr; launches {k2} (one device {k1}); "
+              f"explicit projections (col, row) {proj}; step s mesh "
+              f"{[round(x, 4) for x in s2]} vs one device "
+              f"{[round(x, 4) for x in s1]}; "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        free()
+        for k, v in k2.items():
+            total[k] = total.get(k, 0) + v
     lap(f"multidevice {arch}", t0)
-    return k2
+    return total
 
 
 def multidevice_phase(torch, device: str = "cuda") -> dict:
@@ -3016,9 +3093,11 @@ def multidevice_phase(torch, device: str = "cuda") -> dict:
     try:
         mesh = make_mesh((1, 1, 1), MULTI_AXES)
         launches = {"flash_attention": 0, "selective_scan": 0}
+        explicit = _counting_projections()
         for name, layers in [(arch, None)] + list(MULTI_FAMILIES.items()):
-            for k, v in multidevice_train(torch, mesh, name, layers, B, S,
-                                          device).items():
+            for k, v in multidevice_train(
+                    torch, mesh, name, layers, B, S, device, explicit,
+                    ({},) + MULTI_VARIANTS.get(name, ())).items():
                 launches[k] += v
 
         g = torch.Generator(device=device).manual_seed(2)

@@ -22,6 +22,15 @@ its jnp twin).
 
 Masking is by index (``kpos <= qpos``, ``qpos - kpos < window``), as in
 the Pallas kernel; S and Skv may be ragged (no block-multiple padding).
+
+The reference's block schedules are one launch here.  Its "dense"
+schedule visits every (q block, kv block) pair and masks; "causal_skip"
+scans only the pairs on or below the diagonal, about half the causal
+work; "window" a static band.  K7's tile loop skips the kv tiles wholly
+above the diagonal or wholly left of the window (the source's note), so
+every launch does causal_skip's work, and the band's under a window,
+with the same answers.  The plain torch backward computes the dense
+masked scores under every schedule.
 """
 from __future__ import annotations
 

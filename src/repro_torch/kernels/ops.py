@@ -12,6 +12,10 @@ The attention and the scan go through their ``torch.autograd.Function``
 differentiates through the kernels' forward; ``impl="ref"``
 differentiates through the plain versions by autograd.
 
+``flash_attention`` takes the reference's block ``schedule`` ("dense",
+"causal_skip", "window") and launches K7 the same way for each: its tile
+loop already does causal_skip's work (``kernels/flash_attention.py``).
+
 Under a multi-device plan the attention's q, k and v are DTensors:
 ``flash_attention`` then runs K7 on each rank's shard through
 ``torch.distributed.tensor.experimental.local_map`` (the kernel takes
@@ -40,6 +44,8 @@ from repro_torch.sharding import (is_dtensor, map_channels, map_local,
                                   placements_like)
 
 IMPLS = ("cuda", "ref")
+# the reference's flash block schedules (``repro.models.attention``)
+SCHEDULES = ("dense", "causal_skip", "window")
 
 
 def _check_impl(impl: str) -> None:
@@ -50,11 +56,16 @@ def _check_impl(impl: str) -> None:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     attn_softcap: Optional[float] = None,
-                    impl: str = "cuda"):
+                    schedule: str = "dense", impl: str = "cuda"):
+    """``schedule``: the reference's flash block schedule, one of
+    SCHEDULES; K7 (and the plain version) compute the same for each."""
     _check_impl(impl)
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule={schedule!r}; expected one of "
+                         f"{SCHEDULES}")
     if is_dtensor(q):
         return _flash_attention_sharded(q, k, v, causal, window,
-                                        attn_softcap, impl)
+                                        attn_softcap, schedule, impl)
     if impl == "ref":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  attn_softcap=attn_softcap)
@@ -78,7 +89,8 @@ def local_kv_heads(H: int, KV: int, tp: int, m: int):
     return [(h0 + j) // G for j in range(Hl)]
 
 
-def _flash_attention_sharded(q, k, v, causal, window, attn_softcap, impl):
+def _flash_attention_sharded(q, k, v, causal, window, attn_softcap,
+                             schedule, impl):
     """K7 on each rank's shard of DTensor q, k, v (module docstring)."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = q.device_mesh
@@ -97,7 +109,8 @@ def _flash_attention_sharded(q, k, v, causal, window, attn_softcap, impl):
         kl, vl = kl[:, :, pick], vl[:, :, pick]
         return (flash_attention(ql.contiguous(), kl.contiguous(),
                                 vl.contiguous(), causal=causal, window=window,
-                                attn_softcap=attn_softcap, impl=impl),)
+                                attn_softcap=attn_softcap, schedule=schedule,
+                                impl=impl),)
 
     return map_local(attend, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
                      mesh)[0]

@@ -6,8 +6,11 @@ No device memory: the stand-ins are meta tensors (the reference's
 shape kind, line for line the reference's (the RAQO sharding planner
 picks the mesh it runs on).  It reads only the mesh's axis names and
 sizes, so a stand-in with ``mesh_dim_names`` and ``shape`` serves where
-no process group exists.  The reference's ``decode_input_specs`` waits
-for decode under ``serve_plan`` (ROADMAP §1).
+no process group exists.  A model runs every train plan ``plan_for``
+makes, with any of the reference's overrides (``tp_mode``,
+``attention_schedule``, ``pipeline_stages``, ``remat``, ...); the
+prefill and decode plans, and the reference's ``decode_input_specs``,
+wait for serving under ``serve_plan`` (ROADMAP §1 item 4).
 """
 from __future__ import annotations
 

@@ -33,9 +33,10 @@ the port's budget is the world.  More than one visible GPU in a process
 not started by torchrun raises, as one GPU of many would otherwise train
 alone.  Under a plan every family trains, with each attention schedule
 (the vlm's media and the audio family's frame embeddings come from
-``SyntheticPipeline`` and are sharded as they enter the model); the
-plans it never makes (``tp_mode="shard_map"``, causal_skip, pipeline
-stages) raise (``models.model``; ROADMAP §1 item 3).
+``SyntheticPipeline`` and are sharded as they enter the model), in
+either ``tp_mode`` and block schedule a plan names (``models.model``).
+What still waits is serving under ``serve_plan``: prefill and decode
+over a mesh (ROADMAP §1 item 4).
 """
 from __future__ import annotations
 

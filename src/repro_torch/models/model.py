@@ -86,14 +86,17 @@ batch's inputs and the positions are sharded by the plan as they enter
 (``shard``; a vlm's media and the audio family's frame embeddings as
 the reference's ``batch_shardings`` places them, before ``projector``),
 and the blocks' constraints place the activations.  Every family runs
-under a plan, with each attention schedule and the ``"dense"`` block
-schedule (``_check_plan`` names what raises: ``tp_mode="shard_map"``,
-the causal_skip schedule and pipeline stages, ROADMAP §1 item 3, and a
-model axis that does not divide the heads, Mamba's channels or the
-experts).  A hybrid's ``shared_attn`` block is one set of DTensor
-parameters that every group reads: autograd sums their gradients over
-the groups, placed like the parameters before the update
-(``runtime.steps``).  A moe model's aux losses are replicated 0-d
+under a plan, with each attention schedule, both block schedules
+(``"dense"``, ``"causal_skip"``: one K7 launch either way) and both
+``tp_mode``s (``"shard_map"``: the explicit Megatron projections,
+``transformer``); ``pipeline_stages`` is read by no model path, as in
+the reference, so every rank trains the whole model.  ``_check_plan``
+raises ``ValueError`` for an unknown ``tp_mode`` or block schedule and
+``NotImplementedError`` for a model axis that does not divide the
+heads, Mamba's channels or the experts.  A hybrid's ``shared_attn``
+block is one set of DTensor parameters that every group reads: autograd
+sums their gradients over the groups, placed like the parameters before
+the update (``runtime.steps``).  A moe model's aux losses are replicated 0-d
 DTensors (``models.moe``).  A vlm's cross blocks attend on each rank's
 q heads (``attention.cross_attention``) onto media K/V placed by
 ``transformer.media_kv_for``.
@@ -116,8 +119,8 @@ from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import like, rms_norm, softcap
-from repro_torch.sharding import (ParallelPlan, ParamDef, active_mesh,
-                                  distribute, init_from_defs,
+from repro_torch.sharding import (TP_MODES, ParallelPlan, ParamDef,
+                                  active_mesh, distribute, init_from_defs,
                                   single_device_plan)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -128,6 +131,8 @@ CACHE_BATCH_AXIS = {"k": 1, "v": 1, "slot_pos": 1, "k_local": 1,
                     "v_local": 1, "slot_pos_local": 1, "conv": 1, "ssm": 1,
                     "media_k": 1, "media_v": 1, "pos": 0}
 KV_NAMES = ("k", "v", "slot_pos")
+# a plan's attention_schedule ("window" is a windowed layer's own)
+BLOCK_SCHEDULES = ("dense", "causal_skip")
 
 
 def resolve_device(device) -> torch.device:
@@ -143,7 +148,8 @@ def resolve_device(device) -> torch.device:
 def check_supported(cfg: ModelConfig,
                     plan: Optional[ParallelPlan] = None) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet
-    (on one device, or under ``plan`` when it is enabled)."""
+    (on one device, or under ``plan`` when it is enabled), ``ValueError``
+    for an enabled plan's unknown ``tp_mode`` or block schedule."""
     if plan is not None and plan.enabled:
         _check_plan(cfg, plan)
     if cfg.family == "hybrid" and cfg.ssm_version != 2:
@@ -156,13 +162,13 @@ def check_supported(cfg: ModelConfig,
 
 
 def _check_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
-    if plan.attention_schedule != "dense" or plan.tp_mode != "gspmd" or \
-            plan.pipeline_stages != 1:
-        raise NotImplementedError(
-            f"{plan.name}: attention_schedule={plan.attention_schedule!r}, "
-            f"tp_mode={plan.tp_mode!r}, pipeline_stages="
-            f"{plan.pipeline_stages} is not ported yet in a model under a "
-            f"plan (ROADMAP §1, item 3)")
+    if plan.tp_mode not in TP_MODES:
+        raise ValueError(f"{plan.name}: tp_mode={plan.tp_mode!r}; expected "
+                         f"one of {TP_MODES}")
+    if plan.attention_schedule not in BLOCK_SCHEDULES:
+        raise ValueError(f"{plan.name}: attention_schedule="
+                         f"{plan.attention_schedule!r}; expected one of "
+                         f"{BLOCK_SCHEDULES}")
     if plan.mesh is None:
         raise ValueError(f"{plan.name}: an enabled plan needs its mesh "
                          f"(launch.specs.plan_for sets it)")

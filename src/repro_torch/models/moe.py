@@ -22,10 +22,13 @@ constraints with DTensor placements.  The G groups are placed by
 "tokens" (every mesh axis, in mesh order): each rank gathers its batch
 rows whole over "model" and takes its slice of their tokens, and routes,
 places and scatters its own groups under one ``local_map`` (the
-reference's ``_over_groups``).  The expert-major buffer (E, G·C, d) is
-then redistributed from the groups to ("experts", "batch"): E over
-"model" (the expert-parallel all-to-all) or, when ``moe_rules_for`` flips
-to TP-within-expert, E whole and the experts' FFN dim over "model".  The
+reference's ``_over_groups``, which maps the groups device-locally only
+under ``tp_mode="shard_map"`` and by ``vmap`` under "gspmd": the port
+takes the device-local map in both modes, with the same numbers).  The
+expert-major buffer (E, G·C, d) is then redistributed from the groups to
+("experts", "batch"): E over "model" (the expert-parallel all-to-all)
+or, when ``moe_rules_for`` flips to TP-within-expert, E whole and the
+experts' FFN dim over "model".  The
 expert FFN runs on those shards (the weights gathered over FSDP's
 "data"), the buffer goes back to the groups, and the float32 combine
 runs under a second ``local_map``, its result a partial sum over "model"

@@ -28,8 +28,10 @@ weight instead: it is gathered over "model" (d x 2 d_inner elements a
 layer, over FSDP's shard of d; its gradient comes back by one gather of
 each half, as much again), each rank keeps its columns of each half (no
 communication) and projects onto them, so xin and z come out sharded
-along d_inner.  On one device every constraint is the identity and the
-mixers run as before.
+along d_inner.  The reference's mixers are plain einsums that read no
+``tp_mode``, so their projections (``_in_proj``'s halves, ``out_proj``)
+keep the GSPMD form under ``tp_mode="shard_map"`` too.  On one device
+every constraint is the identity and the mixers run as before.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def _in_proj(x, w, di: int, plan):
         return torch.split(x @ w.to(x.dtype), di, dim=-1)
     w = plan.constrain(w, ("embed", None))
     return tuple(plan.col_parallel_project(
-        x, plan.constrain(half, ("embed", "inner")))
+        x, plan.constrain(half, ("embed", "inner")), tp_mode="gspmd")
         for half in (w[:, :di], w[:, di:]))
 
 
@@ -113,7 +115,7 @@ def mamba1_mix(p, x, cfg, plan=_SINGLE, *, conv_state=None, ssm_state=None,
                                           chunk=plan.ssm_chunk)
     y = y + xin.float() * p["D"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = plan.row_parallel_project(y, p["out_proj"])
+    out = plan.row_parallel_project(y, p["out_proj"], tp_mode="gspmd")
     return out, conv_state, ssm_state
 
 
@@ -219,5 +221,5 @@ def mamba2_mix(p, x, cfg, plan=_SINGLE, *, conv_state=None, ssm_state=None,
     y = y.reshape(Bsz, S, di)
     # gated RMSNorm (mamba2) then output projection
     y = rms_norm(y * F.silu(z.float()), p["norm"], cfg.norm_eps).to(x.dtype)
-    out = plan.row_parallel_project(y, p["out_proj"])
+    out = plan.row_parallel_project(y, p["out_proj"], tp_mode="gspmd")
     return out, conv_state, ssm_state

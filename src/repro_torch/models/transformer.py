@@ -16,7 +16,13 @@ dense block calls ``plan.constrain`` and the plan's column/row-parallel
 projections where the reference does (q, k, v, the MLP's gate, the
 projections and both residuals): under a multi-device plan they place
 the block's DTensors, on one device the constraint is the identity and
-a projection is ``x @ w.to(x.dtype)``.
+a projection is ``x @ w.to(x.dtype)``.  Under ``tp_mode="shard_map"``
+the projections the reference writes through the plan (q and ``wo`` of
+a self-attention block, every MLP's) take the explicit collectives
+(``sharding.explicit_col_project`` / ``explicit_row_project``), q from
+the sequence-sharded input as the reference's ``in_specs`` take it; a
+cross block's q and ``wo`` and the Mamba mixers', plain einsums in the
+reference, keep the GSPMD form.
 
 Each block runs in two modes: full sequence (prefill, returning the K/V
 or SSM state for the cache) and one-token decode against a cache.  A moe
@@ -216,8 +222,10 @@ def model_defs(cfg) -> Dict[str, Any]:
 def _qkv(p, x, cfg, plan, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = x                       # sequence-sharded, as explicit q takes it
     x = plan.constrain(x, ("batch", None, None))      # the sequence whole
-    q = plan.col_parallel_project(x, p["wq"]).reshape(B, S, H, hd)
+    q = plan.col_parallel_project(h if plan.tp_mode == "shard_map" else x,
+                                  p["wq"]).reshape(B, S, H, hd)
     # K/V gathered over the model axis before they split into heads (KV
     # need not divide the TP degree)
     k = plan.constrain(x @ p["wk"].to(x.dtype), ("batch", None, None)
@@ -238,13 +246,18 @@ def _qkv(p, x, cfg, plan, positions):
 
 
 def self_attention_block(p, x, cfg, positions, *, window=None,
-                         impl: str = "cuda", plan=_SINGLE):
+                         schedule=None, impl: str = "cuda", plan=_SINGLE):
     """Pre-norm attention sub-block (full sequence, positions
-    ``arange(S)``).  Returns (y, (k, v))."""
+    ``arange(S)``), K7 under ``schedule``, resolved as the reference
+    resolves it: "window" under a window, else the plan's.  Returns (y,
+    (k, v))."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p["attn"], h, cfg, plan, positions)
+    sched = schedule or ("window" if window is not None
+                         else plan.attention_schedule)
     o = ops.flash_attention(q, k, v, causal=True, window=window,
-                            attn_softcap=cfg.attn_softcap, impl=impl)
+                            attn_softcap=cfg.attn_softcap, schedule=sched,
+                            impl=impl)
     B, S = x.shape[:2]
     o = plan.row_parallel_project(
         o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["attn"]["wo"])
@@ -297,17 +310,21 @@ def cross_attn_block(p, x, media_kv, cfg, plan=_SINGLE, *,
     ``tanh`` of its 0-d gate.  Under a plan q is column-parallel (its
     heads over "model"), the attention runs on each rank's heads
     (``attention.cross_attention``) and ``wo`` projects row-parallel, as
-    in the self-attention block."""
+    in the self-attention block, both in the GSPMD form under any
+    ``tp_mode`` (the reference's are plain einsums); the MLP takes the
+    plan's."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = plan.col_parallel_project(h, p["attn"]["wq"]).reshape(B, S, H, hd)
+    q = plan.col_parallel_project(h, p["attn"]["wq"], tp_mode="gspmd"
+                                  ).reshape(B, S, H, hd)
     if "q_norm" in p["attn"]:
         q = rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
     q = plan.constrain(q, ("batch", None, "heads", None))
     k, v = media_kv
     o = attn.cross_attention(q, k, v, media_valid)
-    o = plan.row_parallel_project(o.reshape(B, S, H * hd), p["attn"]["wo"])
+    o = plan.row_parallel_project(o.reshape(B, S, H * hd), p["attn"]["wo"],
+                                  tp_mode="gspmd")
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
     y = mlp_block(p, x, cfg, plan)
     x = x + torch.tanh(p["gate_mlp"]).to(x.dtype) * y

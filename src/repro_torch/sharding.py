@@ -21,6 +21,14 @@ input's gradient ``Partial()`` where the ranks computed different parts;
 ``map_channels`` places a per-channel function's arguments by a
 (batch, sequence, channels) DTensor's shards.
 
+The tensor-parallel projections run in the plan's ``tp_mode``:
+``"gspmd"`` is a matmul of DTensors and a constraint (DTensor picks the
+collectives); ``"shard_map"`` is the reference's explicit Megatron g and
+g-bar (``explicit_col_project``, ``explicit_row_project``): a
+``map_local`` body on each rank's shards with its collectives written
+out (``torch.distributed._functional_collectives``, whose autograd runs
+the transposed collective in the backward).
+
 ``ParamDef``, ``stack_defs`` and ``init_from_defs`` are the single source
 of truth for shapes, logical axes and initialisation; ``defs_to_specs``
 and ``defs_to_shapes`` map a definition tree to its specs and to meta
@@ -68,11 +76,13 @@ class ParallelPlan:
     # time steps the selective scan's backward recomputes at a time
     ssm_chunk: int = 256
     # gspmd: projections are matmuls of DTensors and a constraint, DTensor
-    # picks the collectives; shard_map (the reference's explicit Megatron
-    # g-bar) is not ported (ROADMAP §1)
+    # picks the collectives; shard_map: the reference's explicit Megatron
+    # g / g-bar, their collectives written out (module docstring)
     tp_mode: str = "gspmd"
     mesh: Any = None                  # the DeviceMesh the rules refer to
-    pipeline_stages: int = 1          # >1 => GPipe over the 'pod' axis
+    # the reference's field, which no model path of it reads: every rank
+    # trains the whole model (GPipe is pipeline.gpipe_apply)
+    pipeline_stages: int = 1
 
     def rule(self, logical: Optional[str]) -> AxisAssignment:
         if logical is None:
@@ -91,20 +101,18 @@ class ParallelPlan:
         """DTensor placements on ``mesh`` (default the plan's) for a tensor
         whose dims carry ``logical_axes``: ``Shard(dim)`` on each mesh dim
         a tensor dim is assigned to, ``Replicate()`` on the others."""
-        from torch.distributed.tensor import Replicate, Shard
-        names = mesh_axes(self.mesh if mesh is None else mesh)
-        out = [Replicate()] * len(names)
-        for dim, assign in enumerate(self.spec(logical_axes)):
-            axes = (assign,) if isinstance(assign, str) else (assign or ())
-            for a in axes:
-                if a in names:
-                    out[names.index(a)] = Shard(dim)
-                elif self.mesh is None or mesh_shape(self.mesh).get(a) != 1:
+        mesh = self.mesh if mesh is None else mesh
+        names = mesh_axes(mesh)
+        spec = self.spec(logical_axes)
+        for dim, assign in enumerate(spec):
+            for a in (assign,) if isinstance(assign, str) else (assign or ()):
+                if a not in names and (self.mesh is None or
+                                       mesh_shape(self.mesh).get(a) != 1):
                     # only an axis of size 1 may be left out (active_mesh)
                     raise ValueError(f"logical axis {logical_axes[dim]!r} "
                                      f"maps to {a!r}, not an axis of the "
                                      f"mesh {names}")
-        return out
+        return _on_mesh(mesh, spec)
 
     def divides(self, logical: Optional[str], n: int) -> bool:
         """Whether the mesh axes ``logical`` maps to split ``n`` evenly
@@ -132,28 +140,143 @@ class ParallelPlan:
         return dataclasses.replace(self, **kw)
 
     # ---------------------- tensor-parallel projections ------------------ #
-    def _gspmd_only(self):
-        if self.tp_mode != "gspmd":
-            raise NotImplementedError(
-                f"tp_mode={self.tp_mode!r}: the explicit-collective "
-                f"projections are not ported (ROADMAP §1, tp_mode="
-                f"\"shard_map\"); plan_for never sets it")
+    def _explicit(self, x, tp_mode) -> bool:
+        """Whether a projection of ``x`` takes the explicit collectives:
+        ``tp_mode`` (the plan's when None) is "shard_map" and ``x`` is a
+        DTensor of an enabled plan."""
+        mode = self.tp_mode if tp_mode is None else tp_mode
+        if mode not in TP_MODES:
+            raise ValueError(f"tp_mode={mode!r}; expected one of {TP_MODES}")
+        return mode == "shard_map" and self.enabled and is_dtensor(x)
 
-    def row_parallel_project(self, x, w):
+    def row_parallel_project(self, x, w, *, tp_mode=None):
         """y = x @ w with the contraction dim sharded over 'model'
-        (Megatron's row-parallel half): the product, then the
-        sequence-sharded constraint (a reduce-scatter of the partial
-        sums onto the sequence)."""
-        self._gspmd_only()
+        (Megatron's row-parallel half).  gspmd: the product, then the
+        sequence-sharded constraint (a reduce-scatter of the partial sums
+        onto the sequence); shard_map: ``explicit_row_project``.
+        ``tp_mode`` overrides the plan's (where the reference writes a
+        plain einsum, "gspmd"); a plain tensor gives ``x @ w``."""
+        if self._explicit(x, tp_mode):
+            return explicit_row_project(self, x, w)
         return self.constrain(x @ w.to(x.dtype), ("batch", "seq", None))
 
-    def col_parallel_project(self, x, w):
+    def col_parallel_project(self, x, w, *, tp_mode=None):
         """y = x @ w with the output dim sharded over 'model' (Megatron's
-        column-parallel half): the sequence-sharded input is gathered
-        whole in the sequence first (Megatron-SP's all-gather)."""
-        self._gspmd_only()
+        column-parallel half).  gspmd: the sequence-sharded input is
+        gathered whole in the sequence first (Megatron-SP's all-gather),
+        then the product; shard_map: ``explicit_col_project``."""
+        if self._explicit(x, tp_mode):
+            return explicit_col_project(self, x, w)
         x = self.constrain(x, ("batch", None, None))
         return x @ w.to(x.dtype)
+
+
+TP_MODES = ("gspmd", "shard_map")
+
+
+def _on_mesh(mesh, spec):
+    """Placements on ``mesh`` of a tensor whose dim i is sharded over the
+    mesh axes ``spec[i]`` (None, an axis or a tuple of axes); an axis the
+    mesh lacks (a size-1 dim ``active_mesh`` dropped) shards nothing."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh_axes(mesh)
+    out = [Replicate()] * len(names)
+    for dim, assign in enumerate(spec):
+        for a in (assign,) if isinstance(assign, str) else (assign or ()):
+            if a in names:
+                out[names.index(a)] = Shard(dim)
+    return out
+
+
+def _explicit_axes(plan, x):
+    """(the batch's mesh axes, the weight's FSDP axes on x's mesh, "model"
+    if on it else None) for an explicit projection of DTensor ``x``;
+    raises unless "model" splits x's sequence evenly (the gather and the
+    reduce-scatter tile it, as the reference's tiled ``all_gather`` and
+    ``psum_scatter`` do)."""
+    names = mesh_axes(x.device_mesh)
+    data = tuple(a for a in mesh_axes(plan.mesh) if a in ("pod", "data"))
+    embed = plan.rule("embed")
+    fsdp = tuple(a for a in ((embed,) if isinstance(embed, str)
+                             else (embed or ())) if a in names)
+    model = "model" if "model" in names else None
+    tp = mesh_shape(x.device_mesh)[model] if model else 1
+    if x.shape[1] % tp:
+        raise ValueError(f"tp_mode='shard_map': a sequence of {x.shape[1]} "
+                         f"does not split over a model axis of {tp} (the "
+                         f"explicit projections scatter it over the ranks)")
+    return data, fsdp, model
+
+
+def _gather(t, dim: int, mesh, axis: str):
+    """``t`` all-gathered along ``dim`` over the mesh axis ``axis`` (its
+    backward: a reduce-scatter of the gradient)."""
+    from torch.distributed import _functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single_autograd", None) or \
+        funcol.all_gather_tensor_autograd
+    return funcol.wait_tensor(gather(t.contiguous(), dim,
+                                     mesh.get_group(axis)))
+
+
+def _scatter(t, dim: int, mesh, axis: str):
+    """The sum of ``t`` over the mesh axis ``axis``, each rank keeping its
+    slice along ``dim`` (its backward: an all-gather of the gradient)."""
+    from torch.distributed import _functional_collectives as funcol
+    scatter = getattr(funcol, "reduce_scatter_single_autograd", None) or \
+        funcol.reduce_scatter_tensor_autograd
+    return funcol.wait_tensor(scatter(t.contiguous(), "sum", dim,
+                                      mesh.get_group(axis)))
+
+
+def explicit_col_project(plan, x, w):
+    """Megatron's g under ``tp_mode="shard_map"`` (the reference's
+    ``col_parallel_project`` body): x (B, S, d) enters (batch, "model",
+    None), sequence-sharded, and w (d, F) (embed, "model").  On each rank
+    the weight's shard is cast to x's dtype and gathered over its FSDP
+    axis ("data"), x is gathered over "model" along the sequence, then
+    the local product; y leaves (batch, None, "model").  The weight's
+    gradient is a partial sum over the batch's axes it is replicated on
+    ("pod"), which ``map_local`` marks; over "data" and "model" the
+    gathers' reduce-scatters sum it."""
+    mesh = x.device_mesh
+    data, fsdp, model = _explicit_axes(plan, x)
+
+    def local(xl, wl):
+        wl = wl.to(xl.dtype)
+        for a in fsdp:
+            wl = _gather(wl, 0, mesh, a)
+        if model:
+            xl = _gather(xl, 1, mesh, model)
+        return (xl @ wl,)
+
+    return map_local(local, (x, w),
+                     (_on_mesh(mesh, (data, "model", None)),
+                      _on_mesh(mesh, (fsdp, "model"))),
+                     (_on_mesh(mesh, (data, None, "model")),), mesh)[0]
+
+
+def explicit_row_project(plan, x, w):
+    """Megatron's g-bar under ``tp_mode="shard_map"`` (the reference's
+    ``row_parallel_project`` body): x (B, S, K) enters (batch, None,
+    "model") and w (K, d) ("model", embed).  On each rank the weight's
+    shard is cast to x's dtype and its FSDP columns gathered over
+    "data", and the local partial product is reduce-scattered over
+    "model" onto the sequence, in x's dtype; y leaves (batch, "model",
+    None)."""
+    mesh = x.device_mesh
+    data, fsdp, model = _explicit_axes(plan, x)
+
+    def local(xl, wl):
+        wl = wl.to(xl.dtype)
+        for a in fsdp:
+            wl = _gather(wl, 1, mesh, a)
+        part = xl @ wl
+        return (_scatter(part, 1, mesh, model) if model else part,)
+
+    return map_local(local, (x, w),
+                     (_on_mesh(mesh, (data, None, "model")),
+                      _on_mesh(mesh, ("model", fsdp))),
+                     (_on_mesh(mesh, (data, "model", None)),), mesh)[0]
 
 
 # --------------------------------------------------------------------------- #

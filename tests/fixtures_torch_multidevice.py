@@ -96,25 +96,35 @@ def _model(mesh_shape, params_npz, B, S, seed=0, arch="smollm-360m",
 
 
 # the sharded paths a world counts (``count_paths``): K7's and K8's
-# local_map, the moe FFN's, the conv's and the SSD's over channels, and a
-# vlm's cross attention's
+# local_map, the moe FFN's, the conv's and the SSD's over channels, a
+# vlm's cross attention's, and the explicit projections of tp_mode=
+# "shard_map"
 PATHS = (("repro_torch.kernels.ops", "_flash_attention_sharded"),
          ("repro_torch.models.attention", "_cross_attention_sharded"),
          ("repro_torch.kernels.ops", "_selective_scan_sharded"),
          ("repro_torch.models.moe", "_moe_ffn_sharded"),
          ("repro_torch.models.ssm", "causal_conv1d"),
-         ("repro_torch.models.ssm", "ssd_chunked"))
+         ("repro_torch.models.ssm", "ssd_chunked"),
+         ("repro_torch.sharding", "explicit_col_project"),
+         ("repro_torch.sharding", "explicit_row_project"))
+SCHEDULES = ("dense", "causal_skip", "window")
 
 
 def count_paths():
     """Wrap each of PATHS to count its calls on DTensors: {name: count},
     updated as the model runs; K7's calls with a window and with a
-    softcap also as ``<name>/window`` and ``<name>/softcap``."""
+    softcap also as ``<name>/window`` and ``<name>/softcap``, and by
+    block schedule as ``<name>/schedule/<schedule>``; cross attention's
+    onto media K/V whose heads are split (not replicated) over a mesh dim
+    as ``<name>/kv_split``."""
     import importlib
+    from torch.distributed.tensor import Shard
     from repro_torch.sharding import is_dtensor
-    k7 = "_flash_attention_sharded"
+    k7, cross = "_flash_attention_sharded", "_cross_attention_sharded"
     counts = {name: 0 for _, name in PATHS}
-    counts.update({f"{k7}/window": 0, f"{k7}/softcap": 0})
+    counts.update({f"{k7}/window": 0, f"{k7}/softcap": 0,
+                   f"{cross}/kv_split": 0})
+    counts.update({f"{k7}/schedule/{s}": 0 for s in SCHEDULES})
     for mod, name in PATHS:
         mod = importlib.import_module(mod)
         fn = getattr(mod, name)
@@ -123,13 +133,34 @@ def count_paths():
             sharded = any(is_dtensor(t) for t in a)
             counts[_name] += sharded
             if _name == k7 and sharded:
-                # (q, k, v, causal, window, attn_softcap, impl)
+                # (q, k, v, causal, window, attn_softcap, schedule, impl)
                 counts[f"{k7}/window"] += a[4] is not None
                 counts[f"{k7}/softcap"] += a[5] is not None
+                counts[f"{k7}/schedule/{a[6]}"] += 1
+            if _name == cross and sharded:
+                counts[f"{cross}/kv_split"] += Shard(2) in a[1].placements
             return _fn(*a, **kw)
 
         setattr(mod, name, counted)
     return counts
+
+
+def explicit_projections(cfg):
+    """(column, row) explicit projections in one forward of ``cfg`` under
+    tp_mode="shard_map": q and ``wo`` of each self-attention block, the
+    gate(s) and ``w2`` of each MLP (a vlm's cross blocks' MLPs and a
+    hybrid's shared block's among them); none in a moe FFN, a cross
+    block's attention or a Mamba mixer."""
+    if cfg.family == "ssm":
+        return 0, 0
+    attn = cfg.n_layers // (cfg.hybrid_period if cfg.family == "hybrid"
+                            else 1)
+    mlp = 0 if cfg.is_moe else attn
+    if cfg.family == "vlm":
+        attn -= cfg.n_layers // cfg.cross_attn_period
+    gates = 2 if cfg.activation in ("swiglu", "geglu") else 1
+    return attn + gates * mlp, attn + mlp
+
 
 
 # the archs whose parameters are held as test_torch_train holds the moe
@@ -201,9 +232,10 @@ def _full_params(state):
 
 def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
                  microbatch=1, arch="smollm-360m", overrides=None,
-                 grads=False, replay=()):
+                 grads=False, replay=(), plan_kw=None, probe=False):
     """STEPS AdamW steps (lr LR) of ``arch``'s smoke model (with the
-    config ``overrides``) on the batch in ``batch_npz`` from the
+    config ``overrides``, under plan_for's train plan with the plan
+    overrides ``plan_kw``) on the batch in ``batch_npz`` from the
     parameters in ``params_npz`` (drawn from seed 0 when None); rank 0
     writes each step's loss, grad norm and moe metrics, the whole
     parameters after it (with ``grads``, also the whole gradients the
@@ -215,7 +247,7 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
     a token model's embedding and first wq also as ``placements``), the
     collectives one ``global_norm`` of the parameters makes, and whether
     every parameter's shard owns its storage (holds no whole tensor
-    alive)."""
+    alive); with ``probe``, also ``projections`` on the model's mesh."""
     from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import global_norm
@@ -226,7 +258,8 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
     B, S = batch["labels"].shape
     paths = count_paths()
     model = _model(mesh_shape, params_npz, B, S, arch=arch,
-                   overrides=overrides, microbatch=microbatch)
+                   overrides=overrides, microbatch=microbatch,
+                   **(plan_kw or {}))
     opt = AdamW(lr=LR)
     state = init_train_state(model, opt)
     step = make_train_step(model, opt)
@@ -257,6 +290,8 @@ def train_worker(rank, world, mesh_shape, params_npz, batch_npz, out_npz,
     with CommDebugMode() as comm:
         global_norm(state.params)
     out["norm_collectives"] = comm.get_total_counts()
+    if probe:
+        out.update(projections(model.plan.mesh))
     shards = [local(p) for p in state.params.values()]
     out["own_storage"] = all(
         t.untyped_storage().nbytes() == t.numel() * t.element_size()
@@ -306,6 +341,48 @@ def gpipe_worker(rank, world, mesh_shape, case_npz, out_npz, n_micro):
         res[f"spread_{k}"] = np.float64((hi - lo).abs().max())
     if rank == 0:
         np.savez(out_npz, **res)
+
+
+# (input's logical axes, weight's, x's shape, w's shape) of each
+# tensor-parallel projection as the blocks call it, at B=4, S=8, d=16,
+# F=32 (``projections``)
+PROJECTIONS = {"col": (("batch", "seq", None), ("embed", "ff"), (4, 8, 16),
+                       (16, 32)),
+               "row": (("batch", None, "ff"), ("ff", "embed"), (4, 8, 32),
+                       (32, 16))}
+
+
+def projections(mesh):
+    """Each of PROJECTIONS on seeded inputs under the train plan on
+    ``mesh``, in each ``tp_mode``: x and w distributed as the blocks place
+    them, y = the projection, and the gradients of sum(y * c) for a seeded
+    c; {``proj/<kind>/<mode>/{y,gx,gw}``: the whole y and x's and w's
+    gradients, ``.../placed``: y's placements}.  A collective: every rank
+    of the mesh calls it."""
+    from repro_torch.sharding import (TP_MODES, active_mesh, distribute,
+                                      full, train_plan)
+    sub = active_mesh(mesh)
+    plan = train_plan(AXES).with_(mesh=mesh)
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for kind, (x_ax, w_ax, xs, ws) in PROJECTIONS.items():
+        x0, w0 = (torch.randn(s, generator=gen) for s in (xs, ws))
+        c = torch.randn(xs[:2] + ws[1:], generator=gen)
+        for mode in TP_MODES:
+            x = distribute(x0, sub, plan.placements(x_ax, sub))
+            w = distribute(w0, sub, plan.placements(w_ax, sub))
+            x.requires_grad_()
+            w.requires_grad_()
+            y = getattr(plan.with_(tp_mode=mode),
+                        f"{kind}_parallel_project")(x, w)
+            yf = full(y)
+            (yf * c).sum().backward()
+            key = f"proj/{kind}/{mode}"
+            out.update({f"{key}/y": yf.detach().numpy(),
+                        f"{key}/gx": full(x.grad).numpy(),
+                        f"{key}/gw": full(w.grad).numpy(),
+                        f"{key}/placed": np.array(str(tuple(y.placements)))})
+    return out
 
 
 def checkpoint_worker(rank, world, mesh_shape, params_npz, batch_npz,
@@ -404,18 +481,27 @@ def one_device_trajectory(batch_np, microbatch: int = 1,
     return out, grads
 
 
-# (arch, config overrides, mesh, microbatch) of ``main``'s training worlds
-WORLDS = [("smollm-360m", None, (1, 2, 2), 1),
-          ("smollm-360m", None, (2, 2, 1), 1),
-          ("smollm-360m", None, (1, 1, 4), 1),
-          ("smollm-360m", None, (1, 2, 2), 2)] + [
-    (arch, None, mesh, 1)
+# (arch, config overrides, mesh, microbatch, plan overrides) of ``main``'s
+# training worlds
+SHARD_MAP = {"tp_mode": "shard_map"}
+WORLDS = [("smollm-360m", None, (1, 2, 2), 1, None),
+          ("smollm-360m", None, (2, 2, 1), 1, None),
+          ("smollm-360m", None, (1, 1, 4), 1, None),
+          ("smollm-360m", None, (1, 2, 2), 2, None)] + [
+    (arch, None, mesh, 1, None)
     for arch in ("qwen3-moe-30b-a3b", "mixtral-8x7b", "falcon-mamba-7b",
                  "zamba2-2.7b") for mesh in ((1, 2, 2), (1, 1, 4))] + [
-    ("qwen3-moe-30b-a3b", {"n_experts": 3}, (1, 2, 2), 1)] + [
-    (arch, None, mesh, 1)
+    ("qwen3-moe-30b-a3b", {"n_experts": 3}, (1, 2, 2), 1, None)] + [
+    (arch, None, mesh, 1, None)
     for arch in ("gemma2-9b", "llama-3.2-vision-11b", "musicgen-medium")
-    for mesh in ((1, 2, 2), (1, 1, 4))]
+    for mesh in ((1, 2, 2), (1, 1, 4))] + [
+    # test_torch_multidevice_shard_map{,_families}.py's
+    ("smollm-360m", None, (1, 2, 2), 1,
+     dict(SHARD_MAP, attention_schedule="causal_skip")),
+    ("smollm-360m", None, (2, 1, 2), 1, dict(SHARD_MAP, pipeline_stages=2)),
+    ("qwen3-moe-30b-a3b", None, (1, 2, 2), 1, SHARD_MAP),
+    ("llama-3.2-vision-11b", None, (1, 1, 4), 1, SHARD_MAP),
+    ("zamba2-2.7b", None, (1, 1, 4), 1, SHARD_MAP)]
 
 
 def main(argv=None) -> int:
@@ -441,7 +527,7 @@ def main(argv=None) -> int:
     bad = 0
     with tempfile.TemporaryDirectory() as d:
         bpath = os.path.join(d, "batch.npz")
-        for arch, over, mesh, mb in WORLDS:
+        for arch, over, mesh, mb, plan_kw in WORLDS:
             if archs and arch not in archs:
                 continue
             t0 = time.perf_counter()
@@ -452,7 +538,7 @@ def main(argv=None) -> int:
                                                 groups=world)
             path = os.path.join(d, "out.npz")
             spawn(fx.train_worker, world, mesh, None, bpath, path, mb, arch,
-                  over)
+                  over, False, (), plan_kw)
             with np.load(path) as f:
                 got = dict(f)
             lrel = max(abs(float(got[f"loss_{i}"]) / want[i - 1][0] - 1)
@@ -473,7 +559,8 @@ def main(argv=None) -> int:
             verdict = "ok" if ok else "MISMATCH " + next(filter(None, agree),
                                                          "")
             print(f"{arch}{'' if over is None else f' {over}'} mesh {mesh} "
-                  f"microbatch {mb}: loss max rel {lrel:.3g} (tol "
+                  f"microbatch {mb}{'' if plan_kw is None else f' {plan_kw}'}"
+                  f": loss max rel {lrel:.3g} (tol "
                   f"{LOSS_TOL}), grad norm max rel {grel:.3g} (tol "
                   f"{GRAD_TOL}), params max abs {pmax:.3g} (tol "
                   f"{PARAM_TOL}; {beyond} elements beyond), global_norm "

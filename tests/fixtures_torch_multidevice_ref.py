@@ -55,35 +55,42 @@ def _numpy(tree, cfg):
 
 
 def run_id(run):
-    arch, over, mesh = run
+    """A run (arch, config overrides, mesh[, plan overrides]) as a name."""
+    arch, over, mesh, *plan_kw = run
     return "-".join([arch] + [f"{k}{v}" for k, v in (over or {}).items()] +
-                    ["x".join(map(str, mesh))])
+                    ["x".join(map(str, mesh))] +
+                    [f"{k}{v}" for kw in plan_kw for k, v in kw.items()])
 
 
-def trained(d, runs, seed: int = 0, grads: bool = False, replay=()):
-    """Each run (arch, config overrides, mesh) of ``runs`` from the
-    reference's parameters drawn from ``seed`` on ``fx.batch``'s batch of
-    seed 1 + ``seed``: {run_id(run):
+def trained(d, runs, seed: int = 0, grads: bool = False, replay=(),
+            probe: bool = False):
+    """Each run (arch, config overrides, mesh[, plan overrides for
+    plan_for]) of ``runs`` from the reference's parameters drawn from
+    ``seed`` on ``fx.batch``'s batch of seed 1 + ``seed``: {run_id(run):
     (the reference's trajectory [{loss, grad_norm, moe metrics, params,
     grads: the gradients the step takes}] and its first step's gradients
     {name: array}, the world's results: with ``grads`` each step's
     gradients on its own trajectory (``g<step>/``), and for the archs of
     ``replay`` its gradients at the reference's parameters before each
-    step (``r<step>/``))}; one reference for the runs that share a config
-    and a world size."""
+    step (``r<step>/``), with ``probe`` the explicit projections against
+    the GSPMD ones on its mesh (``fx.projections``))}; one reference for
+    the runs that share a config and a world size, whatever their plan
+    overrides."""
     refs, out = {}, {}
-    for arch, over, mesh in runs:
+    for run in runs:
+        arch, over, mesh, *plan_kw = run
         world = int(np.prod(mesh))
         key = (arch, tuple(sorted((over or {}).items())), world)
         tag = run_id((arch, over, (world,)))
         if key not in refs:
             refs[key] = _reference(d, tag, arch, over or {}, world, seed)
-        path = d / f"{run_id((arch, over, mesh))}.npz"
+        path = d / f"{run_id(run)}.npz"
         fx.spawn(fx.train_worker, world, mesh, str(d / f"{tag}_params.npz"),
                  str(d / f"{tag}_batch.npz"), str(path), 1, arch, over,
-                 grads, step_params(d, tag) if arch in replay else ())
+                 grads, step_params(d, tag) if arch in replay else (),
+                 *(plan_kw or [None]), probe)
         with np.load(path) as f:
-            out[run_id((arch, over, mesh))] = (refs[key], dict(f))
+            out[run_id(run)] = (refs[key], dict(f))
     return out
 
 

@@ -801,23 +801,37 @@ def test_sharding_planner_on_kernels_matches_torch(dev):
                     (want.resources, want.plan_choice, want.objective_value)
 
 
-@pytest.mark.parametrize("arch,kernel,path", [
-    ("falcon-mamba-7b", "selective_scan", "_selective_scan_sharded"),
-    ("mixtral-8x7b", "flash_attention", "_flash_attention_sharded"),
-    ("zamba2-2.7b", "flash_attention", "_flash_attention_sharded"),
-    ("gemma2-9b", "flash_attention", "_flash_attention_sharded"),
-    ("llama-3.2-vision-11b", "flash_attention", "_flash_attention_sharded")])
+_LOCAL_MAP_CASES = [
+    ("falcon-mamba-7b", "selective_scan", "_selective_scan_sharded", {}),
+    ("mixtral-8x7b", "flash_attention", "_flash_attention_sharded", {}),
+    ("zamba2-2.7b", "flash_attention", "_flash_attention_sharded", {}),
+    ("gemma2-9b", "flash_attention", "_flash_attention_sharded", {}),
+    ("llama-3.2-vision-11b", "flash_attention", "_flash_attention_sharded",
+     {}),
+    ("smollm-360m", "flash_attention", "_flash_attention_sharded",
+     {"tp_mode": "shard_map", "attention_schedule": "causal_skip"}),
+    ("llama-3.2-vision-11b", "flash_attention", "_flash_attention_sharded",
+     {"tp_mode": "shard_map"})]
+
+
+@pytest.mark.parametrize(
+    "arch,kernel,path,plan_kw", _LOCAL_MAP_CASES,
+    ids=["-".join([a, k, p] + [str(v) for v in kw.values()])
+         for a, k, p, kw in _LOCAL_MAP_CASES])
 def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
-                                                      kernel, path):
+                                                      kernel, path, plan_kw):
     """A world of one over NCCL: the smoke model's loss and gradients on
-    the (1, 1, 1) mesh under plan_for's train plan equal one device's
-    (LOSS_TOL; GRAD_TOL of each tensor's largest), and its kernel (K8 for
-    falcon; K7 for mixtral, its window of 16 engaged at S=64, for
-    zamba2's shared block, for gemma2's (local, global) pair with its
-    softcap, the local layer's window of 16 engaged, and for the vlm's
-    self blocks, its gates open) launches as often on both, each launch
-    on the mesh through its ``local_map`` wrapper in ``kernels.ops``; the
-    vlm's cross blocks attend through their own on the mesh."""
+    the (1, 1, 1) mesh under plan_for's train plan (with ``plan_kw``)
+    equal one device's (LOSS_TOL; GRAD_TOL of each tensor's largest), and
+    its kernel (K8 for falcon; K7 for mixtral, its window of 16 engaged at
+    S=64, for zamba2's shared block, for gemma2's (local, global) pair
+    with its softcap, the local layer's window of 16 engaged, for the
+    vlm's self blocks, its gates open, and for smollm under causal_skip)
+    launches as often on both, each launch on the mesh through its
+    ``local_map`` wrapper in ``kernels.ops``; the vlm's cross blocks
+    attend through their own on the mesh.  Under tp_mode="shard_map"
+    (smollm, the vlm) the explicit projections run over NCCL, as many as
+    ``fx.explicit_projections`` counts a forward."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import socket
@@ -828,6 +842,7 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
     from repro_torch.launch.specs import plan_for
     from repro_torch.models import attention
     from repro_torch.models.model import build_model
+    from repro_torch import sharding
     from repro_torch.runtime.steps import make_loss_fn
     from repro_torch.sharding import full
     with socket.socket() as sock:
@@ -847,11 +862,18 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
         cross_sharded = attention._cross_attention_sharded
         monkeypatch.setattr(attention, "_cross_attention_sharded",
                             lambda *a: cross.append(1) or cross_sharded(*a))
+        explicit = {"col": 0, "row": 0}
+        for kind in explicit:
+            fn = getattr(sharding, f"explicit_{kind}_project")
+            monkeypatch.setattr(
+                sharding, f"explicit_{kind}_project",
+                lambda *a, _fn=fn, _k=kind: explicit.update(
+                    {_k: explicit[_k] + 1}) or _fn(*a))
         out = {}
         # remat none on both, so each launches its kernel once a layer
         for name, plan in (("one", None), ("mesh", plan_for(
                 cfg, ShapeConfig("train", 64, 2, "train"), mesh,
-                remat="none"))):
+                remat="none", **plan_kw))):
             model = open_gates(build_model(cfg, plan, device="cuda",
                                            seed=0))
             ops.reset_launch_counts()
@@ -866,6 +888,9 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
         assert k1 == k2 == len(calls) > 0
         assert len(cross) == (cfg.n_layers // cfg.cross_attn_period
                               if cfg.family == "vlm" else 0)
+        col, row = fx.explicit_projections(cfg) \
+            if plan_kw.get("tp_mode") == "shard_map" else (0, 0)
+        assert (explicit["col"], explicit["row"]) == (col, row)
         assert abs(l2 / l1 - 1) <= fx.LOSS_TOL
         for a, b in zip(g2, g1):
             assert float((a - b).abs().max() / b.abs().max()) <= fx.GRAD_TOL

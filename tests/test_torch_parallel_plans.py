@@ -16,8 +16,10 @@ TP-within-expert branch; qwen3's 128 do, and keep EP.
 
 Also ``moe_rules_for`` on its own, ``placements`` on a few logical
 tuples (on a stand-in mesh: placements need no process group),
-``constrain``'s identity on plain tensors, the projections'
-``tp_mode`` check, ``active_mesh``'s choice of dims and
+``constrain``'s identity on plain tensors, the projections on plain
+tensors in either ``tp_mode``, every arch's admission of
+``tp_mode="shard_map"``, causal_skip and pipeline stages, the refusal of
+an unknown mode or schedule, ``active_mesh``'s choice of dims and
 ``ops.local_kv_heads``.
 """
 import dataclasses
@@ -154,9 +156,11 @@ def test_constrain_and_projections_on_plain_tensors():
         assert plan.constrain(x, ("batch", "seq", None)) is x
         assert torch.equal(plan.col_parallel_project(x, w), x @ w)
         assert torch.equal(plan.row_parallel_project(x, w), x @ w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_plan(("data", "model")).with_(
-            tp_mode="shard_map").row_parallel_project(x, w)
+        # the explicit collectives run on DTensors only, as the
+        # reference's run only with a mesh
+        explicit = plan.with_(tp_mode="shard_map")
+        assert torch.equal(explicit.col_parallel_project(x, w), x @ w)
+        assert torch.equal(explicit.row_parallel_project(x, w), x @ w)
     assert single_device_plan() == ParallelPlan(
         name="single", enabled=False, remat="none", seq_shard=False)
 
@@ -209,6 +213,38 @@ def _train_plan_on(cfg, shape=(1, 2, 2)):
     return plan_for(cfg, ShapeConfig("train", 32, 8, "train"), mesh)
 
 
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_every_arch_admits_shard_map_causal_skip_and_stages(arch):
+    from repro_torch.models.model import check_supported
+    cfg = REGISTRY[arch].smoke()
+    check_supported(cfg, _train_plan_on(cfg).with_(
+        tp_mode="shard_map", attention_schedule="causal_skip",
+        pipeline_stages=2))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(tp_mode="megatron"), "tp_mode='megatron'"),
+    (dict(attention_schedule="window"), "attention_schedule='window'"),
+    (dict(attention_schedule="sparse"), "attention_schedule='sparse'")])
+def test_unknown_tp_mode_or_schedule_raises(kw, match):
+    """An unknown tp_mode or block schedule raises ValueError: in the
+    model's plan check, in a projection, in K7's wrapper."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import check_supported
+    cfg = REGISTRY["smollm-360m"].smoke()
+    with pytest.raises(ValueError, match=match):
+        check_supported(cfg, _train_plan_on(cfg).with_(**kw))
+    x = torch.randn(2, 3, 4)
+    if "tp_mode" in kw:
+        with pytest.raises(ValueError, match=match):
+            single_device_plan().with_(**kw).col_parallel_project(
+                x, torch.randn(4, 5))
+    elif kw["attention_schedule"] != "window":
+        q = torch.randn(1, 3, 2, 16)
+        with pytest.raises(ValueError, match="schedule='sparse'"):
+            ops.flash_attention(q, q, q, schedule="sparse")
+
+
 DENSE_FULL = sorted(a for a, c in REGISTRY.items()
                     if c.family == "dense" and c.attention == "full")
 
@@ -219,8 +255,8 @@ def test_dense_full_archs():
 
 def test_dense_plans_refuse_what_is_not_ported():
     """smollm-360m under a plan admits the local_global schedule (and
-    swa), and refuses the causal_skip block schedule, tp_mode=
-    "shard_map", pipeline stages and a head count the model axis does
+    swa), the causal_skip block schedule, tp_mode="shard_map" and
+    pipeline stages, and refuses only a head count the model axis does
     not divide."""
     from repro_torch.models.model import build_model, check_supported
     cfg = REGISTRY["smollm-360m"]
@@ -230,9 +266,7 @@ def test_dense_plans_refuse_what_is_not_ported():
     small = cfg.smoke()
     for kw in (dict(attention_schedule="causal_skip"),
                dict(tp_mode="shard_map"), dict(pipeline_stages=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(small, _train_plan_on(small).with_(**kw),
-                        device="cpu")
+        check_supported(small, _train_plan_on(small).with_(**kw))
     # 15 heads do not split over a model axis of 2
     with pytest.raises(NotImplementedError, match="head"):
         build_model(cfg, _train_plan_on(cfg), device="cpu")
