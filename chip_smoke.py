@@ -226,7 +226,22 @@ Phases (any failure exits nonzero; there is no CPU path):
              block's attention, a Mamba mixer); then
              pipeline.gpipe_apply at one
              stage against the sequential layers on the card (forward
-             1e-5, gradients 1e-4).
+             1e-5, gradients 1e-4);
+16. serve plans, world of one — (runs after 15) a new NCCL process
+             group of one rank on the (1, 1, 1) mesh: smollm-360m at full
+             width and depth in its own bf16 (SERVE_PLAN_MAIN: B=4,
+             prompt 256, 16 greedy decode steps), then the families of
+             MULTI_FAMILIES at their depths in float32 (B=4, prompt 64, 8
+             steps; gemma2 B=2 with a prompt of 4,160 past its window),
+             each prefilled under plan_for's prefill plan and decoded
+             under its decode plan over the same parameter tensors
+             (Model.with_plan; the cache DTensors sharded along
+             "kv_seq"), beside the same model on one device: tokens
+             equal, every step's logits within LOGIT_TOL, K7 (through its
+             local_map) and K8 launched in prefill as on one device, and
+             decode attention on the sharded cache once an attention
+             block a step; a "serveplan ..." line a model with its warm
+             decode step on both.
 
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
@@ -2951,20 +2966,17 @@ def _expected_projections(cfg) -> tuple:
             (attn + mlp) * TRAIN_F32_STEPS)
 
 
-def _counting_projections():
-    """Wrap the explicit projections (``sharding.explicit_col_project``,
-    ``explicit_row_project``) to count their calls: returns the counts
-    {"col": n, "row": n}, which the caller zeroes."""
-    from repro_torch import sharding
-    counts = {"col": 0, "row": 0}
-    for kind in counts:
-        name = f"explicit_{kind}_project"
+def _counting(counts: dict, module, names) -> dict:
+    """Wrap each of ``names`` in ``module`` to count its calls into
+    ``counts`` ({name: n}, which the caller zeroes); returns it."""
+    for name in names:
+        counts[name] = 0
 
-        def counted(*a, _fn=getattr(sharding, name), _kind=kind):
-            counts[_kind] += 1
-            return _fn(*a)
+        def counted(*a, _fn=getattr(module, name), _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
 
-        setattr(sharding, name, counted)
+        setattr(module, name, counted)
     return counts
 
 
@@ -2979,7 +2991,7 @@ def multidevice_train(torch, mesh, arch, layers, B, S, device, explicit,
     PARAM_SHARE_TOL, K7's and K8's launches equal on both and to one a
     layer a step, the explicit projections as many as
     ``_expected_projections`` under shard_map and none under gspmd
-    (``explicit``: ``_counting_projections``' counts); a REPLAYED arch's
+    (``explicit``: ``_counting``'s counts of them); a REPLAYED arch's
     each step from one device's state.  Returns the mesh runs' launches,
     summed."""
     from repro_torch.configs import get_config
@@ -3019,7 +3031,7 @@ def multidevice_train(torch, mesh, arch, layers, B, S, device, explicit,
     total = {}
     for kw, plan in zip(variants, plans):
         t1 = time.perf_counter()
-        explicit.update(col=0, row=0)
+        explicit.update(dict.fromkeys(explicit, 0))
         if replay:      # the mesh takes one device's state before each step
             ((l2, n2, s2, k2), (l1, n1, s1, k1)), share, pmax, n = \
                 replay_steps(torch, [build(p) for p in (plan, one)], batch)
@@ -3052,7 +3064,7 @@ def multidevice_train(torch, mesh, arch, layers, B, S, device, explicit,
             {k: 0 for k in k1}
         check(k1 == k2 == want, f"phase 15 {tag}: launches {k2} on the "
               f"mesh, {k1} on one device (want {want})")
-        proj = (explicit["col"], explicit["row"])
+        proj = tuple(explicit.values())          # (column, row)
         want_proj = _expected_projections(cfg) \
             if plan.tp_mode == "shard_map" else (0, 0)
         check(proj == want_proj, f"phase 15 {tag}: explicit projections "
@@ -3081,6 +3093,7 @@ def multidevice_phase(torch, device: str = "cuda") -> dict:
     plain versions).  Returns K7's and K8's launches over its training
     runs on the mesh."""
     import torch.distributed as dist
+    from repro_torch import sharding
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.pipeline import gpipe_apply
     print(f"phase 15 on {card()}", flush=True)
@@ -3093,7 +3106,8 @@ def multidevice_phase(torch, device: str = "cuda") -> dict:
     try:
         mesh = make_mesh((1, 1, 1), MULTI_AXES)
         launches = {"flash_attention": 0, "selective_scan": 0}
-        explicit = _counting_projections()
+        explicit = _counting({}, sharding, ("explicit_col_project",
+                                            "explicit_row_project"))
         for name, layers in [(arch, None)] + list(MULTI_FAMILIES.items()):
             for k, v in multidevice_train(
                     torch, mesh, name, layers, B, S, device, explicit,
@@ -3128,6 +3142,180 @@ def multidevice_phase(torch, device: str = "cuda") -> dict:
               f"d={d}, n_micro {GPIPE['n_micro']}: max |diff| forward "
               f"{errs[0]:.3g}, gradients (over max |g|) "
               f"{max(errs[1:]):.3g}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+# phase 16: serving under plan_for's prefill and decode plans, a world of
+# one: smollm-360m at full width and depth in its own dtype (bf16
+# activations, float32 masters), B, prompt, greedy decode steps; the
+# other families in float32 at phase 15's depths (MULTI_FAMILIES), B,
+# prompt, steps, gemma2 with a prompt past its window of 4,096 (its local
+# layers' rolling caches wrap)
+SERVE_PLAN_MAIN = ("smollm-360m", 4, 256, 16)
+SERVE_PLAN_FAMILIES = (4, 64, 8)
+SERVE_PLAN_PROMPT = {LOCAL_GLOBAL: (2, WINDOW_SERVE["prompt_len"])}
+
+
+def serveplan_inputs(cfg, B: int, P: int, new: int):
+    """A seeded prompt batch of ``cfg`` (B x P tokens, or frame
+    embeddings; a vlm's media) and the audio family's decode frames (B,
+    new, E), None for a token model (its steps feed greedy tokens)."""
+    rng = np.random.default_rng(16)
+    if not cfg.embed_inputs:
+        emb = rng.standard_normal((B, P + new, cfg.media_embed_dim),
+                                  dtype=np.float32)
+        return {"embeddings": emb[:, :P]}, emb[:, P:]
+    batch = {"tokens": rng.integers(2, cfg.vocab_size, (B, P))}
+    if cfg.family == "vlm":
+        batch["media"] = rng.standard_normal(
+            (B, cfg.n_media_tokens, cfg.media_embed_dim), dtype=np.float32)
+    return batch, None
+
+
+def serveplan_serve(torch, model, decoder, batch, frames, new: int):
+    """``model.prefill`` of ``batch`` into a cache of P + ``new`` slots,
+    then ``new`` greedy ``decoder.decode_step`` steps (the audio family
+    fed ``frames``): (each logits (B, V) float32 whole on the card, the
+    tokens fed, each decode step's seconds, the model kernels' launches
+    in the prefill)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    from repro_torch.sharding import full
+    P = next(iter(batch.values())).shape[1]
+    ops.reset_launch_counts()
+    logits, cache = make_prefill_step(model, P + new)(batch)
+    logits = full(logits)
+    launches = launch_counts()
+    decode = make_decode_step(decoder)
+    out, toks, secs = [logits], [], []
+    B = logits.shape[0]
+    for t in range(new):
+        if frames is None:
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            step = {"tokens": tok[:, None]}
+        else:
+            step = {"embeddings": frames[:, t:t + 1]}
+        q_pos = torch.full((B,), P + t, dtype=torch.int64,
+                           device=logits.device)
+        t0 = time.perf_counter()
+        logits, cache = decode(cache, step, q_pos)
+        logits = full(logits)
+        if logits.is_cuda:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out.append(logits)
+    return out, toks, secs, launches
+
+
+def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
+                  counts):
+    """One model of phase 16: ``arch`` (at ``layers`` layers, None for the
+    config's; compute ``dtype``, None for the config's) served on one
+    device, then under plan_for's prefill plan and, over the same
+    parameter tensors, its decode plan on ``mesh`` (``Model.with_plan``):
+    tokens equal, every logits within LOGIT_TOL, K7 through ``local_map``
+    once an attention block in prefill and K8 once a Mamba1 block, as on
+    one device, decode attention on the sharded cache once an attention
+    block a step (``counts``: the wrappers' calls).  Returns the model
+    kernels' launches in the mesh's prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import plan_for
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype,
+                              n_layers=layers or cfg.n_layers)
+    batch, frames = serveplan_inputs(cfg, B, P, new)
+    if frames is not None:
+        frames = torch.as_tensor(frames, device=device)
+    model = open_gates(torch, build_model(cfg, None, device=device, seed=0))
+    one = serveplan_serve(torch, model, model, batch, frames, new)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill, decode = (plan_for(cfg, ShapeConfig(kind, P + new, B, kind),
+                                mesh) for kind in ("prefill", "decode"))
+    model = open_gates(torch, build_model(cfg, prefill, device=device,
+                                          seed=0))
+    decoder = model.with_plan(decode)
+    check(all(a is b for a, b in zip(model.parameters(),
+                                     decoder.parameters())),
+          f"phase 16 {arch}: the decode model copies the parameters")
+    counts.update(dict.fromkeys(counts, 0))
+    got = serveplan_serve(torch, model, decoder, batch, frames, new)
+    k7_calls = counts["_flash_attention_sharded"]
+    del model, decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = max(float((a - b).abs().max()) for a, b in zip(got[0], one[0]))
+    ok = all(torch.equal(a, b) for a, b in zip(got[1], one[1]))
+    argmax = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                 for a, b in zip(got[0], one[0]))
+    # one prefill launches what one training step without remat does
+    want = {k: n // TRAIN_F32_STEPS
+            for k, n in _expected_launches(cfg).items()}
+    attn = want["flash_attention"]
+    dec_calls = counts["_decode_attention_sharded"]
+    check(ok and argmax, f"phase 16 {arch}: tokens differ from one device's")
+    check(err <= LOGIT_TOL, f"phase 16 {arch}: logits differ from one "
+          f"device's by {err} > {LOGIT_TOL}")
+    if device != "cuda":        # the plain versions launch nothing
+        want = dict.fromkeys(want, 0)
+    check(got[3] == one[3] == want and k7_calls == attn and
+          dec_calls == attn * new,
+          f"phase 16 {arch}: launches {got[3]} in the mesh's prefill "
+          f"({k7_calls} K7 through local_map), {one[3]} on one device, "
+          f"{dec_calls} sharded decode attentions (want {want}, {attn} "
+          f"and {attn * new})")
+    warm = lambda s: sorted(s[1:])[len(s[1:]) // 2] * 1e3
+    print(f"serveplan {arch} {cfg.dtype} ({cfg.n_layers} layers) B={B} "
+          f"prompt {P}, {new} greedy decode steps, prefill plan then "
+          f"decode plan over its parameters on a (1, 1, 1) mesh: tokens "
+          f"equal to one device's; logits max |diff| {err} (tol "
+          f"{LOGIT_TOL}); prefill launches {got[3]} (one device "
+          f"{one[3]}), K7 {k7_calls} through local_map; sharded decode "
+          f"attention {dec_calls}; "
+          f"warm decode step {warm(got[2]):.3f} ms on the mesh, "
+          f"{warm(one[2]):.3f} ms on one device; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return got[3]
+
+
+def serveplan_phase(torch, device: str = "cuda") -> int:
+    """Phase 16: serving under the serve plans as a world of one
+    (``serveplan_run`` of SERVE_PLAN_MAIN, then of each family of
+    MULTI_FAMILIES at its depth; ``device="cpu"`` rehearses it over gloo
+    with the plain versions).  Returns the model kernels' launches over
+    the mesh prefills."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention
+    print(f"phase 16 on {card()}", flush=True)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    counts = _counting({}, ops, ("_flash_attention_sharded",))
+    _counting(counts, attention, ("_decode_attention_sharded",))
+    try:
+        mesh = make_mesh((1, 1, 1), MULTI_AXES)
+        arch, B, P, new = SERVE_PLAN_MAIN
+        runs = [(arch, None, None, B, P, new)]
+        Bf, Pf, newf = SERVE_PLAN_FAMILIES
+        runs += [(name, layers, "float32") + SERVE_PLAN_PROMPT.get(
+            name, (Bf, Pf)) + (newf,) for name, layers in
+            MULTI_FAMILIES.items()]
+        launches = {}
+        for run in runs:
+            for k, n in serveplan_run(torch, mesh, *run, device,
+                                      counts).items():
+                launches[k] = launches.get(k, 0) + n
     finally:
         dist.destroy_process_group()
     return launches
@@ -3650,7 +3838,12 @@ def main() -> int:
     for name, n in multidevice_phase(torch).items():
         next(k for k in kernels if k["name"] == name)[
             "multidevice_path_launches"] = n
-    lap("phase 15 (multi-device, world of one)", w)
+    w = lap("phase 15 (multi-device, world of one)", w)
+
+    # 16. serving under the serve plans, a world of one -------------------- #
+    print(f"serveplan launches in the mesh prefills: "
+          f"{serveplan_phase(torch)}", flush=True)
+    lap("phase 16 (serve plans, world of one)", w)
     lap("total", t_start)
     print(card(), flush=True)      # again, for readers of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,11 +6,13 @@ No device memory: the stand-ins are meta tensors (the reference's
 shape kind, line for line the reference's (the RAQO sharding planner
 picks the mesh it runs on).  It reads only the mesh's axis names and
 sizes, so a stand-in with ``mesh_dim_names`` and ``shape`` serves where
-no process group exists.  A model runs every train plan ``plan_for``
-makes, with any of the reference's overrides (``tp_mode``,
-``attention_schedule``, ``pipeline_stages``, ``remat``, ...); the
-prefill and decode plans, and the reference's ``decode_input_specs``,
-wait for serving under ``serve_plan`` (ROADMAP §1 item 4).
+no process group exists.  A model runs every plan ``plan_for`` makes:
+the train plan with any of the reference's overrides (``tp_mode``,
+``attention_schedule``, ``pipeline_stages``, ``remat``, ...), and the
+prefill and decode plans of ``serve_plan`` (the cache's sequence over
+"kv_seq", ``models.model``), whose decode inputs ``decode_input_specs``
+gives.  Under a decode plan ``tp_mode="shard_map"`` raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -96,6 +98,26 @@ def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
     """Each batch input's DTensor placements on ``mesh``."""
     return {k: plan.placements(v, mesh)
             for k, v in batch_logical(cfg, with_labels).items()}
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig, model
+                       ) -> Tuple[Dict[str, torch.Tensor],
+                                  Dict[str, torch.Tensor], torch.Tensor]:
+    """(inputs, cache, q_pos) of a decode step, as meta tensors: one new
+    token (the audio family's frame embedding) against a cache of
+    ``shape.seq_len`` slots (``model.init_cache`` on the meta device; its
+    placements are ``model.cache_specs()``)."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.embed_inputs:
+        inputs = {"tokens": torch.empty((B, 1), dtype=torch.int32,
+                                        device="meta")}
+    else:
+        inputs = {"embeddings": torch.empty((B, 1, cfg.media_embed_dim),
+                                            dtype=torch.float32,
+                                            device="meta")}
+    cache = model.init_cache(B, S, device="meta")
+    q_pos = torch.empty((B,), dtype=torch.int32, device="meta")
+    return inputs, cache, q_pos
 
 
 def train_state_specs(model) -> Tuple[Any, Any]:

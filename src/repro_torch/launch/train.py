@@ -35,8 +35,9 @@ alone.  Under a plan every family trains, with each attention schedule
 (the vlm's media and the audio family's frame embeddings come from
 ``SyntheticPipeline`` and are sharded as they enter the model), in
 either ``tp_mode`` and block schedule a plan names (``models.model``).
-What still waits is serving under ``serve_plan``: prefill and decode
-over a mesh (ROADMAP §1 item 4).
+Serving under ``serve_plan``'s prefill and decode plans goes through the
+Model API (``models.model``; ``launch.serve`` stays single-device, as the
+reference's).
 """
 from __future__ import annotations
 

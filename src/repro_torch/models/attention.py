@@ -10,6 +10,17 @@ the kernel does.  On the serving path prefill positions are always
 carry their own positions.  Decode stays plain torch (the reference has no
 Pallas kernel for it), and so does cross attention (plain jnp in the
 reference too, outside any Pallas kernel).
+
+Under a serve plan the cache is sharded along its sequence ("kv_seq",
+over one or several mesh dims; ``models.model``).  ``write_cache`` then
+writes each rank's own slots, the slot clamped on the global length
+(``write_chunk`` under ``map_local``, in place), and
+``decode_attention`` attends with every head over each rank's slots,
+reducing the softmax's max, its sum and the partial output over the
+sequence's mesh dims: the partition GSPMD makes of the reference's
+function, so the probabilities are cast to the cache dtype before the
+product as on one device (a one-pass combine that rescales partial
+outputs would round them after the rescale).
 """
 from __future__ import annotations
 
@@ -19,8 +30,8 @@ import torch
 
 from repro_torch.kernels.ops import local_kv_heads
 from repro_torch.models.common import softcap
-from repro_torch.sharding import (is_dtensor, map_local,
-                                  placements_like)
+from repro_torch.sharding import (all_reduce, is_dtensor, map_local,
+                                  placements_like, shard_range)
 
 NEG_INF = -1e30
 
@@ -32,7 +43,26 @@ def decode_attention(q, k_cache, v_cache, q_pos, slot_pos, *,
     q: (B, 1, H, hd); caches: (B, S, KV, hd); q_pos: (B,) current position;
     slot_pos: (B, S) position stored in each slot (-1 = empty).  Works
     for both full caches (slot i holds position i) and rolling-window caches
-    (slot i holds the latest position = i mod W)."""
+    (slot i holds the latest position = i mod W).  A cache sharded along
+    its sequence (DTensors) attends on each rank's slots
+    (``_decode_attention_sharded``)."""
+    if is_dtensor(k_cache):
+        return _decode_attention_sharded(q, k_cache, v_cache, q_pos,
+                                         slot_pos, attn_softcap, window)
+    return _decode_attend(q, k_cache, v_cache, q_pos, slot_pos, attn_softcap,
+                          window, lambda t, op: t)
+
+
+def _decode_attend(q, k_cache, v_cache, q_pos, slot_pos, attn_softcap,
+                   window, reduce):
+    """``decode_attention`` over the slots of ``k_cache`` / ``v_cache`` /
+    ``slot_pos``, which may be one chunk of the cache's sequence:
+    ``reduce(t, op)`` ("max" or "sum") combines a chunk's partial result
+    with the other chunks' (the identity on a whole cache).  The softmax's
+    max, its sum and the output's (p / l) V product are each reduced, as
+    GSPMD partitions the reference's over a sharded sequence, so the
+    probabilities are cast to the cache dtype before the product in every
+    chunk as on one device."""
     B, S, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
@@ -46,12 +76,38 @@ def decode_attention(q, k_cache, v_cache, q_pos, slot_pos, *,
     if window is not None:
         mask &= rel < window
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True) if S else \
+        s.new_full((B, KV, G, 1), NEG_INF)              # an empty chunk
+    m = reduce(m, "max")
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
+    l = reduce(p.sum(dim=-1, keepdim=True), "sum")
     out = torch.einsum("bkgs,bskd->bkgd",
                        (p / l).to(v_cache.dtype).float(), v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    return reduce(out, "sum").reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, q_pos, slot_pos,
+                              attn_softcap, window):
+    """``decode_attention`` of DTensors: caches (B, S, KV, hd) and
+    slot_pos (B, S) sharded along S (a serve plan's "kv_seq", over one or
+    several mesh dims) and along the batch.  q (one token, B x H x hd) is
+    gathered whole over its heads, so each rank attends with every head
+    over its own slots; the max, the sum and the partial output are
+    all-reduced over the mesh dims of S (``_decode_attend``), and the
+    output leaves replicated but for the batch."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = k_cache.device_mesh
+    seq = [i for i, p in enumerate(k_cache.placements) if p == Shard(1)]
+    batch = [Shard(0) if p == Shard(0) else Replicate()
+             for p in k_cache.placements]
+
+    def attend(ql, kl, vl, ql_pos, sl):
+        return (_decode_attend(ql, kl, vl, ql_pos, sl, attn_softcap, window,
+                               lambda t, op: all_reduce(t, op, mesh, seq)),)
+
+    return map_local(attend, (q, k_cache, v_cache, q_pos, slot_pos),
+                     (batch, k_cache.placements, v_cache.placements, batch,
+                      slot_pos.placements), (batch,), mesh)[0]
 
 
 def cross_attention(q, k, v, media_valid=None):
@@ -121,7 +177,12 @@ def write_cache(cache_k, cache_v, slot_pos, k_new, v_new, positions, *,
 
     cache_k/v: (B, S, KV, hd); k_new/v_new: (B, T, KV, hd);
     positions: (B, T) absolute positions being written.
-    Full cache: slot = position.  Rolling: slot = position % window."""
+    Full cache: slot = position.  Rolling: slot = position % window.
+    A cache sharded along its sequence (DTensors) is written on each
+    rank's own slots (``_write_cache_sharded``)."""
+    if is_dtensor(cache_k):
+        return _write_cache_sharded(cache_k, cache_v, slot_pos, k_new, v_new,
+                                    positions, rolling_window)
     B, S = cache_k.shape[:2]
     slots = positions % rolling_window if rolling_window else positions
     b_idx = torch.arange(B, device=cache_k.device)[:, None]
@@ -134,6 +195,65 @@ def write_cache(cache_k, cache_v, slot_pos, k_new, v_new, positions, *,
                                           cache_v[b_idx, slots_c])
     slot_pos[b_idx, slots_c] = torch.where(
         valid, positions.to(slot_pos.dtype), slot_pos[b_idx, slots_c])
+    return cache_k, cache_v, slot_pos
+
+
+def write_chunk(cache_k, cache_v, slot_pos, k_new, v_new, positions,
+                rolling_window, offset: int, total: int):
+    """``write_cache`` into one chunk of a cache's sequence: the chunk
+    holds global slots ``offset`` .. ``offset + S - 1`` of ``total``.  A
+    slot is clamped on the global length, as on one device, and written
+    only by the chunk that holds it, in place.  One position a row (a
+    decode step) writes through ``where``, with no host sync; several
+    (prefill) write only the entries this chunk holds (``nonzero``: a
+    ``where`` over clamped local slots would let an entry of another
+    chunk land on a held slot)."""
+    B, S = cache_k.shape[:2]
+    if not S:                                   # an empty chunk
+        return cache_k, cache_v, slot_pos
+    slots = positions % rolling_window if rolling_window else positions
+    slots = torch.clamp(slots, 0, total - 1) - offset
+    own = (positions >= 0) & (slots >= 0) & (slots < S)
+    if positions.shape[1] == 1:
+        b_idx = torch.arange(B, device=cache_k.device)[:, None]
+        loc = torch.clamp(slots, 0, S - 1)
+        sel = own[..., None, None]
+        cache_k[b_idx, loc] = torch.where(sel, k_new.to(cache_k.dtype),
+                                          cache_k[b_idx, loc])
+        cache_v[b_idx, loc] = torch.where(sel, v_new.to(cache_v.dtype),
+                                          cache_v[b_idx, loc])
+        slot_pos[b_idx, loc] = torch.where(
+            own, positions.to(slot_pos.dtype), slot_pos[b_idx, loc])
+        return cache_k, cache_v, slot_pos
+    b, t = own.nonzero(as_tuple=True)
+    loc = slots[b, t]
+    cache_k[b, loc] = k_new[b, t].to(cache_k.dtype)
+    cache_v[b, loc] = v_new[b, t].to(cache_v.dtype)
+    slot_pos[b, loc] = positions[b, t].to(slot_pos.dtype)
+    return cache_k, cache_v, slot_pos
+
+
+def _write_cache_sharded(cache_k, cache_v, slot_pos, k_new, v_new,
+                         positions, rolling_window):
+    """``write_cache`` of DTensors: the cache sharded along its sequence
+    (and the batch), the new rows and positions placed by the batch alone;
+    each rank writes its own slots of its rows (``write_chunk``, its chunk
+    from ``shard_range``) in place, so the cache's DTensors are
+    returned."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache_k.device_mesh
+    batch = [Shard(0) if p == Shard(0) else Replicate()
+             for p in cache_k.placements]
+    total = cache_k.shape[1]
+    offset, _ = shard_range(total, mesh, cache_k.placements, 1)
+
+    def write(kl, vl, sl, knl, vnl, pl):
+        write_chunk(kl, vl, sl, knl, vnl, pl, rolling_window, offset, total)
+        return ()
+
+    map_local(write, (cache_k, cache_v, slot_pos, k_new, v_new, positions),
+              (cache_k.placements, cache_v.placements, slot_pos.placements,
+               batch, batch, batch), (), mesh)
     return cache_k, cache_v, slot_pos
 
 

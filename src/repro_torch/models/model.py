@@ -100,6 +100,30 @@ the update (``runtime.steps``).  A moe model's aux losses are replicated 0-d
 DTensors (``models.moe``).  A vlm's cross blocks attend on each rank's
 q heads (``attention.cross_attention``) onto media K/V placed by
 ``transformer.media_kv_for``.
+
+Serving runs under ``plan_for``'s prefill and decode plans (the
+reference's ``serve_plan``), which place every parameter alike: the
+decode model is ``model.with_plan(decode_plan)``, over the prefill
+model's parameter tensors (``check_shared_params`` raises
+``ValueError`` where two plans would place one differently).  The cache
+is then a dict of DTensors placed as ``cache_specs`` says (the
+reference's rule on the flat names: K/V and ``slot_pos`` along "batch"
+and "kv_seq", the Mamba states along "batch" and "inner", the media K/V
+and ``pos`` along "batch"); ``init_cache`` allocates on each rank only
+its own chunk of each (``sharding.zeros_sharded``).  Below a global
+batch of 16 the batch stays whole and "kv_seq" runs over every mesh
+axis, data-major; from 16 the batch runs over the data axes and
+"kv_seq" over "model".  Prefill builds the cache in place: each layer's
+K/V (a rolling layer's last W positions, at slot ``position % W``) go
+into each rank's own slots (``attention.write_cache``), the Mamba
+states and media K/V into their shards (``store``).  A decode step's
+inputs enter ("batch", None[, None]) and q_pos ("batch",), as the
+reference's dry run places them; its attention runs on each rank's
+slots and reduces over the sequence's mesh dims
+(``attention.decode_attention``), its Mamba steps on each rank's
+channels, and it updates the cache in place.  A decode step under
+``tp_mode="shard_map"`` raises ``ValueError`` (its explicit projections
+split a sequence of one token).
 """
 from __future__ import annotations
 
@@ -121,7 +145,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.common import like, rms_norm, softcap
 from repro_torch.sharding import (TP_MODES, ParallelPlan, ParamDef,
                                   active_mesh, distribute, init_from_defs,
-                                  single_device_plan)
+                                  is_dtensor, single_device_plan,
+                                  zeros_sharded)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -273,16 +298,104 @@ def load_jax_params(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _build_layer_cache(k, v, positions, cache_size, window, dtype):
-    """Scatter prefill K/V into a fresh cache of ``cache_size`` slots."""
-    B, S, KV, hd = k.shape
-    ck = torch.zeros((B, cache_size, KV, hd), dtype=dtype, device=k.device)
-    cv = torch.zeros((B, cache_size, KV, hd), dtype=dtype, device=k.device)
-    sp = torch.full((B, cache_size), -1, dtype=torch.int64, device=k.device)
-    if window:
-        k, v, positions = attn.prefill_tail(k, v, positions, window)
-    return attn.write_cache(ck, cv, sp, k, v, positions,
-                            rolling_window=window)
+# each cache leaf's logical axes (the reference's ``cache_specs`` rule on
+# the port's flat names; a Mamba2 ``ssm`` leaf has one more None)
+KV_LOGICAL = (None, "batch", "kv_seq", "kv_heads", None)
+CACHE_LOGICAL = {"k": KV_LOGICAL, "v": KV_LOGICAL,
+                 "slot_pos": (None, "batch", "kv_seq"),
+                 "conv": (None, "batch", None, "inner"),
+                 "ssm": (None, "batch", "inner", None),
+                 "media_k": (None, "batch", "media", "kv_heads", None),
+                 "media_v": (None, "batch", "media", "kv_heads", None),
+                 "pos": ("batch",)}
+
+
+def cache_logical(name: str, ndim: int):
+    """The logical axes of cache leaf ``name`` of ``ndim`` dims (a
+    local_global model's ``*_local`` leaves as their global twins')."""
+    axes = CACHE_LOGICAL[name[:-len("_local")] if name.endswith("_local")
+                         else name]
+    return axes + (None,) * (ndim - len(axes))
+
+
+def cache_layout(cfg: ModelConfig, B: int, cache_len: int, dtype):
+    """{leaf name: (shape, dtype, fill)} of a cache of ``B`` rows and
+    ``cache_len`` slots (a windowed layer's ``min(cache_len, window)``, as
+    the reference's)."""
+    L = cfg.n_layers
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    i64 = torch.int64
+
+    def kv_cache(n, size=cache_len, sfx=""):
+        return {"k" + sfx: ((n, B, size, KV, hd), dtype, 0),
+                "v" + sfx: ((n, B, size, KV, hd), dtype, 0),
+                "slot_pos" + sfx: ((n, B, size), i64, -1)}
+
+    out = {"pos": ((B,), i64, 0)}
+    if cfg.family in ("ssm", "hybrid"):
+        di, N, Kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv - 1
+        state = (di, N) if cfg.ssm_version == 1 else \
+            (cfg.n_ssm_heads, cfg.ssm_head_dim, N)
+        out.update(conv=((L, B, Kc, di), dtype, 0),
+                   ssm=((L, B) + state, torch.float32, 0))
+        if cfg.family == "hybrid":
+            out.update(kv_cache(L // cfg.hybrid_period))
+        return out
+    if cfg.family == "vlm":
+        g, M = L // cfg.cross_attn_period, cfg.n_media_tokens
+        out.update(kv_cache(math.prod(tf.layer_stack(cfg))))
+        out.update({name: ((g, B, M, KV, hd), dtype, 0)
+                    for name in ("media_k", "media_v")})
+        return out
+    window = min(cache_len, cfg.window or cache_len)
+    if cfg.attention == "local_global":
+        out.update(kv_cache(L // 2, window, "_local"))
+        out.update(kv_cache(L // 2))
+    else:
+        out.update(kv_cache(L, window if cfg.attention == "swa"
+                            else cache_len))
+    return out
+
+
+def cache_specs(cfg: ModelConfig, plan: ParallelPlan):
+    """{cache leaf name: its mesh-axis assignments under ``plan``} (the
+    reference's ``Model.cache_specs``, leaf for leaf on the port's flat
+    names)."""
+    return {name: plan.spec(cache_logical(name, len(shape)))
+            for name, (shape, _, _) in cache_layout(cfg, 1, 1,
+                                                    torch.float32).items()}
+
+
+def store(dst, src) -> None:
+    """``src`` written into the cache view ``dst`` in place; DTensors
+    shard for shard (``src`` placed as ``dst`` first)."""
+    if is_dtensor(dst):
+        if src.placements != dst.placements:
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst, src = dst.to_local(), src.to_local()
+    dst.copy_(src)
+
+
+def check_shared_params(cfg: ModelConfig, have: ParallelPlan,
+                        want: ParallelPlan) -> None:
+    """Raise ``ValueError`` unless the parameters of ``cfg`` are placed
+    alike under plans ``have`` and ``want`` (one set of tensors can then
+    serve both: a serve plan's prefill and decode models)."""
+    if have.enabled != want.enabled or (have.enabled and
+                                        have.mesh is not want.mesh):
+        raise ValueError(f"{want.name}: the parameters of a model under "
+                         f"{have.name} live on another mesh")
+    if not have.enabled:
+        return
+    mesh = active_mesh(have.mesh)
+    defs = dict(_flatten(tf.model_defs(cfg)))
+    for name, d in defs.items():
+        a, b = (p.placements(d.logical, mesh) for p in (have, want))
+        if a != b:
+            raise ValueError(
+                f"{want.name}: parameter {name} is placed {tuple(b)}, not "
+                f"{tuple(a)} as under {have.name}: the two plans cannot "
+                f"share one set of parameter tensors")
 
 
 class Model(nn.Module):
@@ -437,51 +550,45 @@ class Model(nn.Module):
         B, S = x.shape[:2]
         positions = self.shard(torch.arange(S, device=self.device).expand(
             B, S), ("batch", None))
-        cache_len = cache_len or S
         cache, aux = None, {}
+        if build_cache:
+            cache = self.init_cache(B, cache_len or S)
+
+        def write_kv(kv, sfx, j, window=None):
+            k, v, pos = kv[0], kv[1], positions
+            if window:
+                k, v, pos = attn.prefill_tail(k, v, pos, window)
+            attn.write_cache(*(cache[n + sfx][j] for n in KV_NAMES), k, v,
+                             pos, rolling_window=window)
+
         if cfg.family == "vlm":
             k = tf.layer_groups(cfg)
             media = self._media(batch)
-            kvs, mkvs = [], []
             for g in range(len(self.cross)):
                 x, group_kvs, mkv = remat(functools.partial(
                     self._vlm_group, g=g, k=k, positions=positions),
                     self.plan)(x, media)
                 if build_cache:
-                    kvs += [_build_layer_cache(kv[0], kv[1], positions,
-                                               cache_len, None, self.dtype)
-                            for kv in group_kvs]
-                    mkvs.append(mkv)
-            if build_cache:
-                cache = {name: torch.stack(leaves)
-                         for name, leaves in zip(KV_NAMES, zip(*kvs))}
-                cache["media_k"] = torch.stack([m[0] for m in mkvs])
-                cache["media_v"] = torch.stack([m[1] for m in mkvs])
+                    for j, kv in enumerate(group_kvs, g * k):
+                        write_kv(kv, "", j)
+                    store(cache["media_k"][g], mkv[0])
+                    store(cache["media_v"][g], mkv[1])
         elif cfg.family in ("ssm", "hybrid"):
             # an ssm model is one group per layer with no shared block
             k = cfg.hybrid_period if cfg.family == "hybrid" else 1
-            conv, ssm, kvs = [], [], []
             for g in range(cfg.n_layers // k):
                 x, states, kv = remat(functools.partial(
                     self._mamba_group, g=g, k=k, positions=positions),
                     self.plan)(x)
                 if build_cache:
-                    conv += [c for c, _ in states]
-                    ssm += [h for _, h in states]
+                    for i, (conv, ssm) in enumerate(states, g * k):
+                        store(cache["conv"][i], conv)
+                        store(cache["ssm"][i], ssm)
                     if kv is not None:
-                        kvs.append(_build_layer_cache(
-                            kv[0], kv[1], positions, cache_len, None,
-                            self.dtype))
-            if build_cache:
-                cache = {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
-                if kvs:
-                    ck, cv, sp = zip(*kvs)
-                    cache.update(k=torch.stack(ck), v=torch.stack(cv),
-                                 slot_pos=torch.stack(sp))
+                        write_kv(kv, "", g)
         else:
             # one layer a group; local_global's (local, global) pairs
             k = tf.layer_groups(cfg)
-            layer_caches: Dict[str, list] = {}
             layer_aux = []
             for g in range(cfg.n_layers // k):
                 x, kvs, auxs = remat(functools.partial(
@@ -489,24 +596,14 @@ class Model(nn.Module):
                     self.plan)(x)
                 if build_cache:
                     for i, kv in enumerate(kvs, g * k):
-                        sfx, _, window = self._attn_layout(i)
-                        size = min(cache_len, window) if window else \
-                            cache_len
-                        layer_caches.setdefault(sfx, []).append(
-                            _build_layer_cache(kv[0], kv[1], positions,
-                                               size, window, self.dtype))
+                        write_kv(kv, *self._attn_layout(i))
                 layer_aux += [a for a in auxs if a is not None]
-            if build_cache:
-                cache = {}
-                for sfx, caches in layer_caches.items():
-                    for name, leaves in zip(KV_NAMES, zip(*caches)):
-                        cache[name + sfx] = torch.stack(leaves)
             # the reference's local_global branch collects no aux
             if layer_aux and cfg.attention != "local_global":
                 aux = {k: torch.stack([a[k] for a in layer_aux]).mean()
                        for k in layer_aux[0]}
         if build_cache:
-            cache["pos"] = positions[:, -1] + 1
+            store(cache["pos"], positions[:, -1] + 1)
         return x, aux, cache
 
     def _dense_group(self, x, *, g: int, k: int, positions):
@@ -549,6 +646,8 @@ class Model(nn.Module):
     def prefill(self, batch, cache_len: Optional[int] = None):
         hidden, _, cache = self.forward(batch, build_cache=True,
                                         cache_len=cache_len)
+        # the last position, from the sequence gathered whole
+        hidden = self.plan.constrain(hidden, ("batch", None, None))
         logits = self.logits(hidden[:, -1:])[:, 0]
         return logits, cache
 
@@ -557,85 +656,95 @@ class Model(nn.Module):
         """inputs: {"tokens": (B, 1)} (the audio family's {"embeddings":
         (B, 1, media_embed_dim)}); q_pos: (B,) position of the new token.
         Returns (logits (B, V) f32, cache), the cache's tensors updated in
-        place (a vlm's media K/V are read, not written)."""
-        cfg = self.cfg
-        q_pos = self._index(q_pos)
+        place (a vlm's media K/V are read, not written).  Under a plan the
+        inputs enter ("batch", None[, None]) and q_pos ("batch",), as the
+        reference's dry run places them, and each rank writes and reads
+        its own shards of the cache."""
+        cfg, plan = self.cfg, self.plan
+        if plan.enabled and plan.tp_mode == "shard_map":
+            raise ValueError(
+                f"{plan.name}: tp_mode='shard_map' does not decode: its "
+                f"explicit projections split the sequence over 'model', "
+                f"and a decode step's is one token (ROADMAP §1, serving "
+                f"under shard_map)")
+        q_pos = self.shard(self._index(q_pos), ("batch",))
         x = self._embed(inputs)
         if cfg.family in ("ssm", "hybrid"):
             k = cfg.hybrid_period if cfg.family == "hybrid" else 1
             for i, p in enumerate(self.layers):
                 x, conv_st, ssm_st = tf.mamba_block(
-                    p, x, cfg, conv_state=cache["conv"][i],
+                    p, x, cfg, plan, conv_state=cache["conv"][i],
                     ssm_state=cache["ssm"][i], decode=True, impl=self.impl)
-                cache["conv"][i] = conv_st
-                cache["ssm"][i] = ssm_st
+                store(cache["conv"][i], conv_st)
+                store(cache["ssm"][i], ssm_st)
                 if cfg.family == "hybrid" and (i + 1) % k == 0:
                     g = i // k
                     layer_cache = {n: cache[n][g] for n in KV_NAMES}
                     x, _ = tf.dense_block_decode(self.shared_attn, x, cfg,
-                                                 self.plan, layer_cache,
-                                                 q_pos)
+                                                 plan, layer_cache, q_pos)
         else:
             k = tf.layer_groups(cfg)
             for i, p in enumerate(self.layers):
                 sfx, j, window = self._attn_layout(i)
                 layer_cache = {n: cache[n + sfx][j] for n in KV_NAMES}
-                x, _ = tf.dense_block_decode(p, x, cfg, self.plan,
-                                             layer_cache, q_pos,
-                                             window=window)
+                x, _ = tf.dense_block_decode(p, x, cfg, plan, layer_cache,
+                                             q_pos, window=window)
                 if cfg.family == "vlm" and (i + 1) % k == 0:
                     g = i // k
                     x = tf.cross_attn_block(
                         self.cross[g], x,
                         (cache["media_k"][g], cache["media_v"][g]), cfg,
-                        self.plan)
-        cache["pos"] = q_pos + 1
+                        plan)
+        store(cache["pos"], q_pos + 1)
         logits = self.logits(x)[:, 0]
         return logits, cache
 
     # ========================= cache allocation ======================== #
-    def init_cache(self, B: int, cache_len: int):
+    def cache_specs(self):
+        """{cache leaf name: mesh-axis assignments} under the model's plan
+        (the reference's ``cache_specs``, on the port's flat names)."""
+        return cache_specs(self.cfg, self.plan)
+
+    def init_cache(self, B: int, cache_len: int, device=None):
         """Zero-initialised cache (a windowed layer's of ``min(cache_len,
-        window)`` slots, as the reference's)."""
-        cfg, dev, dt = self.cfg, self.device, self.dtype
-        L = cfg.n_layers
-        pos = torch.zeros((B,), dtype=torch.int64, device=dev)
-        KV, hd = cfg.n_kv_heads, cfg.head_dim
+        window)`` slots, as the reference's; ``slot_pos`` -1, every slot
+        empty).  Under an enabled plan each leaf is a DTensor placed as
+        ``cache_specs`` says, of which each rank allocates only its own
+        shard (``sharding.zeros_sharded``).  On the meta device (``device=
+        "meta"``) the leaves are meta tensors of the whole shapes, the
+        reference's ``eval_shape`` of ``init_cache``."""
+        device = self.device if device is None else torch.device(device)
+        out = {}
+        for name, (shape, dt, fill) in cache_layout(
+                self.cfg, B, cache_len, self.dtype).items():
+            if self.mesh is None or device.type == "meta":
+                out[name] = torch.full(shape, fill, dtype=dt, device=device)
+            else:
+                out[name] = zeros_sharded(
+                    shape, dt, self.mesh, self.plan.placements(
+                        cache_logical(name, len(shape)), self.mesh),
+                    fill=fill, device=device)
+        return out
 
-        def kv_cache(n, size=cache_len, sfx=""):
-            return {"k" + sfx: torch.zeros((n, B, size, KV, hd), dtype=dt,
-                                           device=dev),
-                    "v" + sfx: torch.zeros((n, B, size, KV, hd), dtype=dt,
-                                           device=dev),
-                    "slot_pos" + sfx: torch.full((n, B, size), -1,
-                                                 dtype=torch.int64,
-                                                 device=dev)}
-
-        if cfg.family in ("ssm", "hybrid"):
-            di, N, Kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv - 1
-            state = (di, N) if cfg.ssm_version == 1 else \
-                (cfg.n_ssm_heads, cfg.ssm_head_dim, N)
-            out = {"conv": torch.zeros((L, B, Kc, di), dtype=dt, device=dev),
-                   "ssm": torch.zeros((L, B) + state, dtype=torch.float32,
-                                      device=dev),
-                   "pos": pos}
-            if cfg.family == "hybrid":
-                out.update(kv_cache(L // cfg.hybrid_period))
-            return out
-        if cfg.family == "vlm":
-            g, M = cfg.n_layers // cfg.cross_attn_period, cfg.n_media_tokens
-            return {**kv_cache(len(self.layers)),
-                    **{name: torch.zeros((g, B, M, KV, hd), dtype=dt,
-                                         device=dev)
-                       for name in ("media_k", "media_v")},
-                    "pos": pos}
-        window = min(cache_len, cfg.window or cache_len)
-        if cfg.attention == "local_global":
-            return {**kv_cache(L // 2, window, "_local"), **kv_cache(L // 2),
-                    "pos": pos}
-        if cfg.attention == "swa":
-            return {**kv_cache(L, window), "pos": pos}
-        return {**kv_cache(L), "pos": pos}
+    def with_plan(self, plan: ParallelPlan) -> "Model":
+        """This model under ``plan``, over the same parameter tensors (no
+        copy): a serve plan's decode model beside its prefill model, as
+        the reference passes one params tree to both.  Raises
+        ``ValueError`` where ``plan`` would place a parameter otherwise
+        than the model's plan does (``check_shared_params``)."""
+        check_shared_params(self.cfg, self.plan, plan)
+        check_supported(self.cfg, plan)
+        other = Model.__new__(Model)
+        nn.Module.__init__(other)
+        for k, v in self.__dict__.items():
+            if not k.startswith("_"):
+                setattr(other, k, v)
+        for k, v in self._parameters.items():
+            other.register_parameter(k, v)
+        for k, m in self._modules.items():
+            other.add_module(k, m)
+        other.plan = plan
+        return other
 
 
 def build_model(cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,

@@ -36,8 +36,13 @@ runs under a second ``local_map``, its result a partial sum over "model"
 The aux losses are means over every group: each rank's sums, one
 all-reduce, then ``lb_loss = E Σ me·ce`` of the global means (the mean of
 the ranks' own lb_loss values is another number).  The groups must
-split evenly over the ranks of "tokens" (``T % Sg == 0`` and ``G``
-divisible by their count), else it raises.
+split evenly over the ranks of "tokens" (``G`` divisible by their
+count), else it raises.  Where the tokens do not fill whole groups
+(``T % Sg``) the groups do not follow the batch's shards: x is gathered
+whole, padded to whole groups as on one device, and each rank takes its
+run of them.  Where no mesh dim splits the tokens (the serve plans'
+decode, and their prefill below a global batch of 16), every rank
+routes every group, and the experts stay sharded.
 """
 from __future__ import annotations
 
@@ -214,10 +219,19 @@ def _moe_ffn_sharded(p, x, cfg, plan, valid):
     # which is its run of groups when they are minor to the batch's dims
     sub = [i for i in split if not isinstance(bat[i], Shard)]
     n_tok = math.prod(mesh.size(i) for i in split)
-    if T % Sg or G % n_tok or any(b > i for i in sub for b in split
-                                  if b not in sub):
+    # the groups do not follow the batch's shards (the tokens padded to
+    # whole groups, as on one device, or the batch split where the tokens
+    # are not: a decode plan's from a batch of 16): x gathered whole,
+    # each rank takes its run of the groups
+    whole = bool(T % Sg) or any(b > i for i in sub for b in split
+                                if b not in sub) or \
+        any(isinstance(p_, Shard) and i not in split
+            for i, p_ in enumerate(bat))
+    if whole:
+        sub = split
+    if G % n_tok:
         raise NotImplementedError(
-            f"{cfg.name}: {T} tokens in groups of {Sg} do not split evenly "
+            f"{cfg.name}: {G} groups of {Sg} tokens do not split evenly "
             f"over the {n_tok} ranks of the 'tokens' axes")
     if valid is not None:
         raise NotImplementedError("moe_ffn under a plan routes every token "
@@ -230,8 +244,10 @@ def _moe_ffn_sharded(p, x, cfg, plan, valid):
     Tl = Gl * Sg                            # this rank's tokens
 
     def dispatch(xl, router):
-        xg = xl.reshape(-1, d)[j * Tl:(j + 1) * Tl].reshape(Gl, Sg, d)
-        vg = torch.ones((Gl, Sg), dtype=torch.bool, device=xg.device)
+        xt = F.pad(xl.reshape(-1, d), (0, 0, 0, G * Sg - T))
+        xg = xt[j * Tl:(j + 1) * Tl].reshape(Gl, Sg, d)
+        vg = (torch.arange(j * Tl, (j + 1) * Tl, device=xg.device) < T
+              ).reshape(Gl, Sg)
         logits, probs, gate_vals, expert_idx, keep, rows, buf = \
             _route_dispatch(xg, vg, router, cfg, C)
         return buf, rows, keep, gate_vals, _aux_sums(
@@ -241,13 +257,14 @@ def _moe_ffn_sharded(p, x, cfg, plan, valid):
         y = _combine(out, rows, keep, gate_vals).reshape(Tl, d)
         # this rank's slice among zeros: the sum over "model" places it
         y = F.pad(y.to(x.dtype), (0, 0, j * Tl, (n_sub - 1 - j) * Tl))
-        return (y.view(-1, S, d),)
+        return (y[:y.shape[0] - (G * Sg - T)].view(-1, S, d),)
 
     def on_split(pl):           # pl on the mesh dims that split the tokens
         return [pl if i in split else Replicate() for i in range(mesh.ndim)]
 
     on_groups = on_split(Shard(0))
-    in_batch = plan.placements(("batch", None, None), mesh)
+    in_batch = [Replicate()] * mesh.ndim if whole else \
+        plan.placements(("batch", None, None), mesh)
     buf, rows, keep, gate_vals, sums = map_local(
         dispatch, (x, p["router"]), (in_batch, [Replicate()] * mesh.ndim),
         (on_split(Shard(1)), on_groups, on_groups, on_groups,

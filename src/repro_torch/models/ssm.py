@@ -30,7 +30,10 @@ each half, as much again), each rank keeps its columns of each half (no
 communication) and projects onto them, so xin and z come out sharded
 along d_inner.  The reference's mixers are plain einsums that read no
 ``tp_mode``, so their projections (``_in_proj``'s halves, ``out_proj``)
-keep the GSPMD form under ``tp_mode="shard_map"`` too.  On one device
+keep the GSPMD form under ``tp_mode="shard_map"`` too.  A decode step
+(under a serve plan's decode plan) runs ``selective_scan_step`` /
+``ssd_step`` and the conv-state update the same way, on each rank's
+channels of the "inner"-sharded conv and ssm states.  On one device
 every constraint is the identity and the mixers run as before.
 """
 from __future__ import annotations
@@ -68,7 +71,18 @@ def causal_conv1d(x, w, b, state=None):
 
 
 def selective_scan_step(h, u, dt, A, Bvec, Cvec):
-    """One decode step.  h: (B, D, N) f32; u, dt: (B, D); Bvec, Cvec: (B, N)."""
+    """One decode step.  h: (B, D, N) f32; u, dt: (B, D); Bvec, Cvec: (B, N).
+    DTensors run on each rank's own batch rows and channels."""
+    if is_dtensor(u):
+        # (B, 1, D) stands for the (batch, sequence, channels) map_channels
+        # places by; the state and outputs carry their roles as K8's do
+        y, h = map_channels(
+            lambda hl, ul, dtl, Al, Bl, Cl: selective_scan_step(
+                hl, ul[:, 0], dtl[:, 0], Al, Bl, Cl)[::-1],
+            (h, u[:, None], dt[:, None], A, Bvec, Cvec),
+            ((0, 1), (0, 2), (0, 2), (None, 0), (0, None), (0, None)),
+            ((0, 1), (0, 1)), u[:, None])
+        return h, y
     dtf = dt.float()
     dA = torch.exp(dtf[..., None] * A.float())                 # (B, D, N)
     dBu = (dtf * u.float())[..., None] * Bvec.float()[:, None, :]
@@ -179,7 +193,16 @@ def ssd_chunked(xh, dt, A, Bmat, Cmat, *, chunk: int = 128, h0=None):
 
 def ssd_step(h, xh, dt, A, Bvec, Cvec):
     """One decode step.  h: (B, H, P, N); xh: (B, H, P); dt: (B, H);
-    Bvec, Cvec: (B, N)."""
+    Bvec, Cvec: (B, N).  DTensors run on each rank's own batch rows and
+    heads."""
+    if is_dtensor(xh):
+        y, h = map_channels(
+            lambda hl, xl, dtl, Al, Bl, Cl: ssd_step(
+                hl, xl[:, 0], dtl[:, 0], Al, Bl, Cl)[::-1],
+            (h, xh[:, None], dt[:, None], A, Bvec, Cvec),
+            ((0, 1), (0, 2), (0, 2), (None, 0), (0, None), (0, None)),
+            ((0, 1), (0, 1)), xh[:, None])
+        return h, y
     dtf = dt.float()
     dA = torch.exp(dtf * A.float())                        # (B, H)
     dBx = dtf[..., None, None] * \

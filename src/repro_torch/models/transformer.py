@@ -375,7 +375,9 @@ def attn_block_decode(p, x, cfg, cache, q_pos, *, window=None,
                       plan=_SINGLE):
     """One-token attention block against a cache slice.
 
-    cache: dict(k: (B,S,KV,hd), v, slot_pos: (B,S)), written in place.
+    cache: dict(k: (B,S,KV,hd), v, slot_pos: (B,S)), written in place
+    (under a serve plan each rank's slots of a cache sharded along its
+    sequence: ``attention.write_cache``, ``attention.decode_attention``).
     Returns (y, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     positions = q_pos[:, None]
@@ -386,8 +388,12 @@ def attn_block_decode(p, x, cfg, cache, q_pos, *, window=None,
     o = attn.decode_attention(q, ck, cv, q_pos, sp,
                               attn_softcap=cfg.attn_softcap, window=window)
     B = x.shape[0]
-    o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ \
-        p["attn"]["wo"].to(o.dtype)
+    # the reference's plain einsum in the GSPMD form: each rank takes its
+    # own heads of the (replicated) output onto its rows of the
+    # head-sharded wo, and the partial sums are reduced
+    o = plan.constrain(o.reshape(B, 1, cfg.n_heads * cfg.head_dim),
+                       ("batch", None, "heads"))
+    o = plan.row_parallel_project(o, p["attn"]["wo"], tp_mode="gspmd")
     if cfg.post_norms:
         o = rms_norm(o, p["ln1p"], cfg.norm_eps)
     return o, {"k": ck, "v": cv, "slot_pos": sp}

@@ -29,6 +29,13 @@ g-bar (``explicit_col_project``, ``explicit_row_project``): a
 out (``torch.distributed._functional_collectives``, whose autograd runs
 the transposed collective in the backward).
 
+A tensor dim sharded over several mesh dims (a serve plan's "kv_seq"
+over ("data", "model")) is cut by DTensor's nested rule: ``shard_range``
+gives a rank its chunk's global offset and length, ``zeros_sharded``
+allocates a DTensor of which each rank holds only its own chunk, and
+``all_reduce`` reduces a ``map_local`` body's partial results over mesh
+dims.
+
 ``ParamDef``, ``stack_defs`` and ``init_from_defs`` are the single source
 of truth for shapes, logical axes and initialisation; ``defs_to_specs``
 and ``defs_to_shapes`` map a definition tree to its specs and to meta
@@ -133,8 +140,8 @@ class ParallelPlan:
             raise ValueError(f"{len(logical_axes)} logical axes "
                              f"{tuple(logical_axes)} for a tensor of shape "
                              f"{tuple(x.shape)}")
-        return x.redistribute(x.device_mesh,
-                              self.placements(logical_axes, x.device_mesh))
+        return contiguous_shards(x.redistribute(
+            x.device_mesh, self.placements(logical_axes, x.device_mesh)))
 
     def with_(self, **kw) -> "ParallelPlan":
         return dataclasses.replace(self, **kw)
@@ -534,6 +541,66 @@ def map_channels(fn, args, dims, out_dims, like):
     pls = [placements_like(like, (0, 2), d) for d in dims]
     outs = [placements_like(like, (0, 2), d) for d in out_dims]
     return map_local(fn, args, pls, outs, like.device_mesh)
+
+
+def contiguous_shards(t):
+    """DTensor ``t`` with a contiguous local shard (a copy only where it
+    is not): DTensor unpads a gather of uneven shards (a prompt the mesh
+    does not split evenly) by ``narrow``, and torch 2.11's matmul of
+    DTensors then refuses to ``view`` the local tensor."""
+    from torch.distributed.tensor import DTensor
+    local = t.to_local()
+    if local.is_contiguous():
+        return t
+    return DTensor.from_local(local.contiguous(), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def shard_range(length: int, mesh, placements, dim: int) -> Tuple[int, int]:
+    """(global offset, length) of this rank's chunk of a tensor dim of
+    ``length`` elements that ``placements`` on ``mesh`` shard: over each
+    mesh dim in order on which it is ``Shard(dim)``, the chunk so far is
+    cut as ``torch.chunk`` cuts it (ceil-sized pieces, the last short or
+    empty), which is how DTensor lays out its local shards.  On one mesh
+    dim that is jax's split too; over two, DTensor nests the cuts (22
+    over 2 x 2: 6, 5, 6, 5) where jax cuts once (6, 6, 6, 4)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    offset = 0
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n = mesh.size(i)
+            size = -(-length // n)
+            start = min(coord[i] * size, length)
+            offset, length = offset + start, min(size, length - start)
+    return offset, length
+
+
+def zeros_sharded(shape, dtype, mesh, placements, fill=0, device=None):
+    """A DTensor of ``shape`` and ``placements`` on ``mesh`` (its shards
+    on ``device``, default the mesh's device type), every element
+    ``fill``, for which each rank allocates only its own shard
+    (``shard_range`` of each sharded dim): no rank ever holds the whole
+    tensor, as a serve plan's cache needs."""
+    from torch.distributed.tensor import DTensor
+    local_shape = list(shape)
+    for d in range(len(shape)):
+        local_shape[d] = shard_range(shape[d], mesh, placements, d)[1]
+    t = torch.full(local_shape, fill, dtype=dtype,
+                   device=device or mesh.device_type)
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def all_reduce(t, op: str, mesh, dims: Sequence[int]):
+    """``t`` reduced (``op``: "sum" or "max") over the mesh dims ``dims``
+    of ``mesh``, one collective a dim (for use in a ``map_local`` body)."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, mesh.get_group(i)))
+    return t
 
 
 def replicate(t):

@@ -10,6 +10,7 @@ results from rank 0.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import tempfile
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from fixtures_torch_media import open_gates
+from fixtures_torch_media import inputs, open_gates
 
 AXES = ("pod", "data", "model")
 LR = 1e-3
@@ -97,10 +98,13 @@ def _model(mesh_shape, params_npz, B, S, seed=0, arch="smollm-360m",
 
 # the sharded paths a world counts (``count_paths``): K7's and K8's
 # local_map, the moe FFN's, the conv's and the SSD's over channels, a
-# vlm's cross attention's, and the explicit projections of tp_mode=
+# vlm's cross attention's, decode attention and the cache writes on a
+# sequence-sharded cache, and the explicit projections of tp_mode=
 # "shard_map"
 PATHS = (("repro_torch.kernels.ops", "_flash_attention_sharded"),
          ("repro_torch.models.attention", "_cross_attention_sharded"),
+         ("repro_torch.models.attention", "_decode_attention_sharded"),
+         ("repro_torch.models.attention", "_write_cache_sharded"),
          ("repro_torch.kernels.ops", "_selective_scan_sharded"),
          ("repro_torch.models.moe", "_moe_ffn_sharded"),
          ("repro_torch.models.ssm", "causal_conv1d"),
@@ -428,6 +432,251 @@ def checkpoint_worker(rank, world, mesh_shape, params_npz, batch_npz,
         np.savez(out_npz, **out)
 
 
+# serving under the serve plans (``serve_worker``): a prompt longer than
+# the smoke window of 16 (the rolling caches wrap), 4 decode steps, and a
+# cache of 22 slots, which no mesh of 4 splits evenly (over one mesh dim
+# 6, 6, 6, 4; over two, nested, 6, 5, 6, 5)
+SERVE_PROMPT, SERVE_NEW, SERVE_CACHE = 18, 4, 22
+
+
+def serve_inputs(cfg, B: int, seed: int = 5):
+    """The prompt batch of a serving case ((B, SERVE_PROMPT) tokens, or
+    the audio family's frame embeddings; a vlm's media) and, for the
+    audio family, the frames its decode steps feed ((B, SERVE_NEW,
+    media_embed_dim)); numpy, from ``seed``."""
+    batch = inputs(cfg, seed=seed, B=B, S=SERVE_PROMPT)
+    frames = inputs(cfg, seed=seed + 1, B=B, S=SERVE_NEW).get("embeddings")
+    return batch, frames
+
+
+def serve_plans(cfg, mesh, B: int, plan_kw=None):
+    """plan_for's (prefill, decode) plans of ``cfg`` at global batch B on
+    ``mesh`` (``plan_kw``: plan_for's overrides, e.g.
+    ``serve_weight_mode``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import plan_for
+    return tuple(plan_for(cfg, ShapeConfig(kind, SERVE_CACHE, B, kind), mesh,
+                          **(plan_kw or {}))
+                 for kind in ("prefill", "decode"))
+
+
+def serve_run(model, decoder, batch, step, record):
+    """Prefill of ``batch`` into a cache of SERVE_CACHE slots on
+    ``model``, then SERVE_NEW decode steps on ``decoder``, the inputs of
+    step t ``step(t, the logits before it)`` ({"tokens": (B, 1)} or
+    {"embeddings": (B, 1, E)}); ``record(key, tensor)`` takes the whole
+    logits of each (``prefill``, ``decode<t>``), the prefill cache
+    (``cache/<name>``) before a step writes it, and each step's inputs
+    (``step<t>/<input>``).  Returns the cache."""
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    from repro_torch.sharding import full
+    logits, cache = make_prefill_step(model, SERVE_CACHE)(batch)
+    logits = full(logits)
+    record("prefill", logits)
+    for name, leaf in cache.items():
+        record(f"cache/{name}", full(leaf))
+    decode = make_decode_step(decoder)
+    q_pos = np.full((logits.shape[0],), SERVE_PROMPT, np.int32)
+    for t in range(SERVE_NEW):
+        fed = step(t, logits)
+        for k, v in fed.items():
+            record(f"step{t}/{k}", torch.as_tensor(v))
+        logits, cache = decode(cache, fed, q_pos + t)
+        logits = full(logits)
+        record(f"decode{t}", logits)
+    return cache
+
+
+def attention_layers(cfg) -> int:
+    """Self-attention blocks a forward of ``cfg`` runs (a hybrid's shared
+    block once a group, none in an ssm model, a vlm's self blocks)."""
+    from repro_torch.models.transformer import layer_stack
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period
+    return math.prod(layer_stack(cfg))
+
+
+def serve_worker(rank, world, mesh_shape, cases, out_npz):
+    """Each case (tag, arch, B, plan overrides, params npz or None,
+    inputs npz) on one mesh of ``mesh_shape``: the smoke model (float32,
+    the vlm's gates opened) under plan_for's prefill plan with the
+    case's parameters, its decode model over the same tensors
+    (``Model.with_plan`` of the decode plan), ``serve_run`` of the
+    inputs npz's ``prompt/*`` batch and ``step<t>/*`` decode inputs.
+    Rank 0 writes under ``<tag>/``: the logits and prefill cache
+    ``serve_run`` records, each cache leaf's placements
+    (``placed/<name>``) and, over the ranks, the smallest and largest
+    local length of ``k`` along its sequence (``k_local``; an ssm model's
+    ``ssm`` state along its channels), whether the ranks' shards of it
+    sum to the whole and each owns only its own storage (``k_chunks``), whether the decode model holds the prefill
+    model's parameter tensors (``shares``), and the sharded paths' counts
+    over the prefill and over the decode steps (``prefill_path/*``,
+    ``decode_path/*``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import local
+    mesh = make_mesh(mesh_shape, AXES)
+    paths = count_paths()
+    out = {}
+    for tag, arch, B, plan_kw, params_npz, inputs_npz in cases:
+        cfg = smoke_cfg(arch)
+        prefill_plan, decode_plan = serve_plans(cfg, mesh, B, plan_kw)
+        model = build_model(cfg, prefill_plan, device="cpu", seed=0)
+        if params_npz is not None:
+            with np.load(params_npz) as f:
+                model.load_jax_params(unflatten(dict(f)))
+        open_gates(model)
+        decoder = model.with_plan(decode_plan)
+        with np.load(inputs_npz) as f:
+            data = dict(f)
+        batch = {k[len("prompt/"):]: v for k, v in data.items()
+                 if k.startswith("prompt/")}
+        steps = [{k.split("/")[1]: v for k, v in data.items()
+                  if k.startswith(f"step{t}/")} for t in range(SERVE_NEW)]
+
+        base = dict(paths)
+
+        def record(key, t, _tag=tag, _base=base):
+            if key == "prefill":
+                for k, n in paths.items():
+                    out[f"{_tag}/prefill_path/{k}"] = n - _base[k]
+            out[f"{_tag}/{key}"] = t.detach().numpy().copy()
+
+        cache = serve_run(model, decoder, batch, lambda t, _: steps[t],
+                          record)
+        for k, n in paths.items():
+            out[f"{tag}/decode_path/{k}"] = \
+                n - base[k] - out[f"{tag}/prefill_path/{k}"]
+        for name, leaf in cache.items():
+            out[f"{tag}/placed/{name}"] = np.array(str(tuple(leaf.placements)))
+        # k along its sequence, or an ssm model's state along its channels
+        whole = cache["k" if "k" in cache else "ssm"]
+        k = local(whole)
+        lens = [None] * world
+        dist.all_gather_object(lens, (k.shape[2], k.numel(),
+                                      k.untyped_storage().nbytes() ==
+                                      k.numel() * k.element_size()))
+        out[f"{tag}/k_local"] = np.array([min(n for n, _, _ in lens),
+                                          max(n for n, _, _ in lens)])
+        out[f"{tag}/k_chunks"] = np.array(
+            sum(n for _, n, _ in lens) == whole.numel() and
+            all(own for *_, own in lens))
+        out[f"{tag}/shares"] = np.array(
+            all(a is b for a, b in zip(model.parameters(),
+                                       decoder.parameters())) and
+            len(list(model.parameters())) ==
+            len(list(decoder.parameters())))
+    if rank == 0:
+        np.savez(out_npz, **out)
+
+
+def serve_one_device(arch, batch, frames, groups=1, device="cpu",
+                     plan_kw=None):
+    """``serve_run`` of the smoke model of ``arch`` (seed 0, float32, the
+    vlm's gates opened) on one device, its moe groups aimed at ``groups``
+    in prefill (a world's size, as plan_for's prefill plan aims them) and
+    at 1 in decode (of ``plan_kw``'s ``moe_group_size`` when it names
+    one), each step fed the greedy token (the audio family ``frames``,
+    (B, SERVE_NEW, E)), on ``device``: {key: array}."""
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import single_device_plan
+    one = single_device_plan().with_(**{
+        k: v for k, v in (plan_kw or {}).items() if k == "moe_group_size"})
+    model = open_gates(build_model(smoke_cfg(arch),
+                                   one.with_(moe_target_groups=groups),
+                                   device=device, seed=0))
+
+    def step(t, logits):
+        if frames is not None:
+            return {"embeddings": frames[:, t:t + 1]}
+        return {"tokens": logits.argmax(-1)[:, None].to(torch.int32)
+                .cpu().numpy()}
+
+    out = {}
+    serve_run(model, model.with_plan(one), batch, step,
+              lambda k, t: out.__setitem__(k, t.detach().cpu().numpy()
+                                           .copy()))
+    return out
+
+
+# serve_worker's worlds in ``main``: (mesh, [(arch, B, plan overrides)]),
+# test_torch_multidevice_serve{,_families}.py's
+SERVE_WORLDS = [
+    ((1, 2, 2), [("smollm-360m", 2, None),
+                 ("smollm-360m", 16, {"serve_weight_mode": "gathered"}),
+                 ("qwen3-moe-30b-a3b", 2, None),
+                 ("qwen3-moe-30b-a3b", 16, {"moe_group_size": 25}),
+                 ("musicgen-medium", 2, None)]),
+    ((1, 1, 4), [(arch, 2, None) for arch in (
+        "gemma2-9b", "mixtral-8x7b", "falcon-mamba-7b", "zamba2-2.7b",
+        "llama-3.2-vision-11b")])]
+
+
+def serve_main(archs, d) -> int:
+    """SERVE_WORLDS (those of ``archs`` when given) against the port's
+    one-device path from seed 0 (``serve_one_device``): the logits
+    (prefill 1e-4, decode 1e-3), greedy tokens, prefill cache (1e-5),
+    the decode model over the prefill model's tensors, K7 under
+    ``local_map`` once an attention block in prefill and the decode
+    attention on the sharded cache each step.  Prints a line a case;
+    returns the count of failed cases."""
+    import time
+    import fixtures_torch_multidevice as fx
+    bad = 0
+    for mesh, cases in SERVE_WORLDS:
+        cases = [c for c in cases if not archs or c[0] in archs]
+        if not cases:
+            continue
+        t0 = time.perf_counter()
+        world, want, worker_cases = int(np.prod(mesh)), {}, []
+        for arch, B, plan_kw in cases:
+            tag = f"{arch}-B{B}" + "".join(f"-{v}" for v in
+                                          (plan_kw or {}).values())
+            batch, frames = serve_inputs(smoke_cfg(arch), B)
+            want[tag] = serve_one_device(arch, batch, frames, world,
+                                         plan_kw=plan_kw)
+            path = os.path.join(d, f"{tag}_inputs.npz")
+            np.savez(path, **{f"prompt/{k}": v for k, v in batch.items()},
+                     **{k: v for k, v in want[tag].items()
+                        if k.startswith("step")})
+            worker_cases.append((tag, arch, B, plan_kw, None, path))
+        path = os.path.join(d, "served.npz")
+        spawn(fx.serve_worker, world, mesh, worker_cases, path)
+        with np.load(path) as f:
+            got = dict(f)
+        secs = time.perf_counter() - t0
+        for (arch, B, plan_kw), (tag, one) in zip(cases, want.items()):
+            errs, fails = [], []
+            for key, tol in [("prefill", 1e-4)] + [
+                    (f"decode{t}", 1e-3) for t in range(SERVE_NEW)]:
+                a, b = got[f"{tag}/{key}"], one[key]
+                errs.append(float(np.abs(a - b).max()))
+                if not np.allclose(a, b, atol=tol, rtol=tol) or \
+                        not np.array_equal(a.argmax(-1), b.argmax(-1)):
+                    fails.append(key)
+            fails += [k for k in one if k.startswith("cache/") and not
+                      np.allclose(got[f"{tag}/{k}"], one[k], atol=1e-5,
+                                  rtol=1e-5)]
+            n = attention_layers(smoke_cfg(arch))
+            paths = (int(got[f"{tag}/prefill_path/_flash_attention_sharded"]),
+                     int(got[f"{tag}/decode_path/_decode_attention_sharded"]))
+            if paths != (n, n * SERVE_NEW):
+                fails.append(f"paths {paths}")
+            if not got[f"{tag}/shares"]:
+                fails.append("parameters copied")
+            bad += bool(fails)
+            print(f"serve {tag} mesh {mesh}: logits max abs "
+                  f"{[f'{e:.3g}' for e in errs]} (tol 1e-4 prefill, 1e-3 "
+                  f"decode), K7 local_map {paths[0]}, sharded decode "
+                  f"attention {paths[1]}, local k lengths "
+                  f"{got[f'{tag}/k_local'].tolist()}, {secs:.1f} s the "
+                  f"world: {'ok' if not fails else 'MISMATCH ' + str(fails)}",
+                  flush=True)
+    return bad
+
+
 def batch(cfg, B: int, S: int, seed: int = 1, pads: int = 3):
     """Tokens and labels with ``pads`` -1s (test_torch_train's batch of a
     dense model); the audio family's frame embeddings in place of the
@@ -512,9 +761,10 @@ def main(argv=None) -> int:
     holds them, each element beyond PARAM_TOL printed with its gradients;
     a moe model's single-device groups aimed at the world's size) and
     ``gpipe_apply`` at 2 stages against the sequential layers (1e-5,
-    1e-4).  Checks the DTensor path on whatever
-    torch is installed (the suite's reference comparison needs JAX).
-    Arch names as arguments keep only their worlds (and skip GPipe).
+    1e-4), then serving under the serve plans (``serve_main``).  Checks
+    the DTensor path on whatever torch is installed (the suite's
+    reference comparison needs JAX).  Arch names as arguments keep only
+    their worlds (and skip GPipe).
 
         PYTHONPATH=src python tests/fixtures_torch_multidevice.py [arch...]
     """
@@ -576,6 +826,7 @@ def main(argv=None) -> int:
                        for g in grads]
                 print(f"  {name}{idx}: {diff:.3g}; |g_s| / (GRAD_TOL max) "
                       + " ".join(f"{r:.3g}" for r in rel), flush=True)
+        bad += serve_main(archs, d)
         if archs:
             return 1 if bad else 0
         rng = np.random.default_rng(0)

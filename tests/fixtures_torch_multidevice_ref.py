@@ -32,7 +32,7 @@ from repro.runtime.steps import make_loss_fn as rmake_loss_fn
 from repro.runtime.steps import make_train_step as rmake_train_step
 from repro.sharding import defs_to_specs as rdefs_to_specs
 from repro.sharding import single_device_plan as rsingle_device_plan
-from repro_torch.models.model import load_jax_params
+from repro_torch.models.model import cache_layout, load_jax_params
 from repro_torch.models.transformer import layer_stack
 
 B, S = 4, 48
@@ -225,6 +225,190 @@ def check_placements(arch, over, mesh, got) -> None:
         assert p == want[key], (name, p, want[key])
         seen.add(key)
     assert seen == set(want), sorted(set(want) ^ seen)
+
+
+def flat_cache(rcache, cfg):
+    """The reference's cache in the port's flat names and shapes: nested
+    ``local``/``global``/``attn``/``self`` leaves flattened (a
+    local_global model's ``local`` leaves as ``*_local``), leading layer
+    dims merged into one (numpy)."""
+    layout = cache_layout(cfg, 1, 1, None)
+    out = {}
+    for key, leaf in _flat_tree(rcache).items():
+        *top, name = key.split("/")
+        name += "_local" if top == ["local"] else ""
+        arr, n = np.asarray(leaf), len(layout[name][0])
+        out[name] = arr if n == 1 else \
+            arr.reshape((-1,) + arr.shape[arr.ndim - n + 1:])
+    return out
+
+
+def cache_placements(arch, B, mesh, plan_kw=None):
+    """{port cache leaf name: str(placements)} from the reference's
+    ``Model.cache_specs`` under its ``plan_for`` prefill and decode plans
+    (which place the cache alike: asserted) at global batch B, on a mesh
+    of ``mesh``'s shape (its axes as ``Shard`` on the dims of size > 1),
+    a leaf's stacked layer dims merged into one."""
+    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32")
+    axes = fx.AXES
+    stand_in = SimpleNamespace(axis_names=axes, shape=dict(zip(axes, mesh)))
+    specs = []
+    for kind in ("prefill", "decode"):
+        rplan = rplan_for(rcfg, RShapeConfig(kind, fx.SERVE_CACHE, B, kind),
+                          stand_in, **(plan_kw or {}))
+        specs.append(_flat_tree(rbuild(rcfg, rplan).cache_specs(),
+                                leaf=tuple))
+    assert specs[0] == specs[1]
+    active = [a for a, n in zip(axes, mesh) if n > 1] or [axes[-1]]
+    layout = cache_layout(fx.smoke_cfg(arch), 1, 1, None)
+    out = {}
+    for key, spec in specs[0].items():
+        *top, name = key.split("/")
+        name += "_local" if top == ["local"] else ""
+        # the port's leaf: the reference's leading layer dims merged
+        spec = spec[len(spec) - len(layout[name][0]):]
+        placed = [Replicate()] * len(active)
+        for dim, assign in enumerate(spec):
+            for a in (assign,) if isinstance(assign, str) else (assign or ()):
+                if a in active:
+                    placed[active.index(a)] = Shard(dim)
+        out[name] = str(tuple(placed))
+    return out
+
+
+def served(d, mesh, cases):
+    """Each serving case (arch, B, plan overrides) on one world of
+    ``mesh``'s shape against the reference's single device, from the
+    reference's parameters (seed 0, the vlm's gates opened): its prefill
+    of ``fx.serve_inputs``'s prompts into a cache of ``fx.SERVE_CACHE``
+    slots (moe groups aimed at the world's size, as the prefill plan aims
+    them), then ``fx.SERVE_NEW`` decode steps (groups aimed at 1), each
+    fed the reference's greedy token (the audio family the input
+    frames).  {tag: (the reference's {prefill, decode<t>: logits,
+    tokens<t>: the token fed at step t, cache/<name>: the prefill cache
+    in the port's names}, the world's results (``fx.serve_worker``))}."""
+    world = int(np.prod(mesh))
+    refs, worker_cases = {}, []
+    for arch, B, plan_kw in cases:
+        tag = f"{arch}-B{B}" + "".join(f"-{v}" for v in
+                                      (plan_kw or {}).values())
+        rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32")
+        cfg = fx.smoke_cfg(arch)
+        params = _open_gates(
+            jax.jit(rbuild(rcfg).init)(jax.random.PRNGKey(0)), cfg)
+        # the plan overrides that set the groups
+        groups = {k: v for k, v in (plan_kw or {}).items()
+                  if k == "moe_group_size"}
+        pre = rbuild(rcfg, rsingle_device_plan().with_(
+            moe_target_groups=world, **groups))
+        dec = rbuild(rcfg, rsingle_device_plan().with_(**groups))
+        batch, frames = fx.serve_inputs(cfg, B)
+        jb = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else
+                             jnp.float32) for k, v in batch.items()}
+        # jitted: one compile of each step where eager runs recompile
+        # every scan body a call
+        logits, rcache = jax.jit(lambda p, b: pre.prefill(
+            p, b, cache_len=fx.SERVE_CACHE))(params, jb)
+        decode_step = jax.jit(dec.decode_step)
+        ref = {"prefill": np.asarray(logits)}
+        ref.update({f"cache/{k}": v
+                    for k, v in flat_cache(rcache, cfg).items()})
+        inputs = {f"prompt/{k}": v for k, v in batch.items()}
+        for t in range(fx.SERVE_NEW):
+            if frames is None:
+                tok = np.argmax(np.asarray(logits), -1)[:, None]
+                step = {"tokens": tok.astype(np.int32)}
+                ref[f"tokens{t}"] = tok[:, 0]
+            else:
+                step = {"embeddings": frames[:, t:t + 1]}
+            inputs.update({f"step{t}/{k}": v for k, v in step.items()})
+            q_pos = jnp.full((B,), fx.SERVE_PROMPT + t, jnp.int32)
+            logits, rcache = decode_step(
+                params, rcache, {k: jnp.asarray(v) for k, v in
+                                 step.items()}, q_pos)
+            ref[f"decode{t}"] = np.asarray(logits)
+        np.savez(d / f"{tag}_params.npz", **_flat_tree(params))
+        np.savez(d / f"{tag}_inputs.npz", **inputs)
+        refs[tag] = ref
+        worker_cases.append((tag, arch, B, plan_kw,
+                             str(d / f"{tag}_params.npz"),
+                             str(d / f"{tag}_inputs.npz")))
+    path = d / "served.npz"
+    fx.spawn(fx.serve_worker, world, mesh, worker_cases, str(path))
+    with np.load(path) as f:
+        got = dict(f)
+    return {tag: (refs[tag], {k[len(tag) + 1:]: v for k, v in got.items()
+                              if k.startswith(tag + "/")})
+            for tag in refs}
+
+
+def served_logits(ref, got) -> str:
+    """'' when a served case's prefill logits lie within 1e-4 of the
+    reference's and each decode step's within 1e-3 (atol and rtol,
+    test_torch_serve's tolerances), with the greedy tokens equal; else
+    what differs."""
+    failed = []
+    for key, tol in [("prefill", 1e-4)] + [(f"decode{t}", 1e-3)
+                                           for t in range(fx.SERVE_NEW)]:
+        try:
+            np.testing.assert_allclose(got[key], ref[key], atol=tol,
+                                       rtol=tol)
+        except AssertionError as e:
+            failed.append(f"{key}: {e}")
+        if not np.array_equal(np.argmax(got[key], -1),
+                              np.argmax(ref[key], -1)):
+            failed.append(f"{key}: greedy tokens differ")
+    return "; ".join(failed)
+
+
+def served_cache(ref, got) -> str:
+    """'' when the prefill cache, gathered, equals the reference's (in the
+    port's names, ``flat_cache``) within 1e-5 leaf for leaf."""
+    names = sorted(k[len("cache/"):] for k in ref if k.startswith("cache/"))
+    if names != sorted(k[len("cache/"):] for k in got
+                       if k.startswith("cache/")):
+        return f"cache leaves differ from the reference's {names}"
+    return "; ".join(
+        f"prefill cache {n} differs (max |diff| "
+        f"{np.abs(got[f'cache/{n}'] - ref[f'cache/{n}']).max()})"
+        for n in names if not np.allclose(got[f"cache/{n}"],
+                                          ref[f"cache/{n}"], atol=1e-5,
+                                          rtol=1e-5))
+
+
+def served_placements(run, ref, got) -> str:
+    """'' when every cache leaf is placed as the reference's
+    ``cache_specs`` says (``cache_placements``), and each rank holds a
+    chunk of ``k`` shorter than the whole along its sequence (an ssm
+    model's ``ssm`` along its channels), the ranks' chunks summing to the
+    whole, each in storage of its own."""
+    arch, B, mesh, plan_kw = run
+    want = cache_placements(arch, B, mesh, plan_kw)
+    placed = {k[len("placed/"):]: str(v) for k, v in got.items()
+              if k.startswith("placed/")}
+    if placed != want:
+        return f"cache placements {placed} != {want}"
+    whole = ref["cache/k" if "cache/k" in ref else "cache/ssm"].shape[2]
+    if not got["k_local"][1] < whole or not got["k_chunks"]:
+        return (f"local lengths {got['k_local']} of {whole}, chunks "
+                f"{got['k_chunks']}")
+    return ""
+
+
+def served_paths(arch, got) -> str:
+    """'' when K7 ran under ``local_map`` once an attention block in
+    prefill and never in decode, and every cache write and every decode
+    step's attention ran on the sharded cache."""
+    n, new = fx.attention_layers(fx.smoke_cfg(arch)), fx.SERVE_NEW
+    counts = {(phase, k): int(got[f"{phase}_path/{k}"])
+              for phase in ("prefill", "decode") for k in SERVE_PATHS}
+    want = dict(zip(counts, (n, 0, n, 0, new * n, new * n)))
+    return "" if counts == want else f"sharded paths {counts}, want {want}"
+
+
+# K7's local_map, decode attention and the cache writes on a sharded cache
+SERVE_PATHS = ("_flash_attention_sharded", "_decode_attention_sharded",
+               "_write_cache_sharded")
 
 
 def main(argv=None) -> int:

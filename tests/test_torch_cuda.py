@@ -898,6 +898,65 @@ def test_kernels_launch_through_local_map_on_the_card(monkeypatch, arch,
         dist.destroy_process_group()
 
 
+def test_serve_plans_on_the_card():
+    """A world of one over NCCL: the smoke smollm-360m (float32) prefills
+    a prompt of 18 into a cache of 22 slots under plan_for's prefill plan
+    and takes 4 greedy decode steps under its decode plan over the same
+    parameter tensors, on the (1, 1, 1) mesh; its logits equal one
+    device's (prefill 1e-4, decode 1e-3), its greedy tokens and prefill
+    cache (1e-5) too, K7 launches through its ``local_map`` once a layer
+    in prefill and never in decode, and decode attention and the cache
+    writes run on the DTensor cache
+    (``test_torch_multidevice_serve.py``'s twin)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        arch = "smollm-360m"
+        cfg = fx.smoke_cfg(arch)
+        batch, _ = fx.serve_inputs(cfg, 2)
+        one = fx.serve_one_device(arch, batch, None, device="cuda")
+        paths = fx.count_paths()
+        mesh = make_mesh((1, 1, 1), fx.AXES)
+        prefill, decode = fx.serve_plans(cfg, mesh, 2)
+        model = build_model(cfg, prefill, device="cuda", seed=0)
+        got = {}
+        fa.flash_attention.launches = 0
+
+        def record(key, t):
+            if key == "prefill":
+                got["k7"] = fa.flash_attention.launches
+            got[key] = t.detach().cpu().numpy()
+
+        fx.serve_run(model, model.with_plan(decode), batch,
+                     lambda t, _: {"tokens": one[f"step{t}/tokens"]},
+                     record)
+        n = cfg.n_layers
+        assert got["k7"] == fa.flash_attention.launches == n
+        assert paths["_flash_attention_sharded"] == n
+        assert paths["_decode_attention_sharded"] == n * fx.SERVE_NEW
+        assert paths["_write_cache_sharded"] == n * (1 + fx.SERVE_NEW)
+        for key, tol in [("prefill", 1e-4)] + [
+                (f"decode{t}", 1e-3) for t in range(fx.SERVE_NEW)]:
+            np.testing.assert_allclose(got[key], one[key], atol=tol,
+                                       rtol=tol)
+            assert np.array_equal(got[key].argmax(-1), one[key].argmax(-1))
+        for key in (k for k in one if k.startswith("cache/")):
+            np.testing.assert_allclose(got[key], one[key], atol=1e-5,
+                                       rtol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
 # ---- the planning twins' float32 lanes on the card ------------------------ #
 # The reference's jax lanes (test_plan_broker.py, test_planning_backend.py,
 # test_lockstep.py) are the CUDA backend's: here on the card, held against
