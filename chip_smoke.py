@@ -12,7 +12,15 @@ Phases (any failure exits nonzero; there is no CPU path):
 2. build   — compile every source in src/repro_torch/kernels/csrc/
              (plan_scan.cu, flash_attention.cu, mamba_scan.cu,
              hash_join.cu, merge_join.cu) with nvcc, one process per
-             source, all started together;
+             source, all started together; once plan_scan and
+             flash_attention are built, phase 13's launcher runs start
+             in the background (they need no other kernel) and phase 3
+             starts while the other three still build; phase 6 runs
+             after phase 3, then the float32 checks of phases 7 and 13
+             that no timed run follows (``untimed_checks``: padded_gemma,
+             the padded smollm and Mamba1 hybrid train checks), and the
+             launcher is joined after them: it runs beside the build and
+             untimed work only;
 3. parity  — each CUDA kernel against its plain torch version on the card:
              scan_argmin at both launch geometries over every shipped DB
              surface x objective, the 10M-row scaled_cluster(100_000, 100)
@@ -68,15 +76,22 @@ Phases (any failure exits nonzero; there is no CPU path):
              (D=8192, B in {1, 4}, S in {1, 16, 31, 32, 33, 100, 512}
              across the 32-step chunk edge, every N the kernel takes, with
              and without h0, float32 and bfloat16) within 1e-4 of
-             selective_scan_ref (allclose, atol = rtol);
+             selective_scan_ref (allclose, atol = rtol); then K7 masking
+             by positions (POSITION_HEADS: bf16 at hd 64 and 128 on the
+             tensor cores, float32 and bf16 at hd 80 and 256 on the CUDA
+             cores; B=4, S=300: left-padded rows, one all pads, offset
+             positions, pads under a window of 100 with softcap 30)
+             against attention_ref with the same positions, positions
+             arange bit-equal to the index path, and K8 at the Mamba1
+             hybrid's D=5120, N=64;
 7. serve   — launch.serve.serve for smollm-360m, falcon-mamba-7b,
              qwen3-moe-30b-a3b, zamba2-2.7b, mixtral-8x7b (swa) and
              gemma2-9b (local_global) at full width and depth (mixtral's
              main path at 24 of its 32 layers), seeded random
              parameters on the card, 8 requests, 4 slots, prompt 256, 32
              new tokens: in float32 through the kernels and with
-             impl="ref" (qwen3 at 8 of its 48 layers, mixtral at 4 of 32;
-             every request's
+             impl="ref" (qwen3 at 8 of its 48 layers, mixtral at 4 of 32,
+             the Mamba1 hybrid at 12 of its 54; every request's
              tokens equal, first-wave prefill logits within 1e-3; the moe
              models' router decisions compared: any that differ must be
              near-ties, and plain then reruns with the kernels'
@@ -104,7 +119,19 @@ Phases (any failure exits nonzero; there is no CPU path):
              bfloat16 on float32 parameters (tok/s, prefill s, decode ms,
              K7 once a self-attention layer; zeroed media must move the
              vlm's logits), K7's and the cross attention's device time
-             over one prefill, both traced by operator;
+             over one prefill, both traced by operator; the Mamba1 hybrid
+             (MAMBA1_HYBRID: zamba2's widths with 54 Mamba1 blocks, K8 at
+             N=64) served as the token models are (float32 against plain,
+             then bf16 on float32 parameters: K8 once a block a wave, K7
+             once a group a wave); batches with their own positions
+             (padded_serve): smollm-360m's prompts of 256, 200, 131 and 64
+             tokens left-padded to 256, 16 greedy steps, in bf16 (tok/s,
+             K7 once a layer) and in float32 against plain (tokens equal,
+             logits within 1e-3) and each row against itself alone,
+             unpadded (logits within 1e-4); gemma2-9b at one pair on a
+             prompt of 4,160 with 100 leading pads (padded_gemma, run
+             beside the build: kernels against plain, the caches holding
+             each valid position at its slot);
 13. train  — (runs after 7) smollm-360m at full width and depth, falcon-mamba-7b at
              full width and 8 of its 64 layers, qwen3-moe-30b-a3b at
              full width and 4 of its 48, zamba2-2.7b at full width and
@@ -126,7 +153,12 @@ Phases (any failure exits nonzero; there is no CPU path):
              and musicgen traced by operator); then
              python -m repro_torch.launch.train on one GPU (8 steps), whole
              and, in a second process beside it, crashed at step 6 then
-             resumed from step 4, final losses within LAUNCHER_LOSS_TOL;
+             resumed from step 4, final losses within LAUNCHER_LOSS_TOL,
+             and float32 checks without a timed run: smollm-360m on a
+             batch whose row 0 is left-padded by 56 (its own positions,
+             labels -1 there), and the Mamba1 hybrid at one group of 6,
+             B=1, S=128 (TRAIN_CHECKS) (these two, the launcher and
+             padded_gemma run early, beside the build: see phase 2);
 8. times   — flash_attention at B=1, S=4096 and at the serve shape (B=4,
              S=256), smollm's heads, bfloat16, against attention_ref and
              torch's scaled_dot_product_attention (timed here only; the port
@@ -137,9 +169,12 @@ Phases (any failure exits nonzero; there is no CPU path):
              on the CUDA cores) and gemma2-9b's (16:8, hd 256, bf16 on the
              CUDA cores; at S=4096 also with softcap 50, kernel only) and
              musicgen-medium's (24:24, hd 64, bf16 on the tensor cores) at
-             B=1, S=4096 and B=4, S=256 in 3 rounds; selective_scan at
+             B=1, S=4096 and B=4, S=256 in 3 rounds; K7 masking by
+             positions (arange: every kv tile visited) at B=1, S=4096
+             beside SDPA with the same boolean mask; selective_scan at
              B=1, S=4096 and at the serve shape (B=4, S=256), D=8192,
-             N=16, against selective_scan_ref; the
+             N=16, against selective_scan_ref, and at the Mamba1
+             hybrid's D=5120, N=64, B=1, S=4096; the
              SASS instruction counts of the scan's per-row body and of
              K8's per-step body (cuobjdump --dump-sass) and, with the SM
              clock read under load (nvidia-smi), an estimate of the share
@@ -209,7 +244,9 @@ Phases (any failure exits nonzero; there is no CPU path):
              of 40 layers: 4 self blocks, K7 at 32:8 hd 128, and the
              gated cross block, its cross attention under its own
              local_map; the gates opened first) and musicgen-medium (all
-             48 layers, K7 at 24:24 hd 64, on frame embeddings), each
+             48 layers, K7 at 24:24 hd 64, on frame embeddings) and the
+             Mamba1 hybrid (one group of 6, K8 at N=64 under
+             map_channels, REPLAYED), each
              float32, B=2, S=256, take TRAIN_F32_STEPS
              AdamW steps under launch.specs.plan_for's train plan (remat
              none; the parameters DTensors) from the same seeded state as
@@ -233,6 +270,8 @@ Phases (any failure exits nonzero; there is no CPU path):
              prompt 256, 16 greedy decode steps), then the families of
              MULTI_FAMILIES at their depths in float32 (B=4, prompt 64, 8
              steps; gemma2 B=2 with a prompt of 4,160 past its window),
+             and phase 7's left-padded smollm batch in its bf16 (K7
+             masking by the positions through its local_map),
              each prefilled under plan_for's prefill plan and decoded
              under its decode plan over the same parameter tensors
              (Model.with_plan; the cache DTensors sharded along
@@ -271,6 +310,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -328,12 +368,33 @@ SWA = "mixtral-8x7b"
 # gemma2-9b (dense, (local, global) layer pairs, window 4096, hd 256):
 # 9.2B parameters, ~37 GB in float32, so both run at full depth
 LOCAL_GLOBAL = "gemma2-9b"
+# the Mamba1 hybrid (the original Zamba's kind, arXiv:2405.16712):
+# zamba2-2.7b's widths with Mamba1 blocks, 54 at d_inner 5120, N 64 (K8's
+# N = 64 instantiation) and dt_rank 160, the shared 32:32 hd-80 block
+# after every 6; float32 parameters (~2.5B, ~10 GB), bf16 compute: its
+# main path at full depth, its identity run at 12 of 54 layers (2 of its
+# 9 groups: its plain scan steps the 256 prompt positions one by one in
+# each block, ~25 s at 54).  No configuration file (the reference has
+# none): model_config
+MAMBA1_HYBRID = "zamba2-2.7b-mamba1"
+MAMBA1_WIDTH = (5120, 64)      # its d_inner, N
 SERVE_MODELS = {"smollm-360m": ("flash_attention", None, None, None),
                 "falcon-mamba-7b": ("selective_scan", None, None, None),
                 MOE: ("flash_attention", 8, "bfloat16", None),
                 HYBRID: ("flash_attention", None, None, None),
                 SWA: ("flash_attention", 4, "bfloat16", 24),
-                LOCAL_GLOBAL: ("flash_attention", None, None, None)}
+                LOCAL_GLOBAL: ("flash_attention", None, None, None),
+                MAMBA1_HYBRID: ("selective_scan", 12, None, None)}
+# batches with their own positions (phase 7): smollm-360m's prompts of
+# these lengths, each left-padded (-1) to the longest, then PADDED_NEW
+# greedy steps, each row also held against itself prefilled alone,
+# unpadded, to ALONE_TOL; gemma2-9b at one (local, global) pair: one
+# prompt of PADDED_GEMMA[0] positions, its first PADDED_GEMMA[1] pads,
+# then PADDED_GEMMA[2] greedy steps
+PADDED_PROMPTS = (256, 200, 131, 64)
+PADDED_NEW = 16
+ALONE_TOL = 1e-4
+PADDED_GEMMA = (4160, 100, 8)
 # llama-3.2-vision-11b (vlm): 8 groups of 4 self-attention blocks (K7 in
 # prefill) and one gated cross-attention block onto 1,600 media tokens
 # (plain torch), 9.78B parameters in the reference's tree (~39.1 GB in
@@ -421,7 +482,14 @@ TRAIN_F32 = {"smollm-360m": (2, 256), "falcon-mamba-7b": (1, 128),
 # of lr in 57% of the elements after 2 steps and in 90% after 3 (54
 # layers on one H100 80GB HBM3 at 700 W; 12 layers: kernels against plain
 # 11% after 3), while one step from one state differs in 7.9e-6 of them
-REPLAYED = {HYBRID}
+REPLAYED = {HYBRID, MAMBA1_HYBRID}
+# float32 checks of phase 13 without a timed run (as TRAIN's values): the
+# Mamba1 hybrid at one group of 6 (its timed run would add ~60 s), at
+# falcon-mamba-7b's B=1, S=128 (both sides' scans step the positions one
+# by one: S=256 took 17.5 s)
+TRAIN_CHECKS = {MAMBA1_HYBRID: (6, "selective_scan", "nothing_saveable")}
+TRAIN_F32[MAMBA1_HYBRID] = (1, 128)
+TRAIN_PADS = 56                # phase 13's smollm check: row 0's left pads
 MOE_METRICS = ("lb_loss", "z_loss", "drop_frac")
 TRAIN_LR = 1e-3                # the float32 check's AdamW steps
 TRAIN_F32_STEPS = 3
@@ -446,6 +514,23 @@ STREAM_TABLES = 16             # the streaming bench's random_schema(16, 0)
 STREAM_CLOSED = dict(concurrency=256, n_queries=512, seed=43)   # its FULL
 STREAM_OPEN = dict(rate=100.0, n=200, seed=11)                  # its OPEN
 STREAM_SAMPLE = 32             # closed-loop tickets checked against solo
+
+
+def model_config(name: str):
+    """The config of a model name: a registered arch's, or the Mamba1
+    hybrid's (MAMBA1_HYBRID)."""
+    from repro_torch.configs import get_config
+    if name == MAMBA1_HYBRID:
+        return dataclasses.replace(get_config(HYBRID), name=MAMBA1_HYBRID,
+                                   ssm_version=1)
+    return get_config(name)
+
+
+def left_padded(lengths, S: int, offset: int = 0):
+    """(B, S) int64 positions of rows of ``lengths`` valid slots each,
+    right-aligned: -1 on the leading pads, then offset, offset + 1, ..."""
+    return np.stack([np.r_[np.full(S - n, -1), offset + np.arange(n)]
+                     for n in lengths]).astype(np.int64)
 
 
 def check(ok: bool, what: str) -> None:
@@ -927,7 +1012,89 @@ def model_kernel_parity(torch, dev):
     print(f"model parity: {len(cases)} flash_attention and {n_scan} "
           f"selective_scan cases within tolerance (lanes a channel "
           f"{sorted(lane_counts)}); max_abs_err {err}", flush=True)
+    positions_parity(torch, dev, g, note)
     return err
+
+
+# phase 6's K7 with positions: (H, KV, hd, dtype) on each kernel (the
+# tensor cores: bf16 at hd 64 and 128; the CUDA cores: float32 and bf16
+# at hd 80 and 256), B=4, S=300 (ragged tiles); the rows' positions
+POSITION_HEADS = [(*ATTN_HEADS, "bfloat16"), (*QWEN_HEADS, "bfloat16")] + [
+    (*h, dt) for h in (ZAMBA_HEADS, GEMMA_HEADS)
+    for dt in ("float32", "bfloat16")]
+POSITION_S = 300
+
+
+def positions_parity(torch, dev, g, note) -> None:
+    """Phase 6's K7 masking by positions against its plain version on both
+    kernels (POSITION_HEADS): left-padded rows (one of them all pads: a
+    row with no valid key averages V), offset positions (P + arange), and
+    left pads under a window of 100 with softcap 30, within ATTN_TOL; then
+    positions arange(S), plain and windowed with softcap, bit-equal to the
+    index path (the extra tiles add p = 0 exactly).  K8 at the Mamba1
+    hybrid's width (D = 5120, N = 64) against its plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    S = POSITION_S
+    pads = left_padded((S, 236, 130, 0), S)
+    offset = left_padded((S,) * 4, S) + np.array([[0], [5], [64], [1000]])
+    cases = [("left-padded", pads, {}), ("offset", offset, {}),
+             ("left-padded, window 100, softcap 30", pads,
+              dict(window=100, attn_softcap=30.0))]
+    n = 0
+    for H, KV, hd, dt in POSITION_HEADS:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((4, S, m, hd), generator=g, device=dev)
+                   .to(dtype) for m in (H, KV, KV))
+        for name, pos, opts in cases:
+            p = torch.as_tensor(pos, device=dev)
+            kw = dict(opts, q_positions=p, kv_positions=p)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e, ok = allclose_err(got, want, ATTN_TOL[dt])
+            check(ok, f"flash_attention by positions ({name}) H={H} KV={KV} "
+                  f"hd={hd} {dt}: max_abs_err {e} above {ATTN_TOL[dt]}")
+            note("flash_attention", dt, e)
+            n += 1
+        ar = torch.arange(S, device=dev).expand(4, S).contiguous()
+        for opts in ({}, dict(window=100, attn_softcap=30.0)):
+            same = torch.equal(
+                fa.flash_attention(q, k, v, q_positions=ar, kv_positions=ar,
+                                   **opts),
+                fa.flash_attention(q, k, v, **opts))
+            check(same, f"flash_attention H={H} KV={KV} hd={hd} {dt} "
+                  f"{opts}: positions arange(S) differ from the index path")
+            n += 1
+        del q, k, v
+    D, N = MAMBA1_WIDTH
+    for B, Sx in ((1, 33), (4, 256)):
+        for dt in ("float32", "bfloat16"):
+            for with_h0 in (False, True):
+                dtype = getattr(torch, dt)
+                u = torch.randn((B, Sx, D), generator=g, device=dev).to(dtype)
+                dtv = torch.nn.functional.softplus(torch.randn(
+                    (B, Sx, D), generator=g, device=dev) - 1)
+                A = -torch.exp(torch.randn((D, N), generator=g,
+                                           device=dev) * 0.3)
+                Bm, Cm = (torch.randn((B, Sx, N), generator=g, device=dev)
+                          .to(dtype) for _ in range(2))
+                h0 = torch.randn((B, D, N), generator=g, device=dev) \
+                    if with_h0 else None
+                y, h = ms.selective_scan(u, dtv, A, Bm, Cm, h0)
+                yr, hr = ref.selective_scan_ref(u, dtv, A, Bm, Cm, h0)
+                torch.cuda.synchronize()
+                ey, oky = allclose_err(y, yr, SCAN_TOL)
+                eh, okh = allclose_err(h, hr, SCAN_TOL)
+                check(oky and okh, f"selective_scan B={B} S={Sx} D={D} "
+                      f"N={N} {dt} h0={with_h0}: max_abs_err y {ey} h {eh}")
+                note("selective_scan", dt, max(ey, eh))
+                n += 1
+    print(f"model parity by positions: {n} cases (K7 on both kernels "
+          f"against plain within tolerance, positions arange bit-equal to "
+          f"the index path; K8 at D={D}, N={N} within {SCAN_TOL})",
+          flush=True)
 
 
 def print_op_table(torch, label: str, fn, top: int = 20) -> None:
@@ -1221,6 +1388,155 @@ def window_serve(torch, cfg):
     torch.cuda.empty_cache()
 
 
+def padded_batch(cfg, lengths, S: Optional[int] = None, seed: int = 30):
+    """Seeded prompts of ``lengths`` tokens, each left-padded to ``S``
+    (the longest by default): {"tokens" (B, S), "positions" (B, S), -1 on
+    the pads}."""
+    S = S or max(lengths)
+    toks = np.random.default_rng(seed).integers(2, cfg.vocab_size,
+                                                (len(lengths), S))
+    pos = left_padded(lengths, S)
+    return {"tokens": np.where(pos < 0, 0, toks), "positions": pos}
+
+
+def greedy(torch, model, batch, cache_len: int, new: int):
+    """``model.prefill`` of ``batch``, then ``new`` greedy decode steps
+    from each row's next position: ([prefill and each step's logits,
+    float32 on the card], [the tokens fed], the model kernels' launches in
+    the prefill, seconds to the last step's argmax)."""
+    from repro_torch.kernels import ops
+    B, S = batch["tokens"].shape
+    dev = model.device
+    q0 = torch.as_tensor(batch["positions"][:, -1] + 1, device=dev) \
+        if "positions" in batch else torch.full((B,), S, device=dev)
+    with torch.no_grad():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        logits, cache = model.prefill(batch, cache_len)
+        launches = launch_counts()
+        out, toks = [logits.float()], []
+        for t in range(new):
+            toks.append(out[-1].argmax(-1))
+            logits, cache = model.decode_step(
+                cache, {"tokens": toks[-1][:, None]}, q0 + t)
+            out.append(logits.float())
+        out[-1].argmax(-1).cpu()
+    return out, toks, launches, time.perf_counter() - t0, cache
+
+
+def padded_serve(torch, device: str = "cuda") -> dict:
+    """Phase 7's batch with its own positions: smollm-360m at full width
+    and depth, PADDED_PROMPTS left-padded to the longest (K7 masks by the
+    positions, each row decodes from its own next position), PADDED_NEW
+    greedy steps: in its own bfloat16 through the kernels (tok/s, K7 once
+    a layer in the prefill), then in float32 through the kernels against
+    impl="ref" (tokens equal, every logits within LOGIT_TOL) and each row
+    against itself prefilled alone, unpadded (tokens equal, logits within
+    ALONE_TOL).  Returns {"launches", "tok_s"} of the bf16 run
+    (``device="cpu"``: a rehearsal with the plain versions)."""
+    from repro_torch.models.model import build_model
+    cfg = model_config("smollm-360m")
+    batch = padded_batch(cfg, PADDED_PROMPTS)
+    S, new = max(PADDED_PROMPTS), PADDED_NEW
+    cuda = device == "cuda"
+    model = build_model(cfg, device=device, seed=0)
+    greedy(torch, model, batch, S + new, new)            # warm
+    _, toks, launches, secs, _ = greedy(torch, model, batch, S + new, new)
+    tok_s = len(PADDED_PROMPTS) * new / secs
+    check(launches == {"flash_attention": cfg.n_layers * cuda,
+                       "selective_scan": 0},
+          f"padded smollm: prefill launches {launches}")
+    del model
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    runs = {}
+    for impl in ("cuda", "ref"):
+        model = build_model(f32, device=device, seed=0, impl=impl)
+        runs[impl] = greedy(torch, model, batch, S + new, new)[:2]
+        if impl == "cuda":
+            alone = []
+            for b, n in enumerate(PADDED_PROMPTS):
+                one = {"tokens": batch["tokens"][b:b + 1, S - n:]}
+                alone.append(greedy(torch, model, one, S + new, new)[:2])
+        del model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    (got, gtok), (want, wtok) = runs["cuda"], runs["ref"]
+    e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(gtok, wtok)) and
+          e <= LOGIT_TOL, f"padded smollm float32: kernels against plain: "
+          f"tokens equal {[torch.equal(a, b) for a, b in zip(gtok, wtok)]},"
+          f" logits max |diff| {e} (tol {LOGIT_TOL})")
+    ea = 0.0
+    for b, (logits, toks) in enumerate(alone):
+        ea = max(ea, max(float((a[b] - c[0]).abs().max())
+                         for a, c in zip(got, logits)))
+        check(all(int(a[b]) == int(c[0]) for a, c in zip(gtok, toks)),
+              f"padded smollm float32: row {b} ({PADDED_PROMPTS[b]} "
+              f"tokens) decodes other tokens than alone")
+    check(ea <= ALONE_TOL, f"padded smollm float32: a row's logits differ "
+          f"from the row alone by {ea} > {ALONE_TOL}")
+    print(f"serve smollm-360m left-padded prompts {list(PADDED_PROMPTS)} to "
+          f"{S}, {new} greedy steps: bf16 kernels {tok_s:.2f} tok/s "
+          f"(prefill and decode, {secs:.3f} s), prefill launches "
+          f"{launches}; float32 kernels against plain: tokens equal, "
+          f"logits max |diff| {e} (tol {LOGIT_TOL}); each row against "
+          f"itself alone, unpadded: tokens equal, logits max |diff| {ea} "
+          f"(tol {ALONE_TOL})", flush=True)
+    return {"launches": launches["flash_attention"], "tok_s": tok_s}
+
+
+def padded_gemma(torch, device: str = "cuda") -> None:
+    """gemma2-9b at one (local, global) pair, float32: one prompt of
+    PADDED_GEMMA[0] positions whose first PADDED_GEMMA[1] are pads (K7 at
+    hd 256 with its window and softcap, masking by the positions), then
+    PADDED_GEMMA[2] greedy steps, kernels against impl="ref": tokens
+    equal, logits within LOGIT_TOL; after the steps the rolling local
+    cache and the global cache hold each valid position at its slot and
+    no pad (a pad's write lands on slot 0 or W - 1 beside a valid one).
+    ``device="cpu"``: a rehearsal with the plain versions."""
+    from repro_torch.models.model import build_model
+    S, pads, new = PADDED_GEMMA
+    cfg = dataclasses.replace(model_config(LOCAL_GLOBAL), dtype="float32",
+                              n_layers=2)
+    batch = padded_batch(cfg, [S - pads], S)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        model = build_model(cfg, device=device, seed=0, impl=impl)
+        *runs[impl], cache = greedy(torch, model, batch, S + new, new)
+        # after the decode steps: each valid position, the prompt's and
+        # the steps', at its slot (a rolling cache's last W of them)
+        W, valid = cfg.window, S - pads + new
+        for sfx, size in (("_local", W), ("", S + new)):
+            sp = cache["slot_pos" + sfx][:, 0].cpu()
+            want = torch.full((sp.shape[0], size), -1, dtype=sp.dtype)
+            last = torch.arange(max(0, valid - W) if sfx else 0, valid)
+            want[:, last % size] = last
+            check(torch.equal(sp, want), f"padded gemma2 {impl}: the "
+                  f"cache{sfx} does not hold each valid position at its "
+                  f"slot")
+        del model, cache
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    (got, gtok, launches, _), (want, wtok, _, _) = runs["cuda"], runs["ref"]
+    e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(launches["flash_attention"] == 2 * (device == "cuda") and
+          e <= LOGIT_TOL and
+          all(torch.equal(a, b) for a, b in zip(gtok, wtok)),
+          f"padded gemma2: launches {launches}, logits max |diff| {e}, "
+          f"tokens {[int(t) for t in gtok]} vs {[int(t) for t in wtok]}")
+    print(f"serve gemma2-9b float32 (one pair) prompt of {S} with {pads} "
+          f"leading pads (window {cfg.window}, softcap {cfg.attn_softcap}), "
+          f"{new} greedy steps: kernels against plain tokens equal, logits "
+          f"max |diff| {e} (tol {LOGIT_TOL}); prefill launches {launches}; "
+          f"caches hold the {S - pads + new} valid positions at their "
+          f"slots",
+          flush=True)
+
+
 def serve_phase(torch):
     """Phase 7: each model of SERVE_MODELS, float32 kernels against
     float32 plain (qwen3-moe-30b-a3b at 8 of its 48 layers, with its
@@ -1229,14 +1545,13 @@ def serve_phase(torch):
     bfloat16 through the kernels (the main path: full depth but for
     mixtral's 24 of 32 layers); returns {arch: (result, launches, device
     ms of its kernel on the path, how it was read)}."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     out = {}
     w = time.perf_counter()
     for arch, (kernel, f32_layers, param_dtype, main_layers) in \
             SERVE_MODELS.items():
-        cfg = get_config(arch)
+        cfg = model_config(arch)
         f32 = dataclasses.replace(cfg, dtype="float32",
                                   n_layers=f32_layers or cfg.n_layers)
         t = time.perf_counter()
@@ -1294,14 +1609,13 @@ def serve_phase(torch):
         check(run["served"] == SERVE["requests"] and
               bool(run["first_logits"].isfinite().all()),
               f"{arch}: {cfg.dtype} serve did not finish all requests")
-        if kernel == "flash_attention":
-            # prefill attention once a layer a wave (the hybrid's shared
-            # block once a group a wave); decode attention is plain torch
-            want = main.n_layers * run["prefill_waves"]
-            if cfg.family == "hybrid":
-                want //= cfg.hybrid_period
-            check(launches[kernel] == want, f"{arch}: {kernel} launched "
-                  f"{launches[kernel]} times on the main path, not {want}")
+        # prefill attention once a layer a wave (the hybrid's shared
+        # block once a group a wave), the Mamba1 scan once a block a wave;
+        # decode attention and the decode scan step are plain torch
+        want = {k: n // TRAIN_F32_STEPS * run["prefill_waves"]
+                for k, n in _expected_launches(main).items()}
+        check(launches == want, f"{arch}: launches {launches} on the main "
+              f"path, not {want}")
         print(f"serve {arch} {cfg.dtype}, {main.param_dtype} parameters, "
               f"{main.n_layers} layers (main path): {run['served']} "
               f"requests, {run['steps']} decode steps, {run['tok_s']:.2f} "
@@ -1534,25 +1848,33 @@ def media_serve_phase(torch):
     return out
 
 
-def train_parity(torch, cfg, B, S):
+def train_parity(torch, cfg, B, S, pads: int = 0):
     """Phase 13's float32 check: the model on the kernels (impl="cuda",
     the custom backwards) against impl="ref" (autograd through the plain
     versions), the same seeded parameters and one fixed batch: the loss
     (and a moe model's aux losses), every parameter's gradient (each
     nonzero) and the parameters after TRAIN_F32_STEPS AdamW steps (for
     a model in REPLAYED, after each step taken from the plain run's
-    state: ``replayed_steps``).  The kernels run's gradients and
-    parameters wait on the host while the plain run takes the card, and
-    are compared a tensor at a time."""
+    state: ``replayed_steps``).  With ``pads``, row 0 of the batch is
+    left-padded by as many slots: the batch carries its own positions
+    (K7 masks by them) and labels -1 there.  The kernels run's gradients
+    and parameters wait on the host while the plain run takes the card,
+    and are compared a tensor at a time."""
     from repro_torch.data import SyntheticPipeline
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamW
     from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
                                            make_train_step)
-    kernel, plan = TRAIN[cfg.name][1], train_plan(cfg)
+    kernel, plan = {**TRAIN, **TRAIN_CHECKS}[cfg.name][1], train_plan(cfg)
     f32 = dataclasses.replace(cfg, dtype="float32")
     batch = SyntheticPipeline(f32, B, S, seed=0).batch_at(0)
+    if pads:
+        # row 0 left-padded: its own positions, labels -1 on the pads
+        pos = left_padded([S - pads] + [S] * (B - 1), S)
+        labels = np.asarray(batch["labels"]).copy()
+        labels[pos < 0] = -1
+        batch = dict(batch, positions=pos, labels=labels)
     replayed = cfg.name in REPLAYED
     out = {}
     for impl in ("cuda", "ref"):
@@ -1620,7 +1942,9 @@ def train_parity(torch, cfg, B, S):
     check(share <= PARAM_SHARE_TOL and pmax <= limit,
           f"{cfg.name} float32: after {TRAIN_F32_STEPS} steps{how} {share} "
           f"of the parameters differ by more than 2% of lr (max {pmax} lr)")
-    print(f"train {cfg.name} float32 B={B} S={S} ({cfg.n_layers} layers, "
+    print(f"train {cfg.name} float32 B={B} S={S}"
+          f"{f', row 0 left-padded by {pads}' if pads else ''} "
+          f"({cfg.n_layers} layers, "
           f"remat {plan.remat}, {n} parameters): loss {loss} vs plain "
           f"{ploss} (rel {rel:.3g}); every gradient nonzero; gradient max "
           f"|diff| / max |g| {gerr:.3g} (limit {GRAD_TOL}); after "
@@ -1699,7 +2023,8 @@ def replayed_steps(torch, f32, plan, batch):
 def train_plan(cfg):
     """Phase 13's single-device plan for ``cfg``: TRAIN's remat."""
     from repro_torch.sharding import single_device_plan
-    return single_device_plan().with_(remat=TRAIN[cfg.name][2])
+    return single_device_plan().with_(
+        remat={**TRAIN, **TRAIN_CHECKS}[cfg.name][2])
 
 
 def train_timed(torch, cfg):
@@ -1776,45 +2101,83 @@ def train_timed(torch, cfg):
     return dev_ms, how, per_step
 
 
-def launcher_check():
-    """Phase 13's launcher: ``python -m repro_torch.launch.train`` on one
-    GPU, whole, and beside it (two processes on the card at once, each
-    into its own checkpoint directory) crashed at LAUNCHER_FAIL_AT (exit
-    1) and resumed from the checkpoint before it (exit 0); the two final
-    losses agree."""
+def launcher_start():
+    """Start phase 13's launcher runs in the background: ``python -m
+    repro_torch.launch.train`` on one GPU, whole, and beside it (two
+    processes on the card at once, each into its own checkpoint
+    directory) crashed at LAUNCHER_FAIL_AT (exit 1) and then resumed from
+    the checkpoint before it.  Returns their state for
+    ``launcher_check``; a process still running when the script exits is
+    killed."""
+    import atexit
     import os
     import tempfile
-    import threading
     root = Path(__file__).resolve().parent
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     env = dict(os.environ, PYTHONPATH=str(root / "src"),
                CUDA_VISIBLE_DEVICES=visible or "0", PYTHONUNBUFFERED="1")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER]
+    tmp = tempfile.TemporaryDirectory()
+    state = {"procs": [], "tmp": tmp, "stopped": False}
+    lock = threading.Lock()
 
-    def run(*extra):
+    def run(key, *extra):
         t = time.perf_counter()
-        r = subprocess.run(cmd + list(extra), env=env, cwd=root,
-                           capture_output=True, text=True, timeout=600)
-        return r, time.perf_counter() - t
+        with lock:                  # no process starts after stop()
+            if state["stopped"]:
+                return
+            proc = subprocess.Popen(cmd + list(extra), env=env, cwd=root,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            state["procs"].append(proc)
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        state[key] = (subprocess.CompletedProcess(proc.args, proc.returncode,
+                                                  out, err),
+                      time.perf_counter() - t)
+
+    def crash_then_resume():
+        run("crash", "--ckpt-dir", f"{tmp.name}/crash", "--fail-at",
+            str(LAUNCHER_FAIL_AT))
+        if "crash" in state and state["crash"][0].returncode == 1:
+            run("resumed", "--ckpt-dir", f"{tmp.name}/crash")
+
+    def stop():
+        with lock:
+            state["stopped"] = True
+            for proc in state["procs"]:
+                if proc.poll() is None:
+                    proc.kill()
+    atexit.register(stop)
+    state["threads"] = [
+        threading.Thread(target=run, args=("whole", "--ckpt-dir",
+                                           f"{tmp.name}/whole"), daemon=True),
+        threading.Thread(target=crash_then_resume, daemon=True)]
+    for th in state["threads"]:
+        th.start()
+    return state
+
+
+def launcher_check(state):
+    """Phase 13's launcher (``launcher_start``'s runs), joined: the whole
+    run and the resumed one exit 0, the crashed one 1, and the two final
+    losses agree."""
+    for th in state["threads"]:
+        th.join()
+    state["tmp"].cleanup()
+    for key in ("whole", "crash"):
+        check(key in state, f"the trainer's {key} run did not finish")
+    (whole, s1), (crash, s2) = state["whole"], state["crash"]
+    resumed, s3 = state.get("resumed", (None, 0.0))
 
     def final(out):
         lines = [l for l in out.splitlines() if "done:" in l]
         check(bool(lines), f"the trainer printed no final line:\n{out}")
         return float(lines[-1].split("final loss")[-1])
 
-    with tempfile.TemporaryDirectory() as tmp:
-        got = {}
-        beside = threading.Thread(target=lambda: got.update(whole=run(
-            "--ckpt-dir", f"{tmp}/whole")))
-        beside.start()
-        try:
-            crash, s2 = run("--ckpt-dir", f"{tmp}/crash", "--fail-at",
-                            str(LAUNCHER_FAIL_AT))
-            resumed, s3 = run("--ckpt-dir", f"{tmp}/crash") \
-                if crash.returncode == 1 else (None, 0.0)
-        finally:
-            beside.join()
-        whole, s1 = got["whole"]
     check(whole.returncode == 0, f"trainer exit {whole.returncode}:\n"
           f"{whole.stdout[-2000:]}{whole.stderr[-3000:]}")
     check(crash.returncode == 1 and "SIMULATED FAILURE" in crash.stdout,
@@ -1829,10 +2192,10 @@ def launcher_check():
     a, b = final(whole.stdout), final(resumed.stdout)
     rel = abs(a / b - 1)
     check(rel <= LAUNCHER_LOSS_TOL, f"final loss whole {a} vs resumed {b}")
-    print(f"train launcher ({' '.join(LAUNCHER)}, one GPU): whole run "
-          f"{s1:.1f} s final loss {a}; beside it --fail-at "
-          f"{LAUNCHER_FAIL_AT} exit 1 ({s2:.1f} s); resumed from step "
-          f"{start} ({s3:.1f} s) final loss "
+    print(f"train launcher ({' '.join(LAUNCHER)}, one GPU, beside phases 3 "
+          f"and 6): whole run {s1:.1f} s final loss {a}; beside it "
+          f"--fail-at {LAUNCHER_FAIL_AT} exit 1 ({s2:.1f} s); resumed from "
+          f"step {start} ({s3:.1f} s) final loss "
           f"{b} (rel diff {rel:.3g}, limit {LAUNCHER_LOSS_TOL})", flush=True)
 
 
@@ -1840,21 +2203,36 @@ def train_phase(torch):
     """Phase 13: training at full width on the card; returns {arch:
     (its kernel's device ms on one step of its timed run, how, launches a
     step)}."""
-    from repro_torch.configs import get_config
     w = time.perf_counter()
     print(f"phase 13 on {card()}", flush=True)
     out = {}
     for arch, (layers, _, _) in TRAIN.items():
-        cfg = get_config(arch)
+        cfg = model_config(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         train_parity(torch, cfg, *TRAIN_F32[arch])
         w = lap(f"train {arch} float32 check", w)
         out[arch] = train_timed(torch, cfg)
         w = lap(f"train {arch} main path", w)
-    launcher_check()
-    lap("train launcher", w)
     return out
+
+
+def untimed_checks(torch) -> None:
+    """The float32 checks of phases 7 and 13 that no timed run follows,
+    run beside the launcher (phase 2): gemma2's padded prompt
+    (``padded_gemma``), smollm-360m's train step on a batch with its own
+    positions, and TRAIN_CHECKS."""
+    w = time.perf_counter()
+    padded_gemma(torch)
+    w = lap("serve gemma2-9b float32 check, left-padded", w)
+    train_parity(torch, model_config("smollm-360m"),
+                 *TRAIN_F32["smollm-360m"], pads=TRAIN_PADS)
+    w = lap("train smollm-360m float32 check, left-padded", w)
+    for arch, (layers, _, _) in TRAIN_CHECKS.items():
+        train_parity(torch, dataclasses.replace(model_config(arch),
+                                                n_layers=layers),
+                     *TRAIN_F32[arch])
+        w = lap(f"train {arch} float32 check", w)
 
 
 def attn_bound(B: int, S: int, H: int, KV: int, hd: int):
@@ -1908,6 +2286,50 @@ def attn_vs_sdpa(torch, q, k, v, rounds: int = ATTN_ROUNDS):
           f"scaled_dot_product_attention {spread(eager['sdpa'])}",
           flush=True)
     return statistics.median(a), statistics.median(b)
+
+
+def positions_vs_sdpa(torch, q, k, v, rounds: int = 3):
+    """K7 masking by positions (arange(S): a prompt's own positions, every
+    kv tile visited) against scaled_dot_product_attention with the same
+    boolean mask (KV heads repeated; timed here only), bf16, in
+    alternating rounds of CUDA-graph replays (device-bound): the kernel
+    first held against the plain version, then (kernel ms, SDPA ms), each
+    the median of the rounds."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    pos = torch.arange(S, device=q.device).expand(B, S).contiguous()
+    e, ok = allclose_err(
+        fa.flash_attention(q, k, v, q_positions=pos, kv_positions=pos),
+        ref.attention_ref(q, k, v, q_positions=pos, kv_positions=pos),
+        ATTN_TOL["bfloat16"])
+    check(ok, f"flash_attention by positions B={B} S={S}: max_abs_err {e}")
+    # kept where kv_pos >= 0 and q_pos - kv_pos >= 0, as K7's mask
+    mask = ((pos[:, None, :, None] - pos[:, None, None, :]) >= 0) & \
+        (pos[:, None, None, :] >= 0)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    calls = {"kernel": lambda: fa.flash_attention(
+                 q, k, v, q_positions=pos, kv_positions=pos),
+             "sdpa": lambda: sdpa(qt, kt, vt, attn_mask=mask)}
+    graphs = {n: cuda_graph(torch, fn, 10) for n, fn in calls.items()}
+    got = {n: [] for n in calls}
+    for _ in range(rounds):
+        for n in calls:
+            got[n].append(time_ms(graphs[n].replay, 3, torch) / 10)
+    del graphs
+    out = tuple(statistics.median(got[n]) for n in calls)
+    print(f"time flash_attention by positions B={B} S={S} H={H} "
+          f"KV={k.shape[2]} hd={hd} bf16 (positions arange, every kv tile "
+          f"visited): median {out[0]:.4f} ms of {rounds} rounds "
+          f"{[round(t, 4) for t in got['kernel']]}; scaled_dot_product_"
+          f"attention with the same boolean mask {out[1]:.4f} ms "
+          f"{[round(t, 4) for t in got['sdpa']]} (CUDA graphs); "
+          f"max_abs_err against plain {e}", flush=True)
+    return out, e
 
 
 def head_dim_times(torch, dev, g, err, heads, key: str,
@@ -1975,9 +2397,11 @@ def head_dim_times(torch, dev, g, err, heads, key: str,
     return out
 
 
-def model_times(torch, dev, err, served, trained):
+def model_times(torch, dev, err, served, trained, padded):
     """Phase 8: each model kernel at a long-prefill shape against its plain
-    version, its bound and (attention) torch's fused call."""
+    version, its bound and (attention) torch's fused call; K7 also masking
+    by positions (``padded``: phase 7's left-padded run), K8 also at the
+    Mamba1 hybrid's N = 64."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
@@ -1997,6 +2421,9 @@ def model_times(torch, dev, err, served, trained):
     fa_plain = time_ms(lambda: ref.attention_ref(q, k, v), 3, torch)
     fa_bound, fa_by = attn_bound(1, S, H, KV, hd)
     fa_ms, fa_lib = attn_vs_sdpa(torch, q, k, v)
+    (pos_ms, pos_lib), e = positions_vs_sdpa(torch, q, k, v)
+    err["flash_attention"]["bfloat16"] = max(
+        err["flash_attention"]["bfloat16"], e)
     B, Sx = SERVE_ATTN
     attn_vs_sdpa(torch, *(torch.randn((B, Sx, n, hd), generator=g,
                                       device=dev).to(bf16)
@@ -2055,6 +2482,37 @@ def model_times(torch, dev, err, served, trained):
               f"h0, {ms.lanes(B, D, N)} lanes a channel: {k_ms:.4f} ms; "
               f"plain {plain:.3f} ms; bound {bnd:.4f} ms ({by})", flush=True)
     ss_ms, ss_plain, ss_bound, ss_by = ss[1, S]
+    # K8 at the Mamba1 hybrid's width (D = 5120, N = 64), B=1, S=4096
+    D1, N1 = MAMBA1_WIDTH
+    u = torch.randn((1, S, D1), generator=g, device=dev).to(bf16)
+    dtv = torch.nn.functional.softplus(
+        torch.randn((1, S, D1), generator=g, device=dev) - 1)
+    A = -torch.exp(torch.randn((D1, N1), generator=g, device=dev) * 0.3)
+    Bm, Cm = (torch.randn((1, S, N1), generator=g, device=dev).to(bf16)
+              for _ in range(2))
+    h0 = torch.randn((1, D1, N1), generator=g, device=dev)
+    n64 = (u, dtv, A, Bm, Cm, h0)
+    t0 = time.perf_counter()
+    yr, hr = ref.selective_scan_ref(*n64)
+    torch.cuda.synchronize()
+    n64_plain = (time.perf_counter() - t0) * 1e3
+    y, h = ms.selective_scan(*n64)
+    ey, oky = allclose_err(y, yr, SCAN_TOL)
+    eh, okh = allclose_err(h, hr, SCAN_TOL)
+    check(oky and okh, f"selective_scan S={S} D={D1} N={N1}: max_abs_err "
+          f"y {ey} h {eh} above {SCAN_TOL}")
+    err["selective_scan"]["bfloat16"] = max(
+        err["selective_scan"]["bfloat16"], ey, eh)
+    del y, h, yr, hr
+    n64_ms = time_ms(lambda: ms.selective_scan(*n64), 20, torch)
+    n64_bound, n64_by = bound_ms(
+        S * D1 * (2 + 4 + 4) + D1 * N1 * 4 + 2 * D1 * N1 * 4 + 2 * S * N1 * 2,
+        S * D1 * (7 * N1 + 1))
+    print(f"time selective_scan B=1 S={S} D={D1} N={N1} bf16 u/B/C, h0, "
+          f"{ms.lanes(1, D1, N1)} lanes a channel: {n64_ms:.4f} ms; plain "
+          f"{n64_plain:.3f} ms (one call, host clock); bound "
+          f"{n64_bound:.4f} ms ({n64_by})", flush=True)
+    del n64, u, dtv, A, Bm, Cm, h0
     # SASS: the time loop of the bf16 N=16 kernels these shapes launch (one
     # MUFU.EX2 a state update, N / G updates a lane and step)
     fns = sass_functions(build.library_path("mamba_scan"))
@@ -2153,7 +2611,13 @@ def model_times(torch, dev, err, served, trained):
          # K7 at zamba2's heads (hd 80) and gemma2's (hd 256), bf16 on the
          # CUDA cores, and at musicgen's (24:24, hd 64) on the tensor
          # cores, B=1, S=4096 and the serve shape
-         **hd80, **hd256, **mha},
+         **hd80, **hd256, **mha,
+         # masking by positions at the main shape (every kv tile visited,
+         # so beside the causal bound), SDPA with the same boolean mask;
+         # its launches in phase 7's left-padded smollm prefill
+         "positions_ms": pos_ms, "positions_library_ms": pos_lib,
+         "positions_bound_ms": fa_bound, "positions_bound_by": fa_by,
+         "positions_launches": padded["launches"]},
         {"name": "selective_scan", "route": "cuda",
          "source": csrc + "mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:27",
@@ -2165,7 +2629,15 @@ def model_times(torch, dev, err, served, trained):
          "path_source": served["falcon-mamba-7b"][3],
          "train_path_ms": trained["falcon-mamba-7b"][0],
          "train_path_launches": trained["falcon-mamba-7b"][2],
-         "train_path_source": trained["falcon-mamba-7b"][1]},
+         "train_path_source": trained["falcon-mamba-7b"][1],
+         # the Mamba1 hybrid's serve main path (54 blocks at D = 5120,
+         # N = 64), and K8 at its width, B=1, S=4096
+         "hybrid_mamba1_path_ms": served[MAMBA1_HYBRID][2],
+         "hybrid_mamba1_path_launches":
+             served[MAMBA1_HYBRID][1]["selective_scan"],
+         "hybrid_mamba1_path_source": served[MAMBA1_HYBRID][3],
+         "n64_ms": n64_ms, "n64_plain_ms": n64_plain,
+         "n64_bound_ms": n64_bound, "n64_bound_by": n64_by},
     ]
 
 
@@ -2889,7 +3361,7 @@ MULTI_TRAIN = ("smollm-360m", 2, 256)      # arch, B, S (float32)
 # one group of 5 of 40 (4 self blocks and the cross block, ~2.15B, ~34
 # GB), musicgen all 48 layers (~1.81B, ~29 GB)
 MULTI_FAMILIES = {MOE: 2, "falcon-mamba-7b": 2, HYBRID: 6, LOCAL_GLOBAL: 2,
-                  VLM: 5, AUDIO: None}
+                  VLM: 5, AUDIO: None, MAMBA1_HYBRID: 6}
 # plan variants phase 15 also trains, each against the same one-device run
 MULTI_VARIANTS = {
     "smollm-360m": ({"tp_mode": "shard_map",
@@ -2937,13 +3409,14 @@ def _f32_steps(torch, model, batch):
 def _expected_launches(cfg) -> dict:
     """K7's and K8's launches in TRAIN_F32_STEPS steps without remat: K7
     one a layer (a hybrid's shared block once a group, a vlm's self blocks
-    only: its cross blocks' attention is plain torch)."""
+    only: its cross blocks' attention is plain torch), K8 one a Mamba1
+    block (the ssm family's or a hybrid's)."""
     attn = 0 if cfg.family == "ssm" else cfg.n_layers // (
         cfg.hybrid_period if cfg.family == "hybrid" else 1)
     if cfg.family == "vlm":
         attn -= cfg.n_layers // cfg.cross_attn_period
-    scan = cfg.n_layers if cfg.family == "ssm" and cfg.ssm_version == 1 \
-        else 0
+    scan = cfg.n_layers if cfg.family in ("ssm", "hybrid") and \
+        cfg.ssm_version == 1 else 0
     return {"flash_attention": attn * TRAIN_F32_STEPS,
             "selective_scan": scan * TRAIN_F32_STEPS}
 
@@ -2994,14 +3467,13 @@ def multidevice_train(torch, mesh, arch, layers, B, S, device, explicit,
     (``explicit``: ``_counting``'s counts of them); a REPLAYED arch's
     each step from one device's state.  Returns the mesh runs' launches,
     summed."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticPipeline
     from repro_torch.launch.specs import plan_for
     from repro_torch.models.model import build_model
     from repro_torch.sharding import single_device_plan
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+    cfg = dataclasses.replace(model_config(arch), dtype="float32",
                               **({} if layers is None else
                                  {"n_layers": layers}))
     shape = ShapeConfig("train", S, B, "train")
@@ -3154,14 +3626,20 @@ def multidevice_phase(torch, device: str = "cuda") -> dict:
 # prompt, steps, gemma2 with a prompt past its window of 4,096 (its local
 # layers' rolling caches wrap)
 SERVE_PLAN_MAIN = ("smollm-360m", 4, 256, 16)
+# phase 7's left-padded smollm batch, under the serve plans too
 SERVE_PLAN_FAMILIES = (4, 64, 8)
 SERVE_PLAN_PROMPT = {LOCAL_GLOBAL: (2, WINDOW_SERVE["prompt_len"])}
 
 
-def serveplan_inputs(cfg, B: int, P: int, new: int):
+def serveplan_inputs(cfg, B: int, P: int, new: int, lengths=None):
     """A seeded prompt batch of ``cfg`` (B x P tokens, or frame
-    embeddings; a vlm's media) and the audio family's decode frames (B,
-    new, E), None for a token model (its steps feed greedy tokens)."""
+    embeddings; a vlm's media; with ``lengths``, each row's prompt that
+    long, left-padded to P: its own positions) and the audio family's
+    decode frames (B, new, E), None for a token model (its steps feed
+    greedy tokens)."""
+    if lengths is not None:
+        batch = padded_batch(cfg, lengths)
+        return batch, None
     rng = np.random.default_rng(16)
     if not cfg.embed_inputs:
         emb = rng.standard_normal((B, P + new, cfg.media_embed_dim),
@@ -3184,6 +3662,10 @@ def serveplan_serve(torch, model, decoder, batch, frames, new: int):
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
     from repro_torch.sharding import full
     P = next(iter(batch.values())).shape[1]
+    # each row's next position: its last + 1 (P without positions)
+    rows = len(next(iter(batch.values())))
+    q0 = torch.as_tensor(batch["positions"][:, -1] + 1) \
+        if "positions" in batch else torch.full((rows,), P)
     ops.reset_launch_counts()
     logits, cache = make_prefill_step(model, P + new)(batch)
     logits = full(logits)
@@ -3198,8 +3680,7 @@ def serveplan_serve(torch, model, decoder, batch, frames, new: int):
             step = {"tokens": tok[:, None]}
         else:
             step = {"embeddings": frames[:, t:t + 1]}
-        q_pos = torch.full((B,), P + t, dtype=torch.int64,
-                           device=logits.device)
+        q_pos = (q0 + t).to(logits.device)
         t0 = time.perf_counter()
         logits, cache = decode(cache, step, q_pos)
         logits = full(logits)
@@ -3211,7 +3692,7 @@ def serveplan_serve(torch, model, decoder, batch, frames, new: int):
 
 
 def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
-                  counts):
+                  counts, lengths=None):
     """One model of phase 16: ``arch`` (at ``layers`` layers, None for the
     config's; compute ``dtype``, None for the config's) served on one
     device, then under plan_for's prefill plan and, over the same
@@ -3219,17 +3700,17 @@ def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
     tokens equal, every logits within LOGIT_TOL, K7 through ``local_map``
     once an attention block in prefill and K8 once a Mamba1 block, as on
     one device, decode attention on the sharded cache once an attention
-    block a step (``counts``: the wrappers' calls).  Returns the model
-    kernels' launches in the mesh's prefill."""
-    from repro_torch.configs import get_config
+    block a step (``counts``: the wrappers' calls).  With ``lengths``,
+    the prompts are that long, left-padded to P (``padded_batch``).
+    Returns the model kernels' launches in the mesh's prefill."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.specs import plan_for
     from repro_torch.models.model import build_model
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = model_config(arch)
     cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype,
                               n_layers=layers or cfg.n_layers)
-    batch, frames = serveplan_inputs(cfg, B, P, new)
+    batch, frames = serveplan_inputs(cfg, B, P, new, lengths)
     if frames is not None:
         frames = torch.as_tensor(frames, device=device)
     model = open_gates(torch, build_model(cfg, None, device=device, seed=0))
@@ -3273,7 +3754,9 @@ def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
           f"and {attn * new})")
     warm = lambda s: sorted(s[1:])[len(s[1:]) // 2] * 1e3
     print(f"serveplan {arch} {cfg.dtype} ({cfg.n_layers} layers) B={B} "
-          f"prompt {P}, {new} greedy decode steps, prefill plan then "
+          f"prompt {P}" + (f" (rows of {list(lengths)}, left-padded: "
+                           f"their own positions)" if lengths else "") +
+          f", {new} greedy decode steps, prefill plan then "
           f"decode plan over its parameters on a (1, 1, 1) mesh: tokens "
           f"equal to one device's; logits max |diff| {err} (tol "
           f"{LOGIT_TOL}); prefill launches {got[3]} (one device "
@@ -3307,14 +3790,18 @@ def serveplan_phase(torch, device: str = "cuda") -> int:
         mesh = make_mesh((1, 1, 1), MULTI_AXES)
         arch, B, P, new = SERVE_PLAN_MAIN
         runs = [(arch, None, None, B, P, new)]
+        # phase 7's left-padded batch in smollm's own dtype, 4 steps
+        runs += [(arch, None, None, len(PADDED_PROMPTS),
+                  max(PADDED_PROMPTS), 4, PADDED_PROMPTS)]
         Bf, Pf, newf = SERVE_PLAN_FAMILIES
         runs += [(name, layers, "float32") + SERVE_PLAN_PROMPT.get(
             name, (Bf, Pf)) + (newf,) for name, layers in
             MULTI_FAMILIES.items()]
         launches = {}
         for run in runs:
-            for k, n in serveplan_run(torch, mesh, *run, device,
-                                      counts).items():
+            run, lengths = run[:6], (run[6] if len(run) > 6 else None)
+            for k, n in serveplan_run(torch, mesh, *run, device, counts,
+                                      lengths).items():
                 launches[k] = launches.get(k, 0) + n
     finally:
         dist.destroy_process_group()
@@ -3350,15 +3837,22 @@ def main() -> int:
           f"device {kind}", flush=True)
 
     # 2. build ------------------------------------------------------------- #
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    for name in libs:
+    # every nvcc at once; phase 3 needs plan_scan only and the launcher's
+    # trainer flash_attention only, so both start as soon as those two are
+    # built, while the other three still build
+    t_build = time.perf_counter()
+    first = ("plan_scan", "flash_attention")
+    rest = [name for name in build.SOURCES if name not in first]
+    rest_built = {}
+    rest_thread = threading.Thread(target=lambda: rest_built.update(
+        build.build_all(rest)), daemon=True)
+    rest_thread.start()
+    libs = build.build_all(first)
+    for name in first:
         build.load_library(name)
-    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(libs)} "
-          f"(nvcc, in parallel: {build.build_seconds} s)", flush=True)
-    built = dict(build.build_seconds)
-
-    w = lap("phases 1-2 (device, build)", t_start)
+    launcher = launcher_start()
+    w = lap("phases 1-2 (device, build of plan_scan and flash_attention)",
+            t_start)
 
     # 3. kernel against plain, on the card --------------------------------- #
     rng = np.random.default_rng(0)
@@ -3518,6 +4012,26 @@ def main() -> int:
           flush=True)
 
     w = lap("phase 3 (parity)", w)
+
+    rest_thread.join()
+    check(sorted(rest_built) == sorted(rest), f"nvcc failed for "
+          f"{sorted(set(rest) - set(rest_built))} (its error above)")
+    libs.update(rest_built)
+    for name in rest:
+        build.load_library(name)
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t_build:.2f} s "
+          f"from its start (nvcc, in parallel: {build.build_seconds} s)",
+          flush=True)
+    built = dict(build.build_seconds)
+    w = lap("build of the other kernels (beside phase 3)", w)
+
+    # 6. the model kernels against plain (untimed, beside the launcher) --- #
+    err = model_kernel_parity(torch, dev)
+    w = lap("phase 6 (model parity)", w)
+    untimed_checks(torch)
+    launcher_check(launcher)
+    w = lap("train launcher (beside the build, phases 3 and 6 and the "
+            "untimed checks)", w)
 
     # 4. main path --------------------------------------------------------- #
     schema = random_schema(10, seed=0)
@@ -3807,15 +4321,14 @@ def main() -> int:
     ]
     w = lap("phase 5 (times)", w)
 
-    # 6-8. the serving slice ----------------------------------------------- #
-    err = model_kernel_parity(torch, dev)
-    w = lap("phase 6 (model parity)", w)
+    # 7-8. the serving slice ----------------------------------------------- #
     served = serve_phase(torch)
     served.update(media_serve_phase(torch))
+    padded = padded_serve(torch)
     w = lap("phase 7 (serve)", w)
     trained = train_phase(torch)
     w = lap("phase 13 (train)", w)
-    kernels += model_times(torch, dev, err, served, trained)
+    kernels += model_times(torch, dev, err, served, trained, padded)
     w = lap("phase 8 (model kernel times)", w)
 
     # 9-10. the joins and the streaming service ---------------------------- #

@@ -27,6 +27,18 @@
 // are not stored.  Causal tiles wholly above the diagonal or wholly left of
 // the window are skipped; they would add p = 0 exactly.
 //
+// Masking by positions (AttnArgs.q_pos / kv_pos non-null: contiguous int64
+// (B, S) and (B, Skv), -1 an invalid slot), as the reference's jnp
+// _block_update in src/repro/models/attention.py: a score is kept where
+// kv_pos >= 0 and, under causal, 0 <= q_pos - kv_pos < window.  Positions
+// need not be arange, so no tile can be skipped and no tile is known to be
+// unmasked: every kv tile is visited and every score goes through the
+// mask.  A row with no kept key (a query at -1) then has every score at
+// -1e30, p = 1 on each of them, and returns the mean of V over all Skv keys,
+// as the reference does when Skv fits its one kv block; columns past Skv
+// stay at p = 0.  With null pointers the kernels compute exactly what they
+// did before positions existed.
+//
 // What bounds it on this card: tensor-core FLOPs (4 * S * Skv * hd * H,
 // about half of that under the causal mask, at 989 TFLOP/s in bf16) for
 // long sequences, and beside them one exp per score on the SFUs.
@@ -88,7 +100,21 @@ struct AttnArgs {
     int has_cap;
     float cap;
     float scale;           // hd^-1/2, rounded to float32 once
+    const int64_t* q_pos;  // (B, S) query positions, or null: by index
+    const int64_t* kv_pos; // (B, Skv) key positions (null with q_pos)
 };
+
+// a score kept by the positional mask (the reference's _block_update)
+__device__ __forceinline__ bool pos_keep(const AttnArgs& a, int64_t qp,
+                                         int64_t kp) {
+    bool keep = kp >= 0;
+    if (a.causal) {
+        const int64_t rel = qp - kp;
+        keep = keep && rel >= 0;
+        if (a.window > 0) keep = keep && rel < a.window;
+    }
+    return keep;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -124,6 +150,8 @@ flash_attention_kernel(AttnArgs a, const T* __restrict__ q,
     const int64_t h = blockIdx.y, b = blockIdx.z;
     const int64_t kvh = h / (a.H / a.KV);
     const int64_t qpos = q0 + r;
+    const bool by_pos = a.q_pos != nullptr;
+    const int64_t qp = by_pos && qpos < a.S ? a.q_pos[b * a.S + qpos] : -1;
 
     for (int i = tid; i < BQ * HD; i += THREADS) {
         const int rr = i / HD, d = i % HD;
@@ -138,7 +166,7 @@ flash_attention_kernel(AttnArgs a, const T* __restrict__ q,
     for (int i = 0; i < NA; ++i) acc[i] = 0.f;
 
     int64_t kv_begin = 0, kv_end = a.Skv;
-    if (a.causal) {
+    if (a.causal && !by_pos) {
         const int64_t q_last = (q0 + BQ < a.S ? q0 + BQ : a.S) - 1;
         if (q_last + 1 < kv_end) kv_end = q_last + 1;
         if (a.window > 0 && q0 - a.window + 1 > 0) kv_begin = q0 - a.window + 1;
@@ -172,7 +200,11 @@ flash_attention_kernel(AttnArgs a, const T* __restrict__ q,
             const int64_t kpos = k0 + c4 + TPR * j;
             float s = sc[j] * a.scale;
             if (a.has_cap) s = tanhf(s / a.cap) * a.cap;
-            if (a.causal) {
+            if (by_pos) {
+                const int64_t kp =
+                    kpos < a.Skv ? a.kv_pos[b * a.Skv + kpos] : -1;
+                if (!pos_keep(a, qp, kp)) s = NEG_INF;
+            } else if (a.causal) {
                 bool keep = kpos <= qpos;
                 if (a.window > 0) keep = keep && (qpos - kpos < a.window);
                 if (!keep) s = NEG_INF;
@@ -396,8 +428,9 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
     const int kvh = h / (int)(a.H / a.KV);
     const int64_t q0 = (int64_t)tile * TILE;
     const int64_t q_last = (q0 + TILE < a.S ? q0 + TILE : a.S) - 1;
+    const bool by_pos = a.q_pos != nullptr;
     int64_t kv_begin = 0, kv_end = a.Skv;
-    if (a.causal) {
+    if (a.causal && !by_pos) {
         if (q_last + 1 < kv_end) kv_end = q_last + 1;
         if (a.window > 0 && q0 - a.window + 1 > 0)
             kv_begin = q0 - a.window + 1;
@@ -441,6 +474,10 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
     // the consumer warpgroup: rows q0 .. q_last, this thread's r0, r0 + 8
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int64_t r0 = q0 + warp * 16 + lane / 4, r1 = r0 + 8;
+    // this thread's two rows' positions (read once; rows past S are not
+    // stored)
+    const int64_t qp0 = by_pos && r0 < a.S ? a.q_pos[b * a.S + r0] : -1;
+    const int64_t qp1 = by_pos && r1 < a.S ? a.q_pos[b * a.S + r1] : -1;
     // the softmax runs in the log2 domain: y = score * log2(e), masked
     // scores at -1e30 * log2(e), so p = exp2(y - m) is exp(score - max)
     const float sl2 = a.scale * LOG2E, capl2 = a.cap * LOG2E;
@@ -484,7 +521,27 @@ flash_attention_tc(const __grid_constant__ Maps maps, AttnArgs a,
 #pragma unroll
             for (int i = 0; i < 32; ++i) sc[i] *= sl2;
         }
-        if (k0 + TILE > a.Skv || (a.causal && (k0 + TILE - 1 > q0 ||
+        if (by_pos) {
+            // every tile through the positional mask; each column's
+            // position read from global memory (64 of them a tile, shared
+            // by the warpgroup through L1)
+            const int lim = (int)(a.Skv - k0 < TILE ? a.Skv - k0 : TILE);
+            const int64_t* kpt = a.kv_pos + b * a.Skv + k0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int c = j * 8 + (lane % 4) * 2 + e;
+                    const int64_t kp = c < lim ? kpt[c] : -1;
+                    if (!pos_keep(a, qp0, kp)) sc[j * 4 + e] = mask2;
+                    if (!pos_keep(a, qp1, kp)) sc[j * 4 + e + 2] = mask2;
+                    if (c >= lim) {                     // p = 0
+                        sc[j * 4 + e] = -INFINITY;
+                        sc[j * 4 + e + 2] = -INFINITY;
+                    }
+                }
+            }
+        } else if (k0 + TILE > a.Skv || (a.causal && (k0 + TILE - 1 > q0 ||
                 (a.window > 0 && k0 < q_last - a.window + 1)))) {
             const int dq = (int)(k0 - r0);      // kpos - qpos at c = 0
             const int lim = (int)(a.Skv - k0 < TILE ? a.Skv - k0 : TILE);

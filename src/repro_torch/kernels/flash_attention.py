@@ -21,7 +21,17 @@ torch (the reference has no backward kernel: ``jax.grad`` differentiates
 its jnp twin).
 
 Masking is by index (``kpos <= qpos``, ``qpos - kpos < window``), as in
-the Pallas kernel; S and Skv may be ragged (no block-multiple padding).
+the Pallas kernel, unless the caller gives ``q_positions`` (B, S) and
+``kv_positions`` (B, Skv): then by those positions, as the reference's jnp
+``flash_attention`` masks (-1 an invalid slot: a key at -1 is never kept,
+and under ``causal`` a key is kept where ``0 <= q_pos - kv_pos <
+window``).  Positions need not be ``arange``, so the kernels then visit
+every kv tile (no tile skip) and mask every score; positions equal to
+``arange`` give exactly the index path's output.  A row with no kept key
+(a query at -1 in a left-padded batch) averages V over all Skv keys, as
+the reference's online softmax does when Skv fits its kv block of 512
+(beyond that it divides by its padded block length: ROADMAP §3).  S and
+Skv may be ragged (no block-multiple padding).
 
 The reference's block schedules are one launch here.  Its "dense"
 schedule visits every (q block, kv block) pair and masks; "causal_skip"
@@ -41,7 +51,7 @@ import torch
 
 from repro_torch.kernels.build import (check_launch, load_library, on_cuda,
                                        stream)
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_mask, attention_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernel's instantiations
 TC_HEAD_DIMS = (64, 128)                 # bfloat16 on the tensor cores
@@ -55,7 +65,8 @@ class _AttnArgs(ctypes.Structure):
                 ("KV", ctypes.c_int64), ("hd", ctypes.c_int64),
                 ("causal", ctypes.c_int), ("window", ctypes.c_int),
                 ("has_cap", ctypes.c_int), ("cap", ctypes.c_float),
-                ("scale", ctypes.c_float)]
+                ("scale", ctypes.c_float), ("q_pos", ctypes.c_void_p),
+                ("kv_pos", ctypes.c_void_p)]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -66,12 +77,33 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def check_positions(q, k, q_positions, kv_positions) -> None:
+    """Raise ``ValueError`` unless the positions are both None, or int64
+    tensors of shapes (B, S) and (B, Skv) on q's device."""
+    if q_positions is None and kv_positions is None:
+        return
+    B, S = q.shape[:2]
+    want = ((q_positions, (B, S)), (kv_positions, (B, k.shape[1])))
+    if any(p is None or p.dtype != torch.int64 or tuple(p.shape) != shape
+           or p.device != q.device for p, shape in want):
+        got = [None if p is None else (tuple(p.shape), p.dtype, p.device)
+               for p, _ in want]
+        raise ValueError(f"flash_attention takes int64 q_positions (B, S) "
+                         f"= {(B, S)} and kv_positions (B, Skv) = "
+                         f"{(B, k.shape[1])} on {q.device}, or neither; got "
+                         f"{got}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    attn_softcap: Optional[float] = None) -> torch.Tensor:
+                    attn_softcap: Optional[float] = None,
+                    q_positions: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, Skv, KV, hd) -> (B, S, H, hd) in q's
-    dtype.  CUDA tensors launch the kernel on the current stream without
-    syncing; CPU tensors take ``attention_ref``."""
+    dtype; masked by index, or by the int64 positions when given (module
+    docstring).  CUDA tensors launch the kernel on the current stream
+    without syncing; CPU tensors take ``attention_ref``."""
     B, S, H, hd = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B or \
             k.shape[3] != hd or H % k.shape[2]:
@@ -79,9 +111,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window={window} < 1")
+    check_positions(q, k, q_positions, kv_positions)
     if not on_cuda("flash_attention", q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
-                             attn_softcap=attn_softcap)
+                             attn_softcap=attn_softcap,
+                             q_positions=q_positions,
+                             kv_positions=kv_positions)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
                          f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -95,6 +130,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention tensor-core kernel takes 16-byte "
                          "aligned q, k, v")
+    by_pos = q_positions is not None
+    if by_pos and not (q_positions.is_contiguous() and
+                       kv_positions.is_contiguous()):
+        raise ValueError("flash_attention kernel takes contiguous positions")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -102,7 +141,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      0 if window is None else int(window),
                      int(attn_softcap is not None),
                      0.0 if attn_softcap is None else float(attn_softcap),
-                     hd ** -0.5)
+                     hd ** -0.5,
+                     q_positions.data_ptr() if by_pos else None,
+                     kv_positions.data_ptr() if by_pos else None)
     lib = load_library("flash_attention")
     check_launch(lib.flash_attention(
         ctypes.addressof(args), DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -116,13 +157,16 @@ flash_attention.launches = 0
 
 def attention_backward(q, k, v, out, dout, *, causal: bool = True,
                        window: Optional[int] = None,
-                       attn_softcap: Optional[float] = None):
+                       attn_softcap: Optional[float] = None,
+                       q_positions=None, kv_positions=None):
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v), given its output
     ``out`` and the output's gradient ``dout``: the softmax recomputed in
-    float32 from q and k, masked by index, then FlashAttention's backward
-    equations (D = rowsum(dout * out), dS = P * (dP - D), through the
-    softcap's tanh).  Each kv head's gradient sums over its group of query
-    heads.  Returned in the inputs' dtypes."""
+    float32 from q and k, masked by index or by the positions as the
+    forward was, then FlashAttention's backward equations (D = rowsum(dout
+    * out), dS = P * (dP - D), through the softcap's tanh), dS zero on
+    every masked score (the reference's ``jnp.where`` passes no gradient
+    there, also in a row with no kept key).  Each kv head's gradient sums
+    over its group of query heads.  Returned in the inputs' dtypes."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -134,13 +178,11 @@ def attention_backward(q, k, v, out, dout, *, causal: bool = True,
     if attn_softcap is not None:
         th = torch.tanh(s / attn_softcap)
         s = th * attn_softcap
-    mask = None
-    if causal:
-        qp = torch.arange(S, device=q.device)[:, None]
-        kp = torch.arange(Skv, device=q.device)[None, :]
-        mask = kp <= qp
-        if window is not None:
-            mask &= (qp - kp) < window
+    mask = attention_mask(S, Skv, q.device, causal=causal, window=window,
+                          q_positions=q_positions, kv_positions=kv_positions)
+    if mask is not None and mask.ndim == 3:     # (B, S, Skv): by position
+        mask = mask[:, None, None]
+    if mask is not None:
         s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)                         # (B, KV, G, S, Skv)
     d_row = (do * out.float().reshape(B, S, KV, G, hd)).sum(-1)
@@ -159,19 +201,24 @@ def attention_backward(q, k, v, out, dout, *, causal: bool = True,
 
 class FlashAttention(torch.autograd.Function):
     """K7 under autograd: ``FlashAttention.apply(q, k, v, causal, window,
-    attn_softcap)``.  Only the forward launches the kernel."""
+    attn_softcap[, q_positions, kv_positions])``.  Only the forward
+    launches the kernel; the positions take no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, attn_softcap):
+    def forward(ctx, q, k, v, causal, window, attn_softcap,
+                q_positions=None, kv_positions=None):
         out = flash_attention(q, k, v, causal=causal, window=window,
-                              attn_softcap=attn_softcap)
-        ctx.save_for_backward(q, k, v, out)
+                              attn_softcap=attn_softcap,
+                              q_positions=q_positions,
+                              kv_positions=kv_positions)
+        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions)
         ctx.opts = dict(causal=causal, window=window,
                         attn_softcap=attn_softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        return attention_backward(q, k, v, out, dout, **ctx.opts) + \
-            (None, None, None)
+        q, k, v, out, qp, kvp = ctx.saved_tensors
+        return attention_backward(q, k, v, out, dout, q_positions=qp,
+                                  kv_positions=kvp, **ctx.opts) + \
+            (None,) * 5

@@ -23,7 +23,9 @@ raw pointers, so it never sees a DTensor): q sharded on its heads (over
 "model") and its batch (over the data axes), k and v on the batch only,
 replicated over the heads' axis as the reference keeps them, and each
 rank hands the kernel the KV heads its own q heads read
-(``local_kv_heads``).  Their gradients come back partial sums over the
+(``local_kv_heads``); positions, when given, enter ("batch", None): the
+batch's shards, replicated over the heads' axis, as the reference
+constrains them.  Their gradients come back partial sums over the
 heads' axis, which the autograd of the redistributions before reduces.
 ``selective_scan`` of a DTensor u runs K8 the same way on each rank's
 channels (``_selective_scan_sharded``: u, dt, A and h0 sharded along
@@ -56,20 +58,28 @@ def _check_impl(impl: str) -> None:
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     attn_softcap: Optional[float] = None,
-                    schedule: str = "dense", impl: str = "cuda"):
+                    schedule: str = "dense", impl: str = "cuda",
+                    q_positions=None, kv_positions=None):
     """``schedule``: the reference's flash block schedule, one of
-    SCHEDULES; K7 (and the plain version) compute the same for each."""
+    SCHEDULES; K7 (and the plain version) compute the same for each.
+    ``q_positions`` (B, S) and ``kv_positions`` (B, Skv), int64, mask by
+    position instead of by index (``kernels.flash_attention``)."""
     _check_impl(impl)
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule={schedule!r}; expected one of "
                          f"{SCHEDULES}")
     if is_dtensor(q):
         return _flash_attention_sharded(q, k, v, causal, window,
-                                        attn_softcap, schedule, impl)
+                                        attn_softcap, schedule, impl,
+                                        q_positions, kv_positions)
     if impl == "ref":
+        _fa.check_positions(q, k, q_positions, kv_positions)
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 attn_softcap=attn_softcap)
-    return _fa.FlashAttention.apply(q, k, v, causal, window, attn_softcap)
+                                 attn_softcap=attn_softcap,
+                                 q_positions=q_positions,
+                                 kv_positions=kv_positions)
+    return _fa.FlashAttention.apply(q, k, v, causal, window, attn_softcap,
+                                    q_positions, kv_positions)
 
 
 def local_kv_heads(H: int, KV: int, tp: int, m: int):
@@ -90,8 +100,10 @@ def local_kv_heads(H: int, KV: int, tp: int, m: int):
 
 
 def _flash_attention_sharded(q, k, v, causal, window, attn_softcap,
-                             schedule, impl):
-    """K7 on each rank's shard of DTensor q, k, v (module docstring)."""
+                             schedule, impl, q_positions=None,
+                             kv_positions=None):
+    """K7 on each rank's shard of DTensor q, k, v (and positions: module
+    docstring)."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = q.device_mesh
     # q: batch and heads may stay sharded, anything else is gathered
@@ -104,15 +116,21 @@ def _flash_attention_sharded(q, k, v, causal, window, attn_softcap,
     tp = mesh.size(heads[0]) if heads else 1
     m = mesh.get_local_rank(heads[0]) if heads else 0
     pick = local_kv_heads(q.shape[2], k.shape[2], tp, m)
+    # the positions: ("batch", None), whole over the heads' axis
+    pos = () if q_positions is None else (q_positions, kv_positions)
+    pos_pl = [Shard(0) if p == Shard(0) else Replicate() for p in q_pl]
 
-    def attend(ql, kl, vl):
+    def attend(ql, kl, vl, *pl):
         kl, vl = kl[:, :, pick], vl[:, :, pick]
+        qp, kvp = (t.contiguous() for t in pl) if pl else (None, None)
         return (flash_attention(ql.contiguous(), kl.contiguous(),
                                 vl.contiguous(), causal=causal, window=window,
                                 attn_softcap=attn_softcap, schedule=schedule,
-                                impl=impl),)
+                                impl=impl, q_positions=qp,
+                                kv_positions=kvp),)
 
-    return map_local(attend, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
+    return map_local(attend, (q, k, v) + pos,
+                     (q_pl, kv_pl, kv_pl) + (pos_pl,) * len(pos), (q_pl,),
                      mesh)[0]
 
 

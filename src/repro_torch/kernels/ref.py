@@ -13,10 +13,41 @@ from typing import Optional
 import torch
 
 
+def attention_mask(S: int, Skv: int, device, *, causal: bool = True,
+                   window: Optional[int] = None, q_positions=None,
+                   kv_positions=None):
+    """The attention mask, True where a score is kept, or None (nothing
+    masked).  By index: (S, Skv), ``kpos <= qpos`` and ``qpos - kpos <
+    window`` under ``causal``.  With positions ((B, S) and (B, Skv), -1 an
+    invalid slot), as the reference's ``_block_update``: (B, S, Skv),
+    ``kv_pos >= 0`` always, and under ``causal`` also ``q_pos - kv_pos``
+    in [0, window)."""
+    if q_positions is None:
+        if not causal:
+            return None
+        qp = torch.arange(S, device=device)[:, None]
+        kp = torch.arange(Skv, device=device)[None, :]
+    else:
+        qp, kp = q_positions[:, :, None], kv_positions[:, None, :]
+    mask = kp >= 0 if q_positions is not None else None
+    if causal:
+        rel = qp - kp
+        keep = rel >= 0
+        if window is not None:
+            keep &= rel < window
+        mask = keep if mask is None else mask & keep
+    return mask
+
+
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None,
-                  attn_softcap: Optional[float] = None):
-    """Naive softmax attention.  q: (B,S,H,hd); k, v: (B,Skv,KV,hd)."""
+                  attn_softcap: Optional[float] = None,
+                  q_positions=None, kv_positions=None):
+    """Naive softmax attention.  q: (B,S,H,hd); k, v: (B,Skv,KV,hd);
+    masked by index, or by ``q_positions`` (B, S) and ``kv_positions``
+    (B, Skv) when given (``attention_mask``).  Masked scores are -1e30
+    after the softcap, so a row with no kept key averages V over all Skv
+    keys, as the reference's online softmax does within one kv block."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     g = H // KV
@@ -25,13 +56,12 @@ def attention_ref(q, k, v, *, causal: bool = True,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * hd ** -0.5
     if attn_softcap is not None:
         s = torch.tanh(s / attn_softcap) * attn_softcap
-    if causal:
-        qp = torch.arange(S, device=q.device)[:, None]
-        kp = torch.arange(k.shape[1], device=q.device)[None, :]
-        mask = kp <= qp
-        if window is not None:
-            mask &= (qp - kp) < window
-        s = torch.where(mask[None, None], s, -1e30)
+    mask = attention_mask(S, k.shape[1], q.device, causal=causal,
+                          window=window, q_positions=q_positions,
+                          kv_positions=kv_positions)
+    if mask is not None:
+        s = torch.where(mask[None, None] if mask.ndim == 2 else
+                        mask[:, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return o.to(q.dtype)

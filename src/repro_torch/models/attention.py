@@ -5,11 +5,18 @@ cache, cross attention onto media, and the cache utilities (the port of
 The reference's blocked jnp ``flash_attention`` (masking by positions, -1
 = invalid slot) was the CPU twin of its Pallas kernel; the port's prefill
 calls ``kernels.ops.flash_attention`` instead, which masks by index like
-the kernel does.  On the serving path prefill positions are always
-``arange(S)``, where the two agree; ``Model.forward`` refuses batches that
-carry their own positions.  Decode stays plain torch (the reference has no
+the kernel does, or by the batch's own positions when it carries them
+(``Model.forward``).  Decode stays plain torch (the reference has no
 Pallas kernel for it), and so does cross attention (plain jnp in the
 reference too, outside any Pallas kernel).
+
+``write_cache`` lets only valid entries (position >= 0) write: an entry
+at -1 clamps onto slot 0 (slot W - 1 of a rolling cache), where a valid
+entry of a left-padded row also writes, and a scatter with duplicate
+indices keeps an unspecified one of the writes on CUDA.  The reference's
+scatter keeps the last write on the CPU, so a right-padded row loses its
+position 0 there (ROADMAP §3); the port keeps the valid entry whatever
+the order.
 
 Under a serve plan the cache is sharded along its sequence ("kv_seq",
 over one or several mesh dims; ``models.model``).  ``write_cache`` then
@@ -176,17 +183,30 @@ def write_cache(cache_k, cache_v, slot_pos, k_new, v_new, positions, *,
     and returns them).
 
     cache_k/v: (B, S, KV, hd); k_new/v_new: (B, T, KV, hd);
-    positions: (B, T) absolute positions being written.
+    positions: (B, T) absolute positions being written, -1 for none.
     Full cache: slot = position.  Rolling: slot = position % window.
+    Only valid entries write, whatever the scatter's order (module
+    docstring), with no host sync: each invalid entry repeats its row's
+    last valid entry (the same value into the same slot), or, in a row
+    with none, writes back the old contents of its row's first slot.
     A cache sharded along its sequence (DTensors) is written on each
     rank's own slots (``_write_cache_sharded``)."""
     if is_dtensor(cache_k):
         return _write_cache_sharded(cache_k, cache_v, slot_pos, k_new, v_new,
                                     positions, rolling_window)
     B, S = cache_k.shape[:2]
+    T = positions.shape[1]
+    valid = positions >= 0
+    if T > 1:
+        idx = torch.arange(T, device=positions.device).expand(B, T)
+        last = torch.where(valid, idx, -1).amax(dim=1, keepdim=True)
+        src = torch.where(valid, idx, last.clamp(min=0))
+        positions = positions.gather(1, src)
+        gather = src[..., None, None].expand(-1, -1, *k_new.shape[2:])
+        k_new, v_new = k_new.gather(1, gather), v_new.gather(1, gather)
+        valid = (last >= 0).expand(B, T)
     slots = positions % rolling_window if rolling_window else positions
     b_idx = torch.arange(B, device=cache_k.device)[:, None]
-    valid = positions >= 0
     slots_c = torch.clamp(slots, 0, S - 1)
     sel = valid[..., None, None]
     cache_k[b_idx, slots_c] = torch.where(sel, k_new.to(cache_k.dtype),

@@ -12,6 +12,8 @@ Batches (numpy arrays or tensors; moved to the model's device):
     dense/moe/ssm/hybrid : {"tokens": (B, S) integer}
     audio (musicgen)     : {"embeddings": (B, S, media_embed_dim)}
     vlm (llama-3.2-v)    : {"tokens": (B, S), "media": (B, M, media_embed_dim)}
+each with an optional "positions": (B, S) integer, -1 an invalid slot (a
+left-padded prompt's pads), as the reference takes them.
 Decode inputs are ``{"tokens": (B, 1)}``, or ``{"embeddings": (B, 1,
 media_embed_dim)}`` for the audio family.  Embeddings and media go
 through ``projector`` (``media_embed_dim x d_model``) in the compute
@@ -36,25 +38,27 @@ global) pairs, layer 2g windowed with a rolling cache, layer 2g + 1 full
 with a cache of ``cache_len`` slots.  Prefill attention (K7) takes the
 window, decode attention masks by it.
 
-A hybrid model (zamba2) runs its L Mamba2 blocks in groups of ``k =
-hybrid_period``, each group followed by the one ``shared_attn`` block
-(full attention through K7 in prefill); the same shared parameters serve
-all L / k groups, and autograd sums their gradients.  The ssm family runs
-Mamba1 or Mamba2 blocks by ``ssm_version``.  A vlm (llama-3.2-vision)
-runs ``g = L / k`` groups, ``k = cross_attn_period``: k - 1 self-attention
-blocks (``layers``, K7 in prefill), then the group's gated cross block
-(``cross``, an ``nn.ModuleList`` of g) onto the media's K/V, which each
-cross block projects once per prefill; so its ``layers`` hold L - L / k
-blocks (32 of 40 at full size).  Cross attention is plain torch, as the
+A hybrid model (zamba2) runs its L Mamba2 blocks (or Mamba1 blocks, by
+``ssm_version``, as the original Zamba does: their scan is K8) in groups
+of ``k = hybrid_period``, each group followed by the one ``shared_attn``
+block (full attention through K7 in prefill); the same shared parameters
+serve all L / k groups, and autograd sums their gradients.  The ssm
+family runs Mamba1 or Mamba2 blocks by ``ssm_version``.  A vlm
+(llama-3.2-vision) runs ``g = L / k`` groups, ``k = cross_attn_period``:
+k - 1 self-attention blocks (``layers``, K7 in prefill), then the group's
+gated cross block (``cross``, an ``nn.ModuleList`` of g) onto the media's
+K/V, which each cross block projects once per prefill; so its ``layers``
+hold L - L / k blocks (32 of 40 at full size).  Cross attention is plain torch, as the
 reference's is plain jnp.
 
 The cache is a flat dict whose leaves have a leading layer (or group)
 axis and the batch axis second (``CACHE_BATCH_AXIS``): dense ``k``,
 ``v`` (L, B, S, KV, hd) and ``slot_pos`` (L, B, S); ssm ``conv`` (L, B,
 K-1, d_inner) and ``ssm`` (L, B, d_inner, N), Mamba2's (L, B, H, P, N),
-float32; hybrid ``conv`` and ``ssm`` over its L Mamba2 blocks as in the
-ssm family, and the shared block's ``k``, ``v``, ``slot_pos`` over its
-L / k groups, (L / k, B, ...); local_global ``k_local``, ``v_local``,
+float32; hybrid ``conv`` and ``ssm`` over its L Mamba blocks as in the
+ssm family (a Mamba1 hybrid's ``ssm`` (L, B, d_inner, N)), and the
+shared block's ``k``, ``v``, ``slot_pos`` over its L / k groups, (L / k,
+B, ...); local_global ``k_local``, ``v_local``,
 ``slot_pos_local`` (L / 2, B, min(S, W), ...) for the local layers and
 ``k``, ``v``, ``slot_pos`` (L / 2, B, S, ...) for the global ones; vlm
 ``k``, ``v``, ``slot_pos`` over its self blocks and ``media_k``,
@@ -66,14 +70,20 @@ one batch axis each are what ``serve.merge_cache`` scatters along.
 ``decode_step`` writes the new token's state into the cache tensors in
 place and returns the same dict.
 
-Prefill attention masks by index (the flash-attention kernel's
-semantics), which equals the reference's position mask for the
-``arange(S)`` positions it builds itself; a batch that carries its own
-``"positions"`` raises.  ``forward``'s aux holds a moe model's
+Positions are the batch's own ``"positions"`` where it carries them,
+else ``arange(S)``, which the reference builds too.  RoPE, every cache
+write (a rolling layer's last W, ``attention.prefill_tail``) and the
+cache's ``pos`` (the last position + 1) take them.  Prefill attention
+(K7) masks by the batch's positions where it carried them, as the
+reference's jnp ``flash_attention`` does, and by index otherwise (the
+same mask for ``arange(S)``, with K7's tile skip), so a batch without
+positions launches exactly what it did before positions were taken.  A
+pad at -1 attends to nothing: its row averages V over all keys, as the
+reference's does (``kernels.flash_attention``); the Mamba blocks scan the
+pads as the reference's do.  ``forward``'s aux holds a moe model's
 ``lb_loss``, ``z_loss`` and ``drop_frac``, each the mean over the layers
 (empty for the other families, and for local_global and the vlm, whose
-groups the reference runs without collecting them).  A hybrid of Mamba1
-blocks raises ``NotImplementedError``.
+groups the reference runs without collecting them).
 
 Under an enabled plan (``launch.specs.plan_for`` on a ``DeviceMesh``,
 one process per device) the model is distributed: each parameter,
@@ -177,11 +187,7 @@ def check_supported(cfg: ModelConfig,
     for an enabled plan's unknown ``tp_mode`` or block schedule."""
     if plan is not None and plan.enabled:
         _check_plan(cfg, plan)
-    if cfg.family == "hybrid" and cfg.ssm_version != 2:
-        raise NotImplementedError(
-            f"{cfg.name}: a hybrid of ssm_version={cfg.ssm_version} blocks "
-            f"is not ported (the port's hybrid runs Mamba2 blocks)")
-    if cfg.family == "ssm" and cfg.ssm_version not in (1, 2):
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_version not in (1, 2):
         raise NotImplementedError(
             f"{cfg.name}: ssm_version={cfg.ssm_version} is not ported yet")
 
@@ -540,16 +546,23 @@ class Model(nn.Module):
     # ====================== full-sequence forward ====================== #
     def forward(self, batch, *, build_cache: bool = False,
                 cache_len: Optional[int] = None):
-        """Returns (hidden (B,S,d), aux dict, cache-or-None)."""
-        if "positions" in batch:
-            raise NotImplementedError(
-                "batches with their own positions are not supported: "
-                "prefill attention masks by index (positions arange(S))")
+        """Returns (hidden (B,S,d), aux dict, cache-or-None).  The batch's
+        own ``"positions"`` (B, S), where it carries them, mask K7 and
+        place RoPE and the cache writes (module docstring)."""
         cfg = self.cfg
         x = self._embed(batch)
         B, S = x.shape[:2]
-        positions = self.shard(torch.arange(S, device=self.device).expand(
-            B, S), ("batch", None))
+        if "positions" in batch:
+            positions = self._index(batch["positions"]).contiguous()
+            if tuple(positions.shape) != (B, S):
+                raise ValueError(f"positions {tuple(positions.shape)} for "
+                                 f"a batch of {(B, S)}")
+        else:
+            positions = torch.arange(S, device=self.device).expand(B, S)
+        positions = self.shard(positions, ("batch", None))
+        # K7 masks by the batch's own positions, else by index
+        kw = dict(positions=positions, attn_positions=positions
+                  if "positions" in batch else None)
         cache, aux = None, {}
         if build_cache:
             cache = self.init_cache(B, cache_len or S)
@@ -566,8 +579,7 @@ class Model(nn.Module):
             media = self._media(batch)
             for g in range(len(self.cross)):
                 x, group_kvs, mkv = remat(functools.partial(
-                    self._vlm_group, g=g, k=k, positions=positions),
-                    self.plan)(x, media)
+                    self._vlm_group, g=g, k=k, **kw), self.plan)(x, media)
                 if build_cache:
                     for j, kv in enumerate(group_kvs, g * k):
                         write_kv(kv, "", j)
@@ -578,8 +590,7 @@ class Model(nn.Module):
             k = cfg.hybrid_period if cfg.family == "hybrid" else 1
             for g in range(cfg.n_layers // k):
                 x, states, kv = remat(functools.partial(
-                    self._mamba_group, g=g, k=k, positions=positions),
-                    self.plan)(x)
+                    self._mamba_group, g=g, k=k, **kw), self.plan)(x)
                 if build_cache:
                     for i, (conv, ssm) in enumerate(states, g * k):
                         store(cache["conv"][i], conv)
@@ -592,8 +603,7 @@ class Model(nn.Module):
             layer_aux = []
             for g in range(cfg.n_layers // k):
                 x, kvs, auxs = remat(functools.partial(
-                    self._dense_group, g=g, k=k, positions=positions),
-                    self.plan)(x)
+                    self._dense_group, g=g, k=k, **kw), self.plan)(x)
                 if build_cache:
                     for i, kv in enumerate(kvs, g * k):
                         write_kv(kv, *self._attn_layout(i))
@@ -606,28 +616,32 @@ class Model(nn.Module):
             store(cache["pos"], positions[:, -1] + 1)
         return x, aux, cache
 
-    def _dense_group(self, x, *, g: int, k: int, positions):
+    def _dense_group(self, x, *, g: int, k: int, positions, attn_positions):
         """Group ``g``: blocks ``g*k .. g*k+k-1``, each with its window.
         Returns (x, [(k, v) per block], [aux or None per block])."""
         kvs, auxs = [], []
         for i in range(g * k, (g + 1) * k):
             x, kv, aux_l = tf.dense_block(
                 self.layers[i], x, self.cfg, self.plan, positions,
-                window=self._attn_layout(i)[2], impl=self.impl)
+                window=self._attn_layout(i)[2], impl=self.impl,
+                attn_positions=attn_positions)
             kvs.append(kv)
             auxs.append(aux_l)
         return x, kvs, auxs
 
-    def _vlm_group(self, x, media, *, g: int, k: int, positions):
+    def _vlm_group(self, x, media, *, g: int, k: int, positions,
+                   attn_positions):
         """A vlm's group ``g``: self blocks ``g*k .. g*k+k-1``, then cross
         block ``g`` onto the media.  Returns (x, [(k, v) per self block],
         the cross block's media (k, v))."""
-        x, kvs, _ = self._dense_group(x, g=g, k=k, positions=positions)
+        x, kvs, _ = self._dense_group(x, g=g, k=k, positions=positions,
+                                      attn_positions=attn_positions)
         p = self.cross[g]
         mkv = tf.media_kv_for(p["attn"], media, self.cfg, self.plan)
         return tf.cross_attn_block(p, x, mkv, self.cfg, self.plan), kvs, mkv
 
-    def _mamba_group(self, x, *, g: int, k: int, positions):
+    def _mamba_group(self, x, *, g: int, k: int, positions,
+                     attn_positions):
         """Group ``g``: Mamba blocks ``g*k .. g*k+k-1``, then a hybrid's
         shared attention block.  Returns (x, [(conv, ssm) state per
         block], the shared block's (k, v) or None)."""
@@ -639,7 +653,8 @@ class Model(nn.Module):
         kv = None
         if cfg.family == "hybrid":
             x, kv, _ = tf.dense_block(self.shared_attn, x, cfg, self.plan,
-                                      positions, impl=self.impl)
+                                      positions, impl=self.impl,
+                                      attn_positions=attn_positions)
         return x, states, kv
 
     # ============================ prefill ============================== #

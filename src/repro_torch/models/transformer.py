@@ -4,8 +4,9 @@ vlm), and their parameter definitions (the port of
 
 ``model_defs`` gives the reference's parameter tree with its stacked
 layer leaves (``layer_stack(cfg)`` leading dims: ``(L, ...)``; the
-hybrid's ``(L / k, k, ...)`` groups of ``k = hybrid_period`` Mamba2
-blocks beside one unstacked ``shared_attn`` block; local_global's
+hybrid's ``(L / k, k, ...)`` groups of ``k = hybrid_period`` Mamba
+blocks (Mamba2, or Mamba1 by ``ssm_version``) beside one unstacked
+``shared_attn`` block; local_global's
 ``(L / 2, 2, ...)`` (local, global) pairs; the vlm's ``(g, k - 1, ...)``
 self-attention blocks, ``k = cross_attn_period``, beside ``cross``, its
 g gated cross-attention blocks ``(g, ...)``); the port's ``Model`` holds
@@ -150,7 +151,7 @@ def mamba_defs(cfg) -> Dict[str, Any]:
 
 def layer_defs(cfg) -> Dict[str, Any]:
     """One layer's parameter definitions (a hybrid's layers are its
-    Mamba2 blocks, a vlm's its self-attention blocks)."""
+    Mamba blocks, a vlm's its self-attention blocks)."""
     if cfg.family in ("ssm", "hybrid"):
         return mamba_defs(cfg)
     return block_defs(cfg, moe=cfg.is_moe)
@@ -246,18 +247,21 @@ def _qkv(p, x, cfg, plan, positions):
 
 
 def self_attention_block(p, x, cfg, positions, *, window=None,
-                         schedule=None, impl: str = "cuda", plan=_SINGLE):
-    """Pre-norm attention sub-block (full sequence, positions
-    ``arange(S)``), K7 under ``schedule``, resolved as the reference
-    resolves it: "window" under a window, else the plan's.  Returns (y,
-    (k, v))."""
+                         schedule=None, impl: str = "cuda", plan=_SINGLE,
+                         attn_positions=None):
+    """Pre-norm attention sub-block (full sequence), K7 under
+    ``schedule``, resolved as the reference resolves it: "window" under a
+    window, else the plan's.  RoPE takes ``positions`` (B, S); K7 masks by
+    ``attn_positions`` (a batch's own, or None: by index, which equals the
+    mask of ``arange(S)`` and lets K7 skip tiles).  Returns (y, (k, v))."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p["attn"], h, cfg, plan, positions)
     sched = schedule or ("window" if window is not None
                          else plan.attention_schedule)
     o = ops.flash_attention(q, k, v, causal=True, window=window,
                             attn_softcap=cfg.attn_softcap, schedule=sched,
-                            impl=impl)
+                            impl=impl, q_positions=attn_positions,
+                            kv_positions=attn_positions)
     B, S = x.shape[:2]
     o = plan.row_parallel_project(
         o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["attn"]["wo"])
@@ -293,11 +297,13 @@ def ffn_block(p, x, cfg, plan):
 
 
 def dense_block(p, x, cfg, plan, positions, *, window=None,
-                impl: str = "cuda"):
-    """Full transformer block.  Returns (x_out, kv, aux): aux is the MoE
+                impl: str = "cuda", attn_positions=None):
+    """Full transformer block (``attn_positions``: K7's mask,
+    ``self_attention_block``).  Returns (x_out, kv, aux): aux is the MoE
     layer's losses, None for an MLP block."""
     o, kv = self_attention_block(p, x, cfg, positions, window=window,
-                                 impl=impl, plan=plan)
+                                 impl=impl, plan=plan,
+                                 attn_positions=attn_positions)
     x = plan.constrain(x + o, ("batch", "seq", None))
     y, aux = ffn_block(p, x, cfg, plan)
     return plan.constrain(x + y, ("batch", "seq", None)), kv, aux

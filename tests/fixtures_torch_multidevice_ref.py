@@ -101,15 +101,22 @@ def step_params(d, tag):
                      f"{tag}_params_{i - 1}.npz")) for i in STEPS]
 
 
+def rsmoke(arch, **over):
+    """The reference's smoke config of ``arch`` (a variant's,
+    ``fx.VARIANTS``) in float32, with ``over``."""
+    base, vover, _ = fx.variant(arch)
+    return dataclasses.replace(RREGISTRY[base].smoke(), dtype="float32",
+                               **{**vover, **over})
+
+
 def _reference(d, tag, arch, over, groups, seed=0):
-    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32",
-                               **over)
+    rcfg = rsmoke(arch, **over)
     cfg = fx.smoke_cfg(arch, **over)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
     rmodel = rbuild(rcfg, rsingle_device_plan().with_(
         moe_target_groups=groups))
     params = _open_gates(rmodel.init(jax.random.PRNGKey(seed)), cfg)
-    batch = fx.batch(cfg, B, S, seed=1 + seed)
+    batch = fx.with_positions(arch, fx.batch(cfg, B, S, seed=1 + seed))
     np.savez(d / f"{tag}_params.npz", **_flat_tree(params))
     np.savez(d / f"{tag}_batch.npz", **batch)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -183,8 +190,7 @@ def reference_placements(arch, over, mesh):
     """{parameter name: str(placements)} from the reference's
     ``plan_for`` and ``defs_to_specs`` for a mesh of ``mesh``'s shape (its
     PartitionSpec's axes as ``Shard`` on the mesh's dims of size > 1)."""
-    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32",
-                               **(over or {}))
+    rcfg = rsmoke(arch, **(over or {}))
     axes = fx.AXES
     stand_in = SimpleNamespace(axis_names=axes, shape=dict(zip(axes, mesh)))
     rplan = rplan_for(rcfg, RShapeConfig("train", S, B, "train"), stand_in)
@@ -248,8 +254,10 @@ def cache_placements(arch, B, mesh, plan_kw=None):
     ``Model.cache_specs`` under its ``plan_for`` prefill and decode plans
     (which place the cache alike: asserted) at global batch B, on a mesh
     of ``mesh``'s shape (its axes as ``Shard`` on the dims of size > 1),
-    a leaf's stacked layer dims merged into one."""
-    rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32")
+    a leaf's stacked layer dims merged into one.  A Mamba1 hybrid's
+    ``ssm`` leaf takes the reference's spec of a Mamba1 state (its
+    hybrid cache holds Mamba2's whatever the blocks: ROADMAP §3)."""
+    rcfg = rsmoke(arch)
     axes = fx.AXES
     stand_in = SimpleNamespace(axis_names=axes, shape=dict(zip(axes, mesh)))
     specs = []
@@ -265,6 +273,9 @@ def cache_placements(arch, B, mesh, plan_kw=None):
     for key, spec in specs[0].items():
         *top, name = key.split("/")
         name += "_local" if top == ["local"] else ""
+        if name == "ssm" and rcfg.family == "hybrid" and \
+                rcfg.ssm_version == 1:
+            spec = tuple(rplan.spec((None, "batch", "inner", None)))
         # the port's leaf: the reference's leading layer dims merged
         spec = spec[len(spec) - len(layout[name][0]):]
         placed = [Replicate()] * len(active)
@@ -292,7 +303,7 @@ def served(d, mesh, cases):
     for arch, B, plan_kw in cases:
         tag = f"{arch}-B{B}" + "".join(f"-{v}" for v in
                                       (plan_kw or {}).values())
-        rcfg = dataclasses.replace(RREGISTRY[arch].smoke(), dtype="float32")
+        rcfg = rsmoke(arch)
         cfg = fx.smoke_cfg(arch)
         params = _open_gates(
             jax.jit(rbuild(rcfg).init)(jax.random.PRNGKey(0)), cfg)
@@ -302,9 +313,9 @@ def served(d, mesh, cases):
         pre = rbuild(rcfg, rsingle_device_plan().with_(
             moe_target_groups=world, **groups))
         dec = rbuild(rcfg, rsingle_device_plan().with_(**groups))
-        batch, frames = fx.serve_inputs(cfg, B)
-        jb = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else
-                             jnp.float32) for k, v in batch.items()}
+        batch, frames = fx.serve_inputs(arch, B)
+        jb = {k: jnp.asarray(v, jnp.int32 if k in ("tokens", "positions")
+                             else jnp.float32) for k, v in batch.items()}
         # jitted: one compile of each step where eager runs recompile
         # every scan body a call
         logits, rcache = jax.jit(lambda p, b: pre.prefill(
@@ -322,7 +333,7 @@ def served(d, mesh, cases):
             else:
                 step = {"embeddings": frames[:, t:t + 1]}
             inputs.update({f"step{t}/{k}": v for k, v in step.items()})
-            q_pos = jnp.full((B,), fx.SERVE_PROMPT + t, jnp.int32)
+            q_pos = jnp.asarray(fx.next_positions(batch) + t)
             logits, rcache = decode_step(
                 params, rcache, {k: jnp.asarray(v) for k, v in
                                  step.items()}, q_pos)

@@ -417,6 +417,130 @@ def test_hybrid_smoke_train_and_serve_through_kernels(dev):
     assert fa.flash_attention.launches > before
 
 
+def _left_padded(lengths, S, device):
+    """(B, S) int64 positions: -1 on each row's leading pads, then 0, 1,
+    ..."""
+    return torch.stack([torch.cat([torch.full((S - n,), -1),
+                                   torch.arange(n)]) for n in lengths]
+                       ).to(device)
+
+
+# K7 by positions on both kernels: (dtype, H, KV, hd); bf16 at hd 64 and
+# 128 on the tensor cores, the rest on the CUDA cores
+POSITION_KERNELS = [(torch.bfloat16, 15, 5, 64), (torch.bfloat16, 32, 4, 128),
+                    (torch.float32, 4, 2, 80), (torch.bfloat16, 4, 2, 80),
+                    (torch.float32, 4, 2, 256), (torch.bfloat16, 4, 2, 256),
+                    (torch.float32, 6, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype,H,KV,hd", POSITION_KERNELS)
+def test_flash_attention_by_positions_matches_plain(dev, dtype, H, KV, hd):
+    """K7 masking by positions on the card against attention_ref: left
+    pads (one row all pads), offsets, a window with softcap, S = 150
+    (ragged tiles); positions arange bit-equal to the index path; and
+    under autograd, its gradients against autograd through the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S = 4, 150
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=g,
+                               device=dev).to(dtype) for n in (H, KV, KV, H))
+    pads = _left_padded((S, 100, 37, 0), S, dev)
+    offset = _left_padded((S,) * 4, S, dev) + torch.tensor(
+        [[0], [3], [64], [500]], device=dev)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for pos, opts in ((pads, {}), (offset, {}),
+                      (pads, dict(window=40, attn_softcap=30.0))):
+        kw = dict(opts, q_positions=pos, kv_positions=pos)
+        torch.testing.assert_close(fa.flash_attention(q, k, v, **kw),
+                                   ref.attention_ref(q, k, v, **kw),
+                                   atol=tol, rtol=tol)
+    ar = torch.arange(S, device=dev).expand(B, S).contiguous()
+    for opts in ({}, dict(window=40, attn_softcap=30.0)):
+        assert torch.equal(fa.flash_attention(q, k, v, q_positions=ar,
+                                              kv_positions=ar, **opts),
+                           fa.flash_attention(q, k, v, **opts))
+    out = {}
+    for name, fn in (("kernel", lambda *a: fa.FlashAttention.apply(
+            *a, True, 40, None, pads, pads)),
+            ("plain", lambda *a: ref.attention_ref(
+                *a, window=40, q_positions=pads, kv_positions=pads))):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*xs)
+        out[name] = (o,) + torch.autograd.grad(o, xs, do)
+    for a, b in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+def test_write_cache_keeps_valid_entries_on_the_card(dev):
+    """Left pads clamp onto slot 0 (a rolling cache's W - 1) beside a
+    valid entry; on the card, whatever order the scatter takes, each
+    valid position's K/V lands in its slot and no pad's does (a rolling
+    cache after ``prefill_tail``, as prefill writes it)."""
+    from repro_torch.models import attention as A
+    B, T, size = 8, 64, 80
+    pos = _left_padded([T - 7 * b for b in range(B)], T, dev)
+    k = torch.randn((B, T, 2, 16), device=dev)
+    for window in (None, 16):
+        ck, cv = (torch.zeros((B, size if window is None else window, 2, 16),
+                              device=dev) for _ in range(2))
+        sp = torch.full(ck.shape[:2], -1, dtype=torch.int64, device=dev)
+        # a rolling cache takes the last W positions, as prefill does
+        kk, _, pp = (k, k, pos) if window is None else \
+            A.prefill_tail(k, k, pos, window)
+        A.write_cache(ck, cv, sp, kk, kk, pp, rolling_window=window)
+        for b in range(B):
+            for t in range(pp.shape[1]):
+                p = int(pp[b, t])
+                if p >= 0:
+                    slot = p % window if window else p
+                    assert int(sp[b, slot]) == p
+                    assert torch.equal(ck[b, slot], kk[b, t])
+        assert int((sp >= 0).sum()) == int((pp >= 0).sum())
+
+
+@pytest.mark.parametrize("arch,over", [("smollm-360m", {}),
+                                       ("zamba2-2.7b", {"ssm_version": 1})])
+def test_positions_and_mamba1_hybrid_smoke_on_the_card(dev, arch, over):
+    """The smoke model (smollm; the Mamba1 hybrid: K8 once a block, K7
+    once a group) in float32 on the card through the kernels against
+    impl="ref" (the plain versions, the same seeded parameters): a
+    left-padded batch's train loss within 1e-5, prefill then 4 decode
+    steps from each row's next position within 1e-3."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.steps import make_loss_fn
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32",
+                              **over)
+    B, S = 2, 40
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S))
+    pos = _left_padded((S - 13, S), S, "cpu").numpy()
+    batch = {"tokens": toks, "positions": pos,
+             "labels": np.where(pos < 0, -1, np.roll(toks, -1, 1))}
+    out = {}
+    for impl in ("cuda", "ref"):
+        model = build_model(cfg, device="cuda", seed=4, impl=impl)
+        before = (fa.flash_attention.launches,
+                  ms.selective_scan.launches)
+        loss, _ = make_loss_fn(model)(batch)
+        launched = (fa.flash_attention.launches - before[0],
+                    ms.selective_scan.launches - before[1])
+        attn = cfg.n_layers // (cfg.hybrid_period
+                                if cfg.family == "hybrid" else 1)
+        assert launched == ((attn, cfg.n_layers if over else 0)
+                            if impl == "cuda" else (0, 0))
+        with torch.no_grad():
+            logits, cache = model.prefill(batch, cache_len=S + 4)
+            steps = [logits.cpu()]
+            q0 = pos[:, -1] + 1
+            for t in range(4):
+                logits, cache = model.decode_step(
+                    cache, {"tokens": toks[:, t:t + 1]}, q0 + t)
+                steps.append(logits.cpu())
+        out[impl] = (float(loss.detach()), steps)
+    assert out["cuda"][0] == pytest.approx(out["ref"][0], rel=1e-5)
+    for a, b in zip(out["cuda"][1], out["ref"][1]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
 # gemma2-9b's heads (16:8, hd 256: the CUDA-core kernel in both dtypes,
 # one 213,760-byte block an SM) with its softcap, windowed as its local
 # layers are; mixtral-8x7b's (32:8, hd 128, bf16 on the tensor cores),
@@ -923,7 +1047,7 @@ def test_serve_plans_on_the_card():
     try:
         arch = "smollm-360m"
         cfg = fx.smoke_cfg(arch)
-        batch, _ = fx.serve_inputs(cfg, 2)
+        batch, _ = fx.serve_inputs(arch, 2)
         one = fx.serve_one_device(arch, batch, None, device="cuda")
         paths = fx.count_paths()
         mesh = make_mesh((1, 1, 1), fx.AXES)

@@ -509,15 +509,22 @@ def test_moe_active_params():
 
 
 def test_hybrid_unported_combinations_raise():
-    """The port's hybrid runs Mamba2 blocks: zamba2-2.7b builds, a hybrid
-    of Mamba1 blocks raises."""
+    """The port's hybrid runs Mamba2 blocks (zamba2-2.7b) and Mamba1
+    blocks (``ssm_version=1``, the original Zamba's): both build and run
+    a forward (test_torch_hybrid_mamba1.py holds the Mamba1 hybrid
+    against the reference); a Mamba version the reference does not have
+    raises."""
     zamba = get_config("zamba2-2.7b")
-    check_supported(zamba)
-    with pytest.raises(NotImplementedError, match="ssm_version=1"):
-        check_supported(dataclasses.replace(zamba, ssm_version=1))
-    with pytest.raises(NotImplementedError, match="ssm_version=1"):
-        build_model(dataclasses.replace(zamba.smoke(), ssm_version=1),
-                    device="cpu")
+    for version in (1, 2):
+        check_supported(dataclasses.replace(zamba, ssm_version=version))
+        cfg = dataclasses.replace(zamba.smoke(), ssm_version=version,
+                                  dtype="float32")
+        model = build_model(cfg, device="cpu")
+        with torch.no_grad():
+            h, _, _ = model.forward(inputs(cfg, B=1, S=8))
+        assert h.shape == (1, 8, cfg.d_model) and bool(h.isfinite().all())
+    with pytest.raises(NotImplementedError, match="ssm_version=3"):
+        check_supported(dataclasses.replace(zamba, ssm_version=3))
 
 
 def test_ssm_version_2_matches_reference():
@@ -564,9 +571,10 @@ def test_moe_with_unported_attention_raises():
     local_global): mixtral-8x7b and qwen3-moe-30b-a3b under each pass
     ``check_supported`` and build, and so does a moe model given the vlm
     family (cross blocks every other layer, media) or the audio family
-    (embedding inputs through a projector), which also runs a forward.
-    What still raises is neither the schedule nor those families: a moe
-    model given the hybrid family over Mamba1 blocks."""
+    (embedding inputs through a projector), which also runs a forward,
+    and so does a moe model given the hybrid family over Mamba1 or Mamba2
+    blocks.  What still raises is neither the schedule nor those
+    families: a Mamba version the reference does not have."""
     for arch in ("mixtral-8x7b", "qwen3-moe-30b-a3b"):
         moe = get_config(arch)
         check_supported(moe)
@@ -585,9 +593,12 @@ def test_moe_with_unported_attention_raises():
                 h, aux, _ = model.forward(inputs(cfg, B=1, S=8))
             assert h.shape == (1, 8, cfg.d_model)
             assert bool(h.isfinite().all())
-        with pytest.raises(NotImplementedError, match="ssm_version=1"):
+        for version in (1, 2):
             check_supported(dataclasses.replace(moe, family="hybrid",
-                                                ssm_version=1))
+                                                ssm_version=version))
+        with pytest.raises(NotImplementedError, match="ssm_version=0"):
+            check_supported(dataclasses.replace(moe, family="hybrid",
+                                                ssm_version=0))
 
 
 @pytest.mark.parametrize("arch,attention", [
@@ -635,8 +646,23 @@ def test_schedules_on_other_archs_match_reference(arch, attention):
 
 
 def test_forward_refuses_positions():
-    cfg = get_config("smollm-360m").smoke()
+    """A batch's own positions are taken (test_torch_positions.py holds
+    them against the reference): positions ``arange(S)`` give exactly
+    the forward without positions, and left pads change only what
+    attends to them.  Positions of another shape than the batch's are
+    refused."""
+    cfg = dataclasses.replace(get_config("smollm-360m").smoke(),
+                              dtype="float32")
     model = build_model(cfg, device="cpu")
-    toks = np.zeros((1, 4), np.int64)
-    with pytest.raises(NotImplementedError, match="positions"):
-        model.forward({"tokens": toks, "positions": toks})
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6))
+    with torch.no_grad():
+        plain = model.forward({"tokens": toks})[0]
+        same = model.forward({"tokens": toks,
+                              "positions": np.tile(np.arange(6), (2, 1))})[0]
+        assert torch.equal(plain, same)
+        pads = np.array([[-1, -1, 0, 1, 2, 3], [0, 1, 2, 3, 4, 5]])
+        padded = model.forward({"tokens": toks, "positions": pads})[0]
+        assert torch.equal(padded[1], plain[1])
+        assert not torch.allclose(padded[0], plain[0])
+        with pytest.raises(ValueError, match="positions"):
+            model.forward({"tokens": toks, "positions": pads[:, :4]})

@@ -12,6 +12,11 @@ against the reference (``fixtures_torch_multidevice_ref``).
   every parameter after it, equal the reference's single-device JAX
   trajectory at test_torch_train.py's LOSS_TOL, GRAD_TOL and PARAM_TOL,
   every parameter within PARAM_TOL.
+- **Positions**: the same at (1, 2, 2) on a batch of its own positions
+  (``fx.VARIANTS``: rows 0 and 2 left-padded by 7, their labels -1
+  there), K7 masking by them under ``local_map``; its parameters by
+  ``fx.params_agree``'s near-zero rule (an element beyond PARAM_TOL only
+  where its first gradient is within GRAD_TOL x max of zero).
 - **Placements**: every parameter is placed as the reference's
   PartitionSpec of its leaf says.
 - **The sharded paths ran**: K7's ``local_map`` on both layers of the
@@ -27,7 +32,8 @@ import fixtures_torch_multidevice_ref as ref
 
 GEMMA = "gemma2-9b"
 MESHES = [(1, 2, 2), (1, 1, 4)]
-RUNS = [(GEMMA, None, mesh) for mesh in MESHES]
+RUNS = [(GEMMA, None, mesh) for mesh in MESHES] + \
+    [("gemma2-9b-leftpad", None, (1, 2, 2))]
 IDS = [ref.run_id(r) for r in RUNS]
 
 
@@ -40,7 +46,9 @@ def trained(tmp_path_factory):
 @pytest.mark.parametrize("step", ref.STEPS)
 @pytest.mark.parametrize("run", RUNS, ids=IDS)
 def test_training_matches_reference(trained, run, step):
-    assert run[0] not in fx.NEAR_ZERO_RULE
+    # the unpadded batch's parameters all within PARAM_TOL; the
+    # left-padded one's by the near-zero rule (fx.NEAR_ZERO_RULE)
+    assert (run[0] in fx.NEAR_ZERO_RULE) == (run[0] in fx.VARIANTS)
     ref.check_step(run[0], *trained[ref.run_id(run)], step)
 
 

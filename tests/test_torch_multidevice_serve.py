@@ -13,8 +13,12 @@ over ("data", "model"), nested; smollm at 16 with
 qwen3-moe-30b-a3b at 2 (token-replicated dispatch, experts over
 "model") and at 16 with groups of 25 tokens (prefill: 288 tokens in 12
 groups, the last padded, split over every axis; decode: the batch over
-"data", the tokens replicated), and musicgen-medium (frame embeddings)
-at 2.  Each prefills a prompt of 18
+"data", the tokens replicated), musicgen-medium (frame embeddings)
+at 2, smollm at 2 with its own positions (``fx.VARIANTS``: its first
+row's prompt left-padded by 5, K7 masking by the positions under
+``local_map``, each row decoding from its own next position) and the
+Mamba1 hybrid (zamba2's smoke config with ``ssm_version=1``: K8 over
+each rank's channels) at 2.  Each prefills a prompt of 18
 into a cache of 22 slots (no mesh of 4 splits 22 evenly) and takes 4
 decode steps, each fed the reference's greedy token (musicgen: seeded
 frames); the decode model runs over the prefill model's parameter
@@ -46,7 +50,8 @@ GATHERED = {"serve_weight_mode": "gathered"}
 GROUPS = {"moe_group_size": 25}
 CASES = [("smollm-360m", 2, None), ("smollm-360m", 16, GATHERED),
          ("qwen3-moe-30b-a3b", 2, None), ("qwen3-moe-30b-a3b", 16, GROUPS),
-         ("musicgen-medium", 2, None)]
+         ("musicgen-medium", 2, None), ("smollm-360m-leftpad", 2, None),
+         ("zamba2-2.7b-mamba1", 2, None)]
 IDS = [f"{a}-B{b}" + "".join(f"-{k}-{v}" for k, v in (kw or {}).items())
        for a, b, kw in CASES]
 
