@@ -19,8 +19,9 @@ Phases (any failure exits nonzero; there is no CPU path):
              after phase 3, then the float32 checks of phases 7 and 13
              that no timed run follows (``untimed_checks``: padded_gemma,
              the padded smollm and Mamba1 hybrid train checks), and the
-             launcher is joined after them: it runs beside the build and
-             untimed work only;
+             launcher and phase 17's examples, started with it, are
+             joined after them: they run beside the build and untimed
+             work only;
 3. parity  — each CUDA kernel against its plain torch version on the card:
              scan_argmin at both launch geometries over every shipped DB
              surface x objective, the 10M-row scaled_cluster(100_000, 100)
@@ -280,7 +281,25 @@ Phases (any failure exits nonzero; there is no CPU path):
              local_map) and K8 launched in prefill as on one device, and
              decode attention on the sharded cache once an attention
              block a step; a "serveplan ..." line a model with its warm
-             decode step on both.
+             decode step on both.  smollm (8 steps), qwen3 and the vlm
+             then serve again under tp_mode="shard_map" over the same
+             parameter tensors (SERVE_PLAN_SHARD_MAP; a model axis of 1
+             splits the one-token sequence, so decode runs, as the
+             reference's does there), against the same one-device run:
+             tokens equal, logits within LOGIT_TOL, the explicit
+             projections of a prefill and of a decode step counted, K7
+             through local_map in prefill;
+17. examples — (started with the launcher, beside the build, phases
+             3 and 6 and the untimed checks; joined after the launcher)
+             the port's four examples
+             (examples/port_*.py) on the card, each a subprocess: the
+             planning example's lines equal to its lines on the kernels'
+             plain versions and, but for Q3's float32 tie
+             (EXAMPLE_FLOAT32_LINES), to its --device cpu lines, its
+             scan launches counted; the quickstart's loss falling over
+             its 200 steps, two checkpoints kept; the serving example's
+             8 requests of 16 tokens; the elastic example's crash at
+             step 15, replan and resume.
 
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
@@ -291,7 +310,9 @@ as hybrid_path_ms and hybrid_train_path_ms, mixtral-8x7b's as swa_*,
 gemma2-9b's as local_global_*, llama-3.2-vision-11b's as vlm_*,
 musicgen-medium's as audio_*, and its times at hd 80 and 256 as hd80_*
 and hd256_*, at 24:24 hd 64 as mha_*; K7's and K8's launches over phase
-15's mesh runs as multidevice_path_launches), and
+15's mesh runs as multidevice_path_launches; the plan-scan kernels' and
+K7's launches in phase 17's planning example and quickstart as
+examples_launches), and
 path_source says how it was read
 ("torch.profiler", or CUDA events around the wrapper's calls where the
 profiler dropped launches: an upper bound).  The last two lines are the
@@ -2101,32 +2122,22 @@ def train_timed(torch, cfg):
     return dev_ms, how, per_step
 
 
-def launcher_start():
-    """Start phase 13's launcher runs in the background: ``python -m
-    repro_torch.launch.train`` on one GPU, whole, and beside it (two
-    processes on the card at once, each into its own checkpoint
-    directory) crashed at LAUNCHER_FAIL_AT (exit 1) and then resumed from
-    the checkpoint before it.  Returns their state for
-    ``launcher_check``; a process still running when the script exits is
-    killed."""
+def background(env, cwd):
+    """(state, run) for commands in the background: ``run(key, cmd)``
+    runs ``cmd`` from ``cwd`` in ``env`` to its end (or a 600 s limit)
+    and stores (its ``CompletedProcess``, its seconds) at ``state[key]``.
+    A process still running when the script exits is killed, and none
+    starts after that."""
     import atexit
-    import os
-    import tempfile
-    root = Path(__file__).resolve().parent
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-    env = dict(os.environ, PYTHONPATH=str(root / "src"),
-               CUDA_VISIBLE_DEVICES=visible or "0", PYTHONUNBUFFERED="1")
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER]
-    tmp = tempfile.TemporaryDirectory()
-    state = {"procs": [], "tmp": tmp, "stopped": False}
+    state = {"procs": [], "stopped": False}
     lock = threading.Lock()
 
-    def run(key, *extra):
+    def run(key, cmd):
         t = time.perf_counter()
         with lock:                  # no process starts after stop()
             if state["stopped"]:
                 return
-            proc = subprocess.Popen(cmd + list(extra), env=env, cwd=root,
+            proc = subprocess.Popen(cmd, env=env, cwd=cwd,
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
             state["procs"].append(proc)
@@ -2139,12 +2150,6 @@ def launcher_start():
                                                   out, err),
                       time.perf_counter() - t)
 
-    def crash_then_resume():
-        run("crash", "--ckpt-dir", f"{tmp.name}/crash", "--fail-at",
-            str(LAUNCHER_FAIL_AT))
-        if "crash" in state and state["crash"][0].returncode == 1:
-            run("resumed", "--ckpt-dir", f"{tmp.name}/crash")
-
     def stop():
         with lock:
             state["stopped"] = True
@@ -2152,6 +2157,42 @@ def launcher_start():
                 if proc.poll() is None:
                     proc.kill()
     atexit.register(stop)
+    return state, run
+
+
+def _one_gpu_env(root):
+    """The environment of a subprocess on this process's first GPU, with
+    the checkout's package on its path."""
+    import os
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return dict(os.environ, PYTHONPATH=str(root / "src"),
+                CUDA_VISIBLE_DEVICES=visible or "0", PYTHONUNBUFFERED="1")
+
+
+def launcher_start():
+    """Start phase 13's launcher runs in the background: ``python -m
+    repro_torch.launch.train`` on one GPU, whole, and beside it (two
+    processes on the card at once, each into its own checkpoint
+    directory) crashed at LAUNCHER_FAIL_AT (exit 1) and then resumed from
+    the checkpoint before it.  Returns their state for
+    ``launcher_check``; a process still running when the script exits is
+    killed."""
+    import tempfile
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER]
+    tmp = tempfile.TemporaryDirectory()
+    state, run_cmd = background(_one_gpu_env(root), root)
+    state["tmp"] = tmp
+
+    def run(key, *extra):
+        run_cmd(key, cmd + list(extra))
+
+    def crash_then_resume():
+        run("crash", "--ckpt-dir", f"{tmp.name}/crash", "--fail-at",
+            str(LAUNCHER_FAIL_AT))
+        if "crash" in state and state["crash"][0].returncode == 1:
+            run("resumed", "--ckpt-dir", f"{tmp.name}/crash")
+
     state["threads"] = [
         threading.Thread(target=run, args=("whole", "--ckpt-dir",
                                            f"{tmp.name}/whole"), daemon=True),
@@ -2197,6 +2238,153 @@ def launcher_check(state):
           f"--fail-at {LAUNCHER_FAIL_AT} exit 1 ({s2:.1f} s); resumed from "
           f"step {start} ({s3:.1f} s) final loss "
           f"{b} (rel diff {rel:.3g}, limit {LAUNCHER_LOSS_TOL})", flush=True)
+
+
+# phase 17: the port's examples (examples/port_*.py), each a subprocess
+# on the card beside the build, phases 3 and 6 and the untimed checks
+# (the elastic example alone takes ~60-80 s); the planning example and the
+# quickstart run through EXAMPLE_RUNNER, which calls the example's main
+# and writes the kernels' launch counters to a file
+EXAMPLE_RUNNER = """import json, runpy, sys
+path, out, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+rc = runpy.run_path(path)["main"](argv)
+from repro_torch.kernels import flash_attention as fa, plan_scan as ps
+with open(out, "w") as f:
+    json.dump({n: getattr(ps, n).launches for n in ("scan_argmin",
+               "scan_argmin_sharded", "neighbor_step", "ensemble_climb")} |
+              {"flash_attention": fa.flash_attention.launches}, f)
+sys.exit(rc)
+"""
+# the CPU twin of the planning example's lines on the card: its domains on
+# the CUDA backend's plain versions (CudaPlanBackend(device="cpu"))
+EXAMPLE_PLAIN = """import runpy, sys
+from repro_torch.kernels.plan_scan import CudaPlanBackend
+mod = runpy.run_path(sys.argv[1])
+backend = CudaPlanBackend(device="cpu")
+mod["db_domain"](backend)
+mod["tpu_domain"](backend)
+"""
+# the lines of port_raqo_plan.py that its float32 CUDA backend prints
+# otherwise than its exact backend (--device cpu): Q3's root join takes
+# another config of the same time in float32, as the reference's pallas
+# backend does (tests/test_torch_examples.py)
+EXAMPLE_FLOAT32_LINES = [3, 4, 5]
+
+
+def examples_start():
+    """Start phase 17 in the background: the four examples on the card,
+    each in a process of its own (the planning and quickstart examples
+    through EXAMPLE_RUNNER), beside them the planning example's twins on
+    the host CPU (``--device cpu``, and its domains on the kernels' plain
+    versions, EXAMPLE_PLAIN).  Returns their state for
+    ``examples_check``; a process still running when the script exits is
+    killed."""
+    import tempfile
+    root = Path(__file__).resolve().parent
+    ex = root / "examples"
+    tmp = tempfile.TemporaryDirectory()
+    py = sys.executable
+    runs = {
+        "port_raqo_plan.py": [py, "-c", EXAMPLE_RUNNER,
+                              str(ex / "port_raqo_plan.py"),
+                              f"{tmp.name}/raqo.json", "--device", "cuda"],
+        "port_raqo_plan.py --device cpu": [
+            py, str(ex / "port_raqo_plan.py"), "--device", "cpu"],
+        "port_raqo_plan.py on the plain versions": [
+            py, "-c", EXAMPLE_PLAIN, str(ex / "port_raqo_plan.py")],
+        "port_quickstart.py": [py, "-c", EXAMPLE_RUNNER,
+                               str(ex / "port_quickstart.py"),
+                               f"{tmp.name}/quickstart.json", "--device",
+                               "cuda", "--ckpt-dir", f"{tmp.name}/qs"],
+        "port_serve_batch.py": [py, str(ex / "port_serve_batch.py"),
+                                "--device", "cuda"],
+        "port_elastic_train.py": [py, str(ex / "port_elastic_train.py"),
+                                  "--device", "cuda", "--ckpt-dir",
+                                  f"{tmp.name}/elastic"]}
+    state, run = background(_one_gpu_env(root), root)
+    state.update(tmp=tmp, runs=runs)
+    state["threads"] = [threading.Thread(target=run, args=(key, cmd),
+                                         daemon=True)
+                        for key, cmd in runs.items()]
+    for th in state["threads"]:
+        th.start()
+    return state
+
+
+def examples_check(state) -> dict:
+    """Phase 17 (``examples_start``'s runs), joined: each exits 0; the
+    planning example's lines on the card equal its lines on the kernels'
+    plain versions, and its --device cpu lines but for
+    EXAMPLE_FLOAT32_LINES (the ``planner ... ms`` field masked); the
+    quickstart's loss at its last step lies below its loss at its first
+    logged step, with two checkpoints; the serving example finishes 8
+    requests of 16 tokens; the elastic example crashes at step 15,
+    resumes from it and completes.  Prints each run's wall seconds;
+    returns the kernels' launches in the planning example and the
+    quickstart."""
+    for th in state["threads"]:
+        th.join()
+    try:
+        for key in state["runs"]:
+            check(key in state, f"phase 17: {key} did not finish")
+            proc, secs = state[key]
+            check(proc.returncode == 0, f"phase 17: {key} exit "
+                  f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                  f"{proc.stderr[-3000:]}")
+            print(f"wall phase 17 {key} (in the background): "
+                  f"{secs:.1f} s", flush=True)
+        launches = {}
+        for name in ("raqo", "quickstart"):
+            with open(f"{state['tmp'].name}/{name}.json") as f:
+                launches[name] = json.load(f)
+    finally:
+        state["tmp"].cleanup()
+
+    def lines(key):
+        return [re.sub(r"planner [0-9.]+ms", "planner <ms>", line)
+                for line in state[key][0].stdout.splitlines()]
+    card_lines = lines("port_raqo_plan.py")
+    plain = lines("port_raqo_plan.py on the plain versions")
+    exact = lines("port_raqo_plan.py --device cpu")
+    differ = [i for i, (a, b) in enumerate(zip(card_lines, exact))
+              if a != b]
+    check(card_lines == plain, f"phase 17: port_raqo_plan.py on the card "
+          f"differs from its plain versions: {card_lines} != {plain}")
+    check(len(card_lines) == len(exact) == 24 and
+          differ in ([], EXAMPLE_FLOAT32_LINES),
+          f"phase 17: port_raqo_plan.py on the card differs from --device "
+          f"cpu at lines {differ}: {card_lines} != {exact}")
+    ran = launches["raqo"]
+    check(ran["scan_argmin"] > 0,
+          f"phase 17: port_raqo_plan.py launched {ran}")
+    out = state["port_quickstart.py"][0].stdout
+    losses = [float(x) for x in re.findall(r"loss ([0-9.]+)", out)]
+    check(len(losses) == 10 and losses[-1] < losses[0] and
+          "done — checkpoints: [100, 200]" in out and
+          launches["quickstart"]["flash_attention"] > 0,
+          f"phase 17: port_quickstart.py: {out[-2000:]}")
+    out = state["port_serve_batch.py"][0].stdout
+    done = re.findall(r"rid=\d+ done: .*\(16 toks\)", out)
+    check(len(done) == 8 and "[serve] served 8 requests" in out,
+          f"phase 17: port_serve_batch.py: {out[-2000:]}")
+    out = state["port_elastic_train.py"][0].stdout
+    check(all(line in out for line in (
+        "[train] SIMULATED FAILURE at step 15",
+        "[train] resumed from step 15", "[elastic] training completed")),
+        f"phase 17: port_elastic_train.py: {out[-3000:]}")
+    tok_s = re.findall(r"served 8 requests, \d+ decode steps, ([0-9.]+)",
+                       state["port_serve_batch.py"][0].stdout)
+    print(f"examples (phase 17, on the card): port_raqo_plan.py's 24 lines "
+          f"equal its lines on the kernels' plain versions, and its "
+          f"--device cpu lines but for {differ} (Q3's float32 tie); its "
+          f"launches {ran}; port_quickstart.py loss {losses[0]} at step "
+          f"20, {losses[-1]} at step 200, K7 "
+          f"{launches['quickstart']['flash_attention']} launches, "
+          f"checkpoints [100, 200]; port_serve_batch.py 8 requests of 16 "
+          f"tokens ({tok_s[0] if tok_s else '?'} tok/s); "
+          f"port_elastic_train.py crashed at step 15, resumed from step 15 "
+          f"and completed", flush=True)
+    return launches
 
 
 def train_phase(torch):
@@ -3629,6 +3817,10 @@ SERVE_PLAN_MAIN = ("smollm-360m", 4, 256, 16)
 # phase 7's left-padded smollm batch, under the serve plans too
 SERVE_PLAN_FAMILIES = (4, 64, 8)
 SERVE_PLAN_PROMPT = {LOCAL_GLOBAL: (2, WINDOW_SERVE["prompt_len"])}
+# the models phase 16 serves under tp_mode="shard_map" too, over the GSPMD
+# run's parameter tensors and against its one-device run: {arch: greedy
+# decode steps}
+SERVE_PLAN_SHARD_MAP = {"smollm-360m": 8, MOE: 8, VLM: 8}
 
 
 def serveplan_inputs(cfg, B: int, P: int, new: int, lengths=None):
@@ -3652,12 +3844,14 @@ def serveplan_inputs(cfg, B: int, P: int, new: int, lengths=None):
     return batch, None
 
 
-def serveplan_serve(torch, model, decoder, batch, frames, new: int):
-    """``model.prefill`` of ``batch`` into a cache of P + ``new`` slots,
-    then ``new`` greedy ``decoder.decode_step`` steps (the audio family
-    fed ``frames``): (each logits (B, V) float32 whole on the card, the
-    tokens fed, each decode step's seconds, the model kernels' launches
-    in the prefill)."""
+def serveplan_serve(torch, model, decoder, batch, frames, new: int,
+                    cache_len: Optional[int] = None, counts=None):
+    """``model.prefill`` of ``batch`` into a cache of ``cache_len`` slots
+    (P + ``new`` when None), then ``new`` greedy ``decoder.decode_step``
+    steps (the audio family fed ``frames``): (each logits (B, V) float32
+    whole on the card, the tokens fed, each decode step's seconds, the
+    model kernels' launches in the prefill, a copy of ``counts`` after
+    the prefill)."""
     from repro_torch.kernels import ops
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
     from repro_torch.sharding import full
@@ -3667,9 +3861,10 @@ def serveplan_serve(torch, model, decoder, batch, frames, new: int):
     q0 = torch.as_tensor(batch["positions"][:, -1] + 1) \
         if "positions" in batch else torch.full((rows,), P)
     ops.reset_launch_counts()
-    logits, cache = make_prefill_step(model, P + new)(batch)
+    logits, cache = make_prefill_step(model, cache_len or P + new)(batch)
     logits = full(logits)
     launches = launch_counts()
+    after_prefill = dict(counts or {})
     decode = make_decode_step(decoder)
     out, toks, secs = [logits], [], []
     B = logits.shape[0]
@@ -3688,11 +3883,11 @@ def serveplan_serve(torch, model, decoder, batch, frames, new: int):
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         out.append(logits)
-    return out, toks, secs, launches
+    return out, toks, secs, launches, after_prefill
 
 
 def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
-                  counts, lengths=None):
+                  counts, lengths=None, shard_map_new=None):
     """One model of phase 16: ``arch`` (at ``layers`` layers, None for the
     config's; compute ``dtype``, None for the config's) served on one
     device, then under plan_for's prefill plan and, over the same
@@ -3701,7 +3896,9 @@ def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
     once an attention block in prefill and K8 once a Mamba1 block, as on
     one device, decode attention on the sharded cache once an attention
     block a step (``counts``: the wrappers' calls).  With ``lengths``,
-    the prompts are that long, left-padded to P (``padded_batch``).
+    the prompts are that long, left-padded to P (``padded_batch``).  With
+    ``shard_map_new``, the same parameter tensors then serve under the
+    plans with ``tp_mode="shard_map"`` (``serveplan_shard_map``).
     Returns the model kernels' launches in the mesh's prefill."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.specs import plan_for
@@ -3729,9 +3926,7 @@ def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
     counts.update(dict.fromkeys(counts, 0))
     got = serveplan_serve(torch, model, decoder, batch, frames, new)
     k7_calls = counts["_flash_attention_sharded"]
-    del model, decoder
-    gc.collect()
-    torch.cuda.empty_cache()
+    dec_calls = counts["_decode_attention_sharded"]
     err = max(float((a - b).abs().max()) for a, b in zip(got[0], one[0]))
     ok = all(torch.equal(a, b) for a, b in zip(got[1], one[1]))
     argmax = all(torch.equal(a.argmax(-1), b.argmax(-1))
@@ -3740,7 +3935,6 @@ def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
     want = {k: n // TRAIN_F32_STEPS
             for k, n in _expected_launches(cfg).items()}
     attn = want["flash_attention"]
-    dec_calls = counts["_decode_attention_sharded"]
     check(ok and argmax, f"phase 16 {arch}: tokens differ from one device's")
     check(err <= LOGIT_TOL, f"phase 16 {arch}: logits differ from one "
           f"device's by {err} > {LOGIT_TOL}")
@@ -3765,7 +3959,76 @@ def serveplan_run(torch, mesh, arch, layers, dtype, B, P, new, device,
           f"warm decode step {warm(got[2]):.3f} ms on the mesh, "
           f"{warm(one[2]):.3f} ms on one device; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if shard_map_new:
+        serveplan_shard_map(torch, mesh, model, batch, frames, P + new,
+                            shard_map_new, one, got[2], counts, device)
+    del model, decoder
+    gc.collect()
+    torch.cuda.empty_cache()
     return got[3]
+
+
+def serveplan_shard_map(torch, mesh, model, batch, frames, cache_len, new,
+                        one, gspmd_secs, counts, device) -> None:
+    """Phase 16 under ``tp_mode="shard_map"``: ``model``'s parameter
+    tensors (``Model.with_plan``) prefill ``batch`` into a cache of
+    ``cache_len`` slots under plan_for's prefill plan with the explicit
+    projections, then take ``new`` greedy steps under its decode plan
+    (a model axis of 1 splits the one-token sequence, so decode runs, as
+    the reference's does there), held against the one-device run
+    ``one`` (``serveplan_serve``'s): tokens equal, logits within
+    LOGIT_TOL, K7 launched once an attention block and through
+    ``local_map``, the explicit projections of a prefill every one of a
+    forward (``_expected_projections``), of a decode step q and the
+    MLPs'."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import plan_for
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    B = one[0][0].shape[0]
+    prefill, decode = (plan_for(cfg, ShapeConfig(kind, cache_len, B, kind),
+                                mesh, tp_mode="shard_map")
+                       for kind in ("prefill", "decode"))
+    sm = model.with_plan(prefill)
+    counts.update(dict.fromkeys(counts, 0))
+    got = serveplan_serve(torch, sm, model.with_plan(decode), batch, frames,
+                          new, cache_len, counts)
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got[0], one[0][:new + 1]))
+    ok = all(torch.equal(a, b) for a, b in zip(got[1], one[1][:new]))
+    argmax = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                 for a, b in zip(got[0], one[0][:new + 1]))
+    names = ("explicit_col_project", "explicit_row_project")
+    pre = tuple(got[4][k] for k in names)
+    step = tuple((counts[k] - got[4][k]) // new for k in names)
+    col, row = (n // TRAIN_F32_STEPS for n in _expected_projections(cfg))
+    want = {k: n // TRAIN_F32_STEPS
+            for k, n in _expected_launches(cfg).items()}
+    attn = want["flash_attention"]
+    if device != "cuda":        # the plain versions launch nothing
+        want = dict.fromkeys(want, 0)
+    check(ok and argmax, f"phase 16 {cfg.name} shard_map: tokens differ "
+          f"from one device's")
+    check(err <= LOGIT_TOL, f"phase 16 {cfg.name} shard_map: logits differ "
+          f"from one device's by {err} > {LOGIT_TOL}")
+    check(pre == (col, row) and step == (col, row - attn) and
+          counts[names[0]] - pre[0] == col * new and
+          got[3] == want and got[4]["_flash_attention_sharded"] == attn,
+          f"phase 16 {cfg.name} shard_map: explicit projections {pre} in "
+          f"the prefill (want {(col, row)}), {step} a decode step (want "
+          f"{(col, row - attn)}); prefill launches {got[3]} (want {want}), "
+          f"{got[4]['_flash_attention_sharded']} K7 through local_map")
+    warm = lambda s: sorted(s[1:])[len(s[1:]) // 2] * 1e3
+    print(f"serveplan {cfg.name} {cfg.dtype} ({cfg.n_layers} layers) "
+          f"tp_mode=shard_map B={B}, {new} greedy decode steps over the "
+          f"GSPMD run's parameter tensors: tokens equal to one device's; "
+          f"logits max |diff| {err} (tol {LOGIT_TOL}); explicit (col, row) "
+          f"projections {pre} in the prefill, {step} a decode step; "
+          f"prefill launches {got[3]}, K7 "
+          f"{got[4]['_flash_attention_sharded']} through local_map; warm "
+          f"decode step {warm(got[2]):.3f} ms under shard_map, "
+          f"{warm(gspmd_secs):.3f} ms under GSPMD, {warm(one[2]):.3f} ms "
+          f"on one device; {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def serveplan_phase(torch, device: str = "cuda") -> int:
@@ -3777,6 +4040,7 @@ def serveplan_phase(torch, device: str = "cuda") -> int:
     import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch import sharding
     from repro_torch.models import attention
     print(f"phase 16 on {card()}", flush=True)
     if device == "cuda":
@@ -3786,6 +4050,8 @@ def serveplan_phase(torch, device: str = "cuda") -> int:
         init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
     counts = _counting({}, ops, ("_flash_attention_sharded",))
     _counting(counts, attention, ("_decode_attention_sharded",))
+    _counting(counts, sharding, ("explicit_col_project",
+                                 "explicit_row_project"))
     try:
         mesh = make_mesh((1, 1, 1), MULTI_AXES)
         arch, B, P, new = SERVE_PLAN_MAIN
@@ -3798,10 +4064,12 @@ def serveplan_phase(torch, device: str = "cuda") -> int:
             name, (Bf, Pf)) + (newf,) for name, layers in
             MULTI_FAMILIES.items()]
         launches = {}
-        for run in runs:
+        for i, run in enumerate(runs):
             run, lengths = run[:6], (run[6] if len(run) > 6 else None)
+            # the padded smollm run (i == 1) takes no shard_map run
+            sm_new = SERVE_PLAN_SHARD_MAP.get(run[0]) if i != 1 else None
             for k, n in serveplan_run(torch, mesh, *run, device, counts,
-                                      lengths).items():
+                                      lengths, sm_new).items():
                 launches[k] = launches.get(k, 0) + n
     finally:
         dist.destroy_process_group()
@@ -3851,6 +4119,7 @@ def main() -> int:
     for name in first:
         build.load_library(name)
     launcher = launcher_start()
+    examples = examples_start()
     w = lap("phases 1-2 (device, build of plan_scan and flash_attention)",
             t_start)
 
@@ -4032,6 +4301,9 @@ def main() -> int:
     launcher_check(launcher)
     w = lap("train launcher (beside the build, phases 3 and 6 and the "
             "untimed checks)", w)
+    example_launches = examples_check(examples)
+    w = lap("phase 17 (the examples, beside the build, phases 3 and 6, "
+            "the untimed checks and the launcher's wait)", w)
 
     # 4. main path --------------------------------------------------------- #
     schema = random_schema(10, seed=0)
@@ -4357,6 +4629,13 @@ def main() -> int:
     print(f"serveplan launches in the mesh prefills: "
           f"{serveplan_phase(torch)}", flush=True)
     lap("phase 16 (serve plans, world of one)", w)
+    # phase 17's launches (its runs in the background, above):
+    # the planning example's and the quickstart's
+    for k in kernels:
+        if k["name"] in example_launches["raqo"]:
+            k["examples_launches"] = sum(
+                example_launches[run][k["name"]]
+                for run in ("raqo", "quickstart"))
     lap("total", t_start)
     print(card(), flush=True)      # again, for readers of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)

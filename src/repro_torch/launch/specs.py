@@ -11,8 +11,10 @@ the train plan with any of the reference's overrides (``tp_mode``,
 ``attention_schedule``, ``pipeline_stages``, ``remat``, ...), and the
 prefill and decode plans of ``serve_plan`` (the cache's sequence over
 "kv_seq", ``models.model``), whose decode inputs ``decode_input_specs``
-gives.  Under a decode plan ``tp_mode="shard_map"`` raises
-``ValueError``.
+gives.  With ``tp_mode="shard_map"`` a model serves where the
+reference's ``shard_map`` does and raises ``ValueError`` where it does
+(``sharding.check_explicit_split``: a batch the data axes do not divide,
+or a decode step on a model axis > 1).
 """
 from __future__ import annotations
 

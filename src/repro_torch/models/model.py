@@ -131,9 +131,16 @@ inputs enter ("batch", None[, None]) and q_pos ("batch",), as the
 reference's dry run places them; its attention runs on each rank's
 slots and reduces over the sequence's mesh dims
 (``attention.decode_attention``), its Mamba steps on each rank's
-channels, and it updates the cache in place.  A decode step under
-``tp_mode="shard_map"`` raises ``ValueError`` (its explicit projections
-split a sequence of one token).
+channels, and it updates the cache in place.  Under ``tp_mode=
+"shard_map"`` both serve: the explicit projections (a decode step's q
+and MLPs, as the reference's) take the batch over the data axes inside
+their bodies and back, whatever the plan's "batch" rule.  Where they
+cannot split it, as the reference's ``shard_map`` cannot,
+``forward``, ``prefill`` and ``decode_step`` raise ``ValueError`` before
+any block runs (``sharding.check_explicit_split``): a batch the data
+axes ("pod", "data") do not divide, a sequence "model" does not divide
+(every decode step on a model axis > 1).  An ssm model reaches no
+explicit projection and serves on every mesh.
 """
 from __future__ import annotations
 
@@ -154,9 +161,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import like, rms_norm, softcap
 from repro_torch.sharding import (TP_MODES, ParallelPlan, ParamDef,
-                                  active_mesh, distribute, init_from_defs,
-                                  is_dtensor, single_device_plan,
-                                  zeros_sharded)
+                                  active_mesh, check_explicit_split,
+                                  distribute, init_from_defs, is_dtensor,
+                                  single_device_plan, zeros_sharded)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -489,6 +496,20 @@ class Model(nn.Module):
                 ("", i // 2, None)
         return "", i, None
 
+    def _check_explicit(self, batch) -> None:
+        """Under ``tp_mode="shard_map"``, raise ``ValueError`` before any
+        block runs (or writes the cache) where the explicit projections
+        cannot split the batch's (B, S) (``check_explicit_split``): where
+        the reference's ``shard_map`` refuses it.  An ssm model reaches
+        no explicit projection, so it runs on any mesh."""
+        plan = self.plan
+        if not plan.enabled or plan.tp_mode != "shard_map" or \
+                self.cfg.family == "ssm":
+            return
+        B, S = batch["tokens" if "tokens" in batch else "embeddings"
+                     ].shape[:2]
+        check_explicit_split(plan, B, S)
+
     # ------------------------------------------------------------------ #
     def _index(self, x) -> torch.Tensor:
         """Token ids or positions (numpy or torch) as int64 on the device."""
@@ -550,6 +571,7 @@ class Model(nn.Module):
         own ``"positions"`` (B, S), where it carries them, mask K7 and
         place RoPE and the cache writes (module docstring)."""
         cfg = self.cfg
+        self._check_explicit(batch)
         x = self._embed(batch)
         B, S = x.shape[:2]
         if "positions" in batch:
@@ -676,12 +698,7 @@ class Model(nn.Module):
         reference's dry run places them, and each rank writes and reads
         its own shards of the cache."""
         cfg, plan = self.cfg, self.plan
-        if plan.enabled and plan.tp_mode == "shard_map":
-            raise ValueError(
-                f"{plan.name}: tp_mode='shard_map' does not decode: its "
-                f"explicit projections split the sequence over 'model', "
-                f"and a decode step's is one token (ROADMAP §1, serving "
-                f"under shard_map)")
+        self._check_explicit(inputs)
         q_pos = self.shard(self._index(q_pos), ("batch",))
         x = self._embed(inputs)
         if cfg.family in ("ssm", "hybrid"):

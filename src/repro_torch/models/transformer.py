@@ -23,7 +23,9 @@ a self-attention block, every MLP's) take the explicit collectives
 (``sharding.explicit_col_project`` / ``explicit_row_project``), q from
 the sequence-sharded input as the reference's ``in_specs`` take it; a
 cross block's q and ``wo`` and the Mamba mixers', plain einsums in the
-reference, keep the GSPMD form.
+reference, keep the GSPMD form.  A decode step takes the explicit q and
+MLPs too; its ``wo``, a plain einsum in the reference's decode, keeps
+the GSPMD form.
 
 Each block runs in two modes: full sequence (prefill, returning the K/V
 or SSM state for the cache) and one-token decode against a cache.  A moe

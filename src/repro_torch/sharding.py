@@ -195,23 +195,39 @@ def _on_mesh(mesh, spec):
     return out
 
 
+def check_explicit_split(plan, B: int, S: int) -> None:
+    """Raise ``ValueError`` where the explicit projections of a (B, S, ...)
+    activation cannot place it as the reference's ``shard_map``
+    ``in_specs`` do, which is where jax refuses them: the batch over the
+    data axes ("pod", "data"), whatever the plan's "batch" rule (a serve
+    plan's below a global batch of 16 leaves it whole, and the bodies
+    split it all the same), and the sequence over "model" (the gather and
+    the reduce-scatter tile it)."""
+    sizes = mesh_shape(plan.mesh)
+    dp = math.prod(n for a, n in sizes.items() if a in ("pod", "data"))
+    if B % dp:
+        raise ValueError(f"tp_mode='shard_map': a batch of {B} does not "
+                         f"split over the data axes' {dp} ranks (the "
+                         f"explicit projections split it over them)")
+    tp = sizes.get("model", 1)
+    if S % tp:
+        raise ValueError(f"tp_mode='shard_map': a sequence of {S} does not "
+                         f"split over a model axis of {tp} (the explicit "
+                         f"projections scatter it over the ranks)")
+
+
 def _explicit_axes(plan, x):
     """(the batch's mesh axes, the weight's FSDP axes on x's mesh, "model"
     if on it else None) for an explicit projection of DTensor ``x``;
-    raises unless "model" splits x's sequence evenly (the gather and the
-    reduce-scatter tile it, as the reference's tiled ``all_gather`` and
-    ``psum_scatter`` do)."""
+    raises where x does not split as the bodies place it
+    (``check_explicit_split``)."""
     names = mesh_axes(x.device_mesh)
     data = tuple(a for a in mesh_axes(plan.mesh) if a in ("pod", "data"))
     embed = plan.rule("embed")
     fsdp = tuple(a for a in ((embed,) if isinstance(embed, str)
                              else (embed or ())) if a in names)
     model = "model" if "model" in names else None
-    tp = mesh_shape(x.device_mesh)[model] if model else 1
-    if x.shape[1] % tp:
-        raise ValueError(f"tp_mode='shard_map': a sequence of {x.shape[1]} "
-                         f"does not split over a model axis of {tp} (the "
-                         f"explicit projections scatter it over the ranks)")
+    check_explicit_split(plan, x.shape[0], x.shape[1])
     return data, fsdp, model
 
 

@@ -510,9 +510,9 @@ def serve_plans(cfg, mesh, B: int, plan_kw=None):
                  for kind in ("prefill", "decode"))
 
 
-def serve_run(model, decoder, batch, step, record):
+def serve_run(model, decoder, batch, step, record, new=SERVE_NEW):
     """Prefill of ``batch`` into a cache of SERVE_CACHE slots on
-    ``model``, then SERVE_NEW decode steps on ``decoder``, the inputs of
+    ``model``, then ``new`` decode steps on ``decoder``, the inputs of
     step t ``step(t, the logits before it)`` ({"tokens": (B, 1)} or
     {"embeddings": (B, 1, E)}); ``record(key, tensor)`` takes the whole
     logits of each (``prefill``, ``decode<t>``), the prefill cache
@@ -527,7 +527,7 @@ def serve_run(model, decoder, batch, step, record):
         record(f"cache/{name}", full(leaf))
     decode = make_decode_step(decoder)
     q_pos = next_positions(batch)
-    for t in range(SERVE_NEW):
+    for t in range(new):
         fed = step(t, logits)
         for k, v in fed.items():
             record(f"step{t}/{k}", torch.as_tensor(v))
@@ -548,76 +548,100 @@ def attention_layers(cfg) -> int:
     return math.prod(layer_stack(cfg))
 
 
-def serve_worker(rank, world, mesh_shape, cases, out_npz):
-    """Each case (tag, arch, B, plan overrides, params npz or None,
-    inputs npz) on one mesh of ``mesh_shape``: the smoke model (float32,
+def serve_worker(rank, world, meshes, out_npz):
+    """Each mesh of ``meshes`` [(mesh shape, cases)], built in turn over
+    the same ranks, and on it each case (tag, arch, B, plan overrides,
+    params npz or None, inputs npz[, refusal]): the smoke model (float32,
     the vlm's gates opened) under plan_for's prefill plan with the
     case's parameters, its decode model over the same tensors
     (``Model.with_plan`` of the decode plan), ``serve_run`` of the
     inputs npz's ``prompt/*`` batch and ``step<t>/*`` decode inputs.
-    Rank 0 writes under ``<tag>/``: the logits and prefill cache
-    ``serve_run`` records, each cache leaf's placements
-    (``placed/<name>``) and, over the ranks, the smallest and largest
-    local length of ``k`` along its sequence (``k_local``; an ssm model's
-    ``ssm`` state along its channels), whether the ranks' shards of it
-    sum to the whole and each owns only its own storage (``k_chunks``), whether the decode model holds the prefill
-    model's parameter tensors (``shares``), and the sharded paths' counts
-    over the prefill and over the decode steps (``prefill_path/*``,
-    ``decode_path/*``)."""
+    A case whose refusal is "prefill" only runs its prefill, one whose
+    refusal is "decode" its prefill and its first decode step: where
+    that raises ``ValueError`` its message is ``refused`` (where it does
+    not, nothing is; any other error fails the world).  Rank 0 writes
+    under ``<tag>/``: the logits and prefill cache ``serve_run``
+    records, each cache leaf's placements (``placed/<name>``) and, over
+    the ranks, the smallest and largest local length of ``k`` along its
+    sequence (``k_local``; an ssm model's ``ssm`` state along its
+    channels), whether the ranks' shards of it sum to the whole and
+    each owns only its own storage (``k_chunks``), whether the decode
+    model holds the prefill model's parameter tensors (``shares``), and
+    the sharded paths' counts over the prefill and over the decode
+    steps (``prefill_path/*``, ``decode_path/*``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build_model
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
     from repro_torch.sharding import local
-    mesh = make_mesh(mesh_shape, AXES)
     paths = count_paths()
     out = {}
-    for tag, arch, B, plan_kw, params_npz, inputs_npz in cases:
-        cfg = smoke_cfg(arch)
-        prefill_plan, decode_plan = serve_plans(cfg, mesh, B, plan_kw)
-        model = build_model(cfg, prefill_plan, device="cpu", seed=0)
-        if params_npz is not None:
-            with np.load(params_npz) as f:
-                model.load_jax_params(unflatten(dict(f)))
-        open_gates(model)
-        decoder = model.with_plan(decode_plan)
-        with np.load(inputs_npz) as f:
-            data = dict(f)
-        batch = {k[len("prompt/"):]: v for k, v in data.items()
-                 if k.startswith("prompt/")}
-        steps = [{k.split("/")[1]: v for k, v in data.items()
-                  if k.startswith(f"step{t}/")} for t in range(SERVE_NEW)]
+    for mesh_shape, cases in meshes:
+        mesh = make_mesh(mesh_shape, AXES)
+        for tag, arch, B, plan_kw, params_npz, inputs_npz, *refusal in cases:
+            refusal = refusal[0] if refusal else None
+            cfg = smoke_cfg(arch)
+            prefill_plan, decode_plan = serve_plans(cfg, mesh, B, plan_kw)
+            model = build_model(cfg, prefill_plan, device="cpu", seed=0)
+            if params_npz is not None:
+                with np.load(params_npz) as f:
+                    model.load_jax_params(unflatten(dict(f)))
+            open_gates(model)
+            decoder = model.with_plan(decode_plan)
+            with np.load(inputs_npz) as f:
+                data = dict(f)
+            batch = {k[len("prompt/"):]: v for k, v in data.items()
+                     if k.startswith("prompt/")}
+            steps = [{k.split("/")[1]: v for k, v in data.items()
+                      if k.startswith(f"step{t}/")}
+                     for t in range(SERVE_NEW)]
+            if refusal == "prefill":
+                try:
+                    make_prefill_step(model, SERVE_CACHE)(batch)
+                except ValueError as e:
+                    out[f"{tag}/refused"] = np.array(str(e))
+                continue
 
-        base = dict(paths)
+            base = dict(paths)
 
-        def record(key, t, _tag=tag, _base=base):
-            if key == "prefill":
-                for k, n in paths.items():
-                    out[f"{_tag}/prefill_path/{k}"] = n - _base[k]
-            out[f"{_tag}/{key}"] = t.detach().numpy().copy()
+            def record(key, t, _tag=tag, _base=base):
+                if key == "prefill":
+                    for k, n in paths.items():
+                        out[f"{_tag}/prefill_path/{k}"] = n - _base[k]
+                out[f"{_tag}/{key}"] = t.detach().numpy().copy()
 
-        cache = serve_run(model, decoder, batch, lambda t, _: steps[t],
-                          record)
-        for k, n in paths.items():
-            out[f"{tag}/decode_path/{k}"] = \
-                n - base[k] - out[f"{tag}/prefill_path/{k}"]
-        for name, leaf in cache.items():
-            out[f"{tag}/placed/{name}"] = np.array(str(tuple(leaf.placements)))
-        # k along its sequence, or an ssm model's state along its channels
-        whole = cache["k" if "k" in cache else "ssm"]
-        k = local(whole)
-        lens = [None] * world
-        dist.all_gather_object(lens, (k.shape[2], k.numel(),
-                                      k.untyped_storage().nbytes() ==
-                                      k.numel() * k.element_size()))
-        out[f"{tag}/k_local"] = np.array([min(n for n, _, _ in lens),
-                                          max(n for n, _, _ in lens)])
-        out[f"{tag}/k_chunks"] = np.array(
-            sum(n for _, n, _ in lens) == whole.numel() and
-            all(own for *_, own in lens))
-        out[f"{tag}/shares"] = np.array(
-            all(a is b for a, b in zip(model.parameters(),
-                                       decoder.parameters())) and
-            len(list(model.parameters())) ==
-            len(list(decoder.parameters())))
+            cache = serve_run(model, decoder, batch,
+                              lambda t, _: steps[t], record,
+                              SERVE_NEW if refusal is None else 0)
+            if refusal == "decode":
+                try:
+                    make_decode_step(decoder)(cache, steps[0],
+                                              next_positions(batch))
+                except ValueError as e:
+                    out[f"{tag}/refused"] = np.array(str(e))
+            for k, n in paths.items():
+                out[f"{tag}/decode_path/{k}"] = \
+                    n - base[k] - out[f"{tag}/prefill_path/{k}"]
+            for name, leaf in cache.items():
+                out[f"{tag}/placed/{name}"] = np.array(
+                    str(tuple(leaf.placements)))
+            # k along its sequence, or an ssm model's state along its
+            # channels
+            whole = cache["k" if "k" in cache else "ssm"]
+            k = local(whole)
+            lens = [None] * world
+            dist.all_gather_object(lens, (k.shape[2], k.numel(),
+                                          k.untyped_storage().nbytes() ==
+                                          k.numel() * k.element_size()))
+            out[f"{tag}/k_local"] = np.array([min(n for n, _, _ in lens),
+                                              max(n for n, _, _ in lens)])
+            out[f"{tag}/k_chunks"] = np.array(
+                sum(n for _, n, _ in lens) == whole.numel() and
+                all(own for *_, own in lens))
+            out[f"{tag}/shares"] = np.array(
+                all(a is b for a, b in zip(model.parameters(),
+                                           decoder.parameters())) and
+                len(list(model.parameters())) ==
+                len(list(decoder.parameters())))
     if rank == 0:
         np.savez(out_npz, **out)
 
@@ -651,8 +675,10 @@ def serve_one_device(arch, batch, frames, groups=1, device="cpu",
     return out
 
 
-# serve_worker's worlds in ``main``: (mesh, [(arch, B, plan overrides)]),
-# test_torch_multidevice_serve{,_families}.py's
+# serve_worker's worlds in ``main``: (mesh, [(arch, B, plan overrides[,
+# the step that raises])]), test_torch_multidevice_serve{,_families,
+# _shard_map}.py's
+SHARD_MAP_SERVE = {"tp_mode": "shard_map"}
 SERVE_WORLDS = [
     ((1, 2, 2), [("smollm-360m", 2, None),
                  ("smollm-360m", 16, {"serve_weight_mode": "gathered"}),
@@ -663,7 +689,16 @@ SERVE_WORLDS = [
                  ("zamba2-2.7b-mamba1", 2, None)]),
     ((1, 1, 4), [(arch, 2, None) for arch in (
         "gemma2-9b", "mixtral-8x7b", "falcon-mamba-7b", "zamba2-2.7b",
-        "llama-3.2-vision-11b")])]
+        "llama-3.2-vision-11b")]),
+    ((2, 2, 1), [(arch, 4, SHARD_MAP_SERVE) for arch in (
+        "smollm-360m", "qwen3-moe-30b-a3b", "zamba2-2.7b", "falcon-mamba-7b",
+        "gemma2-9b", "llama-3.2-vision-11b", "musicgen-medium")] + [
+        ("smollm-360m", 16, dict(SHARD_MAP_SERVE,
+                                 serve_weight_mode="gathered")),
+        ("smollm-360m", 2, SHARD_MAP_SERVE, "prefill")]),
+    ((1, 2, 2), [("smollm-360m", 4, SHARD_MAP_SERVE, "decode"),
+                 ("qwen3-moe-30b-a3b", 4, SHARD_MAP_SERVE, "decode"),
+                 ("falcon-mamba-7b", 4, SHARD_MAP_SERVE)])]
 
 
 def serve_main(archs, d) -> int:
@@ -683,7 +718,7 @@ def serve_main(archs, d) -> int:
             continue
         t0 = time.perf_counter()
         world, want, worker_cases = int(np.prod(mesh)), {}, []
-        for arch, B, plan_kw in cases:
+        for arch, B, plan_kw, *refusal in cases:
             tag = f"{arch}-B{B}" + "".join(f"-{v}" for v in
                                           (plan_kw or {}).values())
             batch, frames = serve_inputs(arch, B)
@@ -693,16 +728,29 @@ def serve_main(archs, d) -> int:
             np.savez(path, **{f"prompt/{k}": v for k, v in batch.items()},
                      **{k: v for k, v in want[tag].items()
                         if k.startswith("step")})
-            worker_cases.append((tag, arch, B, plan_kw, None, path))
+            worker_cases.append((tag, arch, B, plan_kw, None, path,
+                                 *refusal))
         path = os.path.join(d, "served.npz")
-        spawn(fx.serve_worker, world, mesh, worker_cases, path)
+        spawn(fx.serve_worker, world, [(mesh, worker_cases)], path)
         with np.load(path) as f:
             got = dict(f)
         secs = time.perf_counter() - t0
-        for (arch, B, plan_kw), (tag, one) in zip(cases, want.items()):
+        for (arch, B, plan_kw, *refusal), (tag, one) in zip(cases,
+                                                            want.items()):
+            refusal = refusal[0] if refusal else None
+            if refusal:
+                msg = str(got.get(f"{tag}/refused", ""))
+                ok = "does not split" in msg
+                bad += not ok
+                print(f"serve {tag} mesh {mesh}: {refusal} "
+                      f"{'raises ValueError: ' + msg if ok else 'RAN'}: "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if refusal == "prefill":
+                    continue
             errs, fails = [], []
+            steps = 0 if refusal else SERVE_NEW
             for key, tol in [("prefill", 1e-4)] + [
-                    (f"decode{t}", 1e-3) for t in range(SERVE_NEW)]:
+                    (f"decode{t}", 1e-3) for t in range(steps)]:
                 a, b = got[f"{tag}/{key}"], one[key]
                 errs.append(float(np.abs(a - b).max()))
                 if not np.allclose(a, b, atol=tol, rtol=tol) or \
@@ -714,7 +762,7 @@ def serve_main(archs, d) -> int:
             n = attention_layers(smoke_cfg(arch))
             paths = (int(got[f"{tag}/prefill_path/_flash_attention_sharded"]),
                      int(got[f"{tag}/decode_path/_decode_attention_sharded"]))
-            if paths != (n, n * SERVE_NEW):
+            if paths != (n, n * steps):
                 fails.append(f"paths {paths}")
             if not got[f"{tag}/shares"]:
                 fails.append("parameters copied")

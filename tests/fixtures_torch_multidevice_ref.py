@@ -287,70 +287,98 @@ def cache_placements(arch, B, mesh, plan_kw=None):
     return out
 
 
-def served(d, mesh, cases):
-    """Each serving case (arch, B, plan overrides) on one world of
-    ``mesh``'s shape against the reference's single device, from the
-    reference's parameters (seed 0, the vlm's gates opened): its prefill
-    of ``fx.serve_inputs``'s prompts into a cache of ``fx.SERVE_CACHE``
-    slots (moe groups aimed at the world's size, as the prefill plan aims
-    them), then ``fx.SERVE_NEW`` decode steps (groups aimed at 1), each
-    fed the reference's greedy token (the audio family the input
-    frames).  {tag: (the reference's {prefill, decode<t>: logits,
+def served(d, meshes):
+    """Each mesh of ``meshes`` [(mesh shape, cases)], in one world over
+    the same ranks (every mesh of one size), and on it each serving case
+    (arch, B, plan overrides[, refusal: "prefill" or "decode", the step
+    ``fx.serve_worker`` expects to raise]) against the reference's
+    single device, from the reference's parameters (seed 0, the vlm's
+    gates opened): its prefill of ``fx.serve_inputs``'s prompts into a
+    cache of ``fx.SERVE_CACHE`` slots (moe groups aimed at the world's
+    size, as the prefill plan aims them), then ``fx.SERVE_NEW`` decode
+    steps (groups aimed at 1), each fed the reference's greedy token (the
+    audio family the input frames); one reference a (arch, B, plan
+    overrides), whatever the mesh, and none for a case refused in
+    prefill.  [{tag: (the reference's {prefill, decode<t>: logits,
     tokens<t>: the token fed at step t, cache/<name>: the prefill cache
-    in the port's names}, the world's results (``fx.serve_worker``))}."""
-    world = int(np.prod(mesh))
-    refs, worker_cases = {}, []
-    for arch, B, plan_kw in cases:
-        tag = f"{arch}-B{B}" + "".join(f"-{v}" for v in
-                                      (plan_kw or {}).values())
-        rcfg = rsmoke(arch)
-        cfg = fx.smoke_cfg(arch)
-        params = _open_gates(
-            jax.jit(rbuild(rcfg).init)(jax.random.PRNGKey(0)), cfg)
-        # the plan overrides that set the groups
-        groups = {k: v for k, v in (plan_kw or {}).items()
-                  if k == "moe_group_size"}
-        pre = rbuild(rcfg, rsingle_device_plan().with_(
-            moe_target_groups=world, **groups))
-        dec = rbuild(rcfg, rsingle_device_plan().with_(**groups))
-        batch, frames = fx.serve_inputs(arch, B)
-        jb = {k: jnp.asarray(v, jnp.int32 if k in ("tokens", "positions")
-                             else jnp.float32) for k, v in batch.items()}
-        # jitted: one compile of each step where eager runs recompile
-        # every scan body a call
-        logits, rcache = jax.jit(lambda p, b: pre.prefill(
-            p, b, cache_len=fx.SERVE_CACHE))(params, jb)
-        decode_step = jax.jit(dec.decode_step)
-        ref = {"prefill": np.asarray(logits)}
-        ref.update({f"cache/{k}": v
-                    for k, v in flat_cache(rcache, cfg).items()})
-        inputs = {f"prompt/{k}": v for k, v in batch.items()}
-        for t in range(fx.SERVE_NEW):
-            if frames is None:
-                tok = np.argmax(np.asarray(logits), -1)[:, None]
-                step = {"tokens": tok.astype(np.int32)}
-                ref[f"tokens{t}"] = tok[:, 0]
-            else:
-                step = {"embeddings": frames[:, t:t + 1]}
-            inputs.update({f"step{t}/{k}": v for k, v in step.items()})
-            q_pos = jnp.asarray(fx.next_positions(batch) + t)
-            logits, rcache = decode_step(
-                params, rcache, {k: jnp.asarray(v) for k, v in
-                                 step.items()}, q_pos)
-            ref[f"decode{t}"] = np.asarray(logits)
-        np.savez(d / f"{tag}_params.npz", **_flat_tree(params))
-        np.savez(d / f"{tag}_inputs.npz", **inputs)
-        refs[tag] = ref
-        worker_cases.append((tag, arch, B, plan_kw,
-                             str(d / f"{tag}_params.npz"),
-                             str(d / f"{tag}_inputs.npz")))
+    in the port's names}, the world's results (``fx.serve_worker``))}
+    a mesh]."""
+    world = int(np.prod(meshes[0][0]))
+    assert all(int(np.prod(m)) == world for m, _ in meshes)
+    refs, worlds = {}, []
+    for mesh, cases in meshes:
+        worker_cases = []
+        for arch, B, plan_kw, *refusal in cases:
+            tag = f"{arch}-B{B}" + "".join(f"-{v}" for v in
+                                          (plan_kw or {}).values())
+            if tag not in refs:
+                refs[tag] = _served_ref(d, tag, arch, B, plan_kw, world,
+                                        refusal != ["prefill"])
+            worker_cases.append((f"{'x'.join(map(str, mesh))}:{tag}", arch,
+                                 B, plan_kw, str(d / f"{tag}_params.npz"),
+                                 str(d / f"{tag}_inputs.npz"), *refusal))
+        worlds.append((mesh, worker_cases))
     path = d / "served.npz"
-    fx.spawn(fx.serve_worker, world, mesh, worker_cases, str(path))
+    fx.spawn(fx.serve_worker, world, worlds, str(path))
     with np.load(path) as f:
         got = dict(f)
-    return {tag: (refs[tag], {k[len(tag) + 1:]: v for k, v in got.items()
-                              if k.startswith(tag + "/")})
-            for tag in refs}
+    out = []
+    for _, worker_cases in worlds:
+        out.append({})
+        for wtag, *_ in worker_cases:
+            tag = wtag.split(":", 1)[1]
+            out[-1][tag] = (refs[tag], {k[len(wtag) + 1:]: v
+                                        for k, v in got.items()
+                                        if k.startswith(wtag + "/")})
+    return out
+
+
+def _served_ref(d, tag, arch, B, plan_kw, world, run=True):
+    """The reference's serving of one case (``served``), its
+    parameters and inputs written to ``d`` as ``<tag>_{params,
+    inputs}.npz``; without ``run`` only those files (a case the port
+    refuses in prefill) and an empty result."""
+    rcfg = rsmoke(arch)
+    cfg = fx.smoke_cfg(arch)
+    params = _open_gates(
+        jax.jit(rbuild(rcfg).init)(jax.random.PRNGKey(0)), cfg)
+    batch, frames = fx.serve_inputs(arch, B)
+    np.savez(d / f"{tag}_params.npz", **_flat_tree(params))
+    if not run:
+        np.savez(d / f"{tag}_inputs.npz",
+                 **{f"prompt/{k}": v for k, v in batch.items()})
+        return {}
+    # the plan overrides that set the groups
+    groups = {k: v for k, v in (plan_kw or {}).items()
+              if k == "moe_group_size"}
+    pre = rbuild(rcfg, rsingle_device_plan().with_(
+        moe_target_groups=world, **groups))
+    dec = rbuild(rcfg, rsingle_device_plan().with_(**groups))
+    jb = {k: jnp.asarray(v, jnp.int32 if k in ("tokens", "positions")
+                         else jnp.float32) for k, v in batch.items()}
+    # jitted: one compile of each step where eager runs recompile every
+    # scan body a call
+    logits, rcache = jax.jit(lambda p, b: pre.prefill(
+        p, b, cache_len=fx.SERVE_CACHE))(params, jb)
+    decode_step = jax.jit(dec.decode_step)
+    ref = {"prefill": np.asarray(logits)}
+    ref.update({f"cache/{k}": v for k, v in flat_cache(rcache, cfg).items()})
+    inputs = {f"prompt/{k}": v for k, v in batch.items()}
+    for t in range(fx.SERVE_NEW):
+        if frames is None:
+            tok = np.argmax(np.asarray(logits), -1)[:, None]
+            step = {"tokens": tok.astype(np.int32)}
+            ref[f"tokens{t}"] = tok[:, 0]
+        else:
+            step = {"embeddings": frames[:, t:t + 1]}
+        inputs.update({f"step{t}/{k}": v for k, v in step.items()})
+        q_pos = jnp.asarray(fx.next_positions(batch) + t)
+        logits, rcache = decode_step(
+            params, rcache, {k: jnp.asarray(v) for k, v in step.items()},
+            q_pos)
+        ref[f"decode{t}"] = np.asarray(logits)
+    np.savez(d / f"{tag}_inputs.npz", **inputs)
+    return ref
 
 
 def served_logits(ref, got) -> str:

@@ -1032,6 +1032,21 @@ def test_serve_plans_on_the_card():
     in prefill and never in decode, and decode attention and the cache
     writes run on the DTensor cache
     (``test_torch_multidevice_serve.py``'s twin)."""
+    _serve_on_the_card("smollm-360m", None)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-moe-30b-a3b",
+                                  "falcon-mamba-7b"])
+def test_serve_shard_map_on_the_card(arch):
+    """``test_serve_plans_on_the_card`` under ``tp_mode="shard_map"``: a
+    model axis of 1 splits the one-token sequence, so decode runs (as the
+    reference's does there), the explicit projections counted, a
+    prefill's every one of a forward, a decode step's q and MLPs
+    (``test_torch_multidevice_serve_shard_map.py``'s twin)."""
+    _serve_on_the_card(arch, {"tp_mode": "shard_map"})
+
+
+def _serve_on_the_card(arch, plan_kw):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import socket
@@ -1045,13 +1060,12 @@ def test_serve_plans_on_the_card():
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=0, world_size=1)
     try:
-        arch = "smollm-360m"
         cfg = fx.smoke_cfg(arch)
         batch, _ = fx.serve_inputs(arch, 2)
         one = fx.serve_one_device(arch, batch, None, device="cuda")
         paths = fx.count_paths()
         mesh = make_mesh((1, 1, 1), fx.AXES)
-        prefill, decode = fx.serve_plans(cfg, mesh, 2)
+        prefill, decode = fx.serve_plans(cfg, mesh, 2, plan_kw)
         model = build_model(cfg, prefill, device="cuda", seed=0)
         got = {}
         fa.flash_attention.launches = 0
@@ -1059,16 +1073,26 @@ def test_serve_plans_on_the_card():
         def record(key, t):
             if key == "prefill":
                 got["k7"] = fa.flash_attention.launches
+                got["explicit"] = (paths["explicit_col_project"],
+                                   paths["explicit_row_project"])
             got[key] = t.detach().cpu().numpy()
 
         fx.serve_run(model, model.with_plan(decode), batch,
                      lambda t, _: {"tokens": one[f"step{t}/tokens"]},
                      record)
-        n = cfg.n_layers
+        n = fx.attention_layers(cfg)
         assert got["k7"] == fa.flash_attention.launches == n
         assert paths["_flash_attention_sharded"] == n
         assert paths["_decode_attention_sharded"] == n * fx.SERVE_NEW
         assert paths["_write_cache_sharded"] == n * (1 + fx.SERVE_NEW)
+        # a prefill's explicit projections, then a decode step's (q and
+        # the MLPs')
+        col, row = fx.explicit_projections(cfg) if plan_kw else (0, 0)
+        step = (col, row - n) if plan_kw else (0, 0)
+        assert got["explicit"] == (col, row)
+        assert (paths["explicit_col_project"],
+                paths["explicit_row_project"]) == (
+            col + step[0] * fx.SERVE_NEW, row + step[1] * fx.SERVE_NEW)
         for key, tol in [("prefill", 1e-4)] + [
                 (f"decode{t}", 1e-3) for t in range(fx.SERVE_NEW)]:
             np.testing.assert_allclose(got[key], one[key], atol=tol,

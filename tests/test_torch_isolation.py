@@ -9,6 +9,8 @@ holds for serving: ``build_model`` and ``serve`` default to the GPU and
 streaming planner service, whose default broker is the CUDA backend's.
 So does training: ``launch.train`` and ``launch.elastic`` take
 ``--device cpu``, and ``init_train_state`` keeps the model's device.
+The port's examples (``examples/port_*.py``) import neither package
+either, and default to the GPU too.
 The port computes attention, the selective scan and the joins in its own
 kernels, never through a library's fused call, sort or search.
 """
@@ -26,7 +28,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("port_*.py"))
 
 
 def _imported_modules(path: Path):
@@ -199,6 +202,23 @@ def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path,
                                     "--seq", "16"]) == 0
     state = init_train_state(build_model(cfg, device="cpu"), AdamW())
     assert state.params["embed"].device.type == "cpu"
+
+
+def test_examples_raise_without_gpu(no_gpu, tmp_path):
+    """The port's examples default to the GPU too: without one the
+    planning example and the quickstart raise before they plan or write
+    a checkpoint."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import port_quickstart
+        import port_raqo_plan
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        port_raqo_plan.main([])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        port_quickstart.main(["--ckpt-dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
 
 
 LIBRARY_KERNELS = ("scaled_dot_product_attention", "flash_attn",

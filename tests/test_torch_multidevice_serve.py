@@ -58,8 +58,8 @@ IDS = [f"{a}-B{b}" + "".join(f"-{k}-{v}" for k, v in (kw or {}).items())
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    out = ref.served(tmp_path_factory.mktemp("multidevice_serve"), MESH,
-                     CASES)
+    out = ref.served(tmp_path_factory.mktemp("multidevice_serve"),
+                     [(MESH, CASES)])[0]
     return dict(zip(IDS, out.values()))
 
 

@@ -27,7 +27,7 @@ IDS = [a for a, _, _ in CASES]
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     out = ref.served(tmp_path_factory.mktemp("multidevice_serve_families"),
-                     MESH, CASES)
+                     [(MESH, CASES)])[0]
     return dict(zip(IDS, out.values()))
 
 

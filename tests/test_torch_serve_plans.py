@@ -19,6 +19,9 @@ against the one-device functions.
   parameter alike; a train plan, the "gathered" weight mode, another
   mesh, or a single-device model's ``with_plan`` of an enabled plan
   raise ``ValueError``.
+- ``check_explicit_split`` (``tp_mode="shard_map"``): the reference's
+  shard_map table of where serving runs and where it raises, on
+  stand-in meshes, under each plan kind.
 - ``shard_range``: 22 slots over one mesh dim of 4 (6, 6, 6, 4) and over
   2 x 2 (nested, 6, 5, 6, 5).  ``write_chunk`` on each chunk (the decode
   write of one position a row, clamped on the global length, and the
@@ -199,6 +202,41 @@ def test_sharing_refuses_other_placements():
 
 
 # ------------------------- one rank's chunk ------------------------------ #
+
+# (mesh sizes over ("pod", "data", "model"), B, S, what refuses or None):
+# the reference's shard_map table (test_torch_multidevice_serve_shard_
+# map.py), a decode step's S = 1
+EXPLICIT_SPLITS = [((1, 2, 1), 2, 1, None), ((1, 2, 1), 2, 8, None),
+                   ((1, 1, 2), 2, 1, "sequence"), ((1, 1, 2), 2, 8, None),
+                   ((1, 2, 2), 2, 1, "sequence"), ((1, 2, 2), 16, 1,
+                                                   "sequence"),
+                   ((2, 2, 1), 4, 1, None), ((2, 2, 1), 16, 1, None),
+                   ((2, 2, 1), 2, 8, "batch"), ((1, 2, 1), 1, 8, "batch")]
+
+
+@pytest.mark.parametrize("case", EXPLICIT_SPLITS,
+                         ids=lambda c: f"{c[0]}-B{c[1]}-S{c[2]}")
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_explicit_split_follows_the_reference_shard_map(case, kind):
+    """``check_explicit_split`` raises where the reference's shard_map
+    refuses its ``in_specs``: a batch the data axes do not divide, a
+    sequence "model" does not divide; under every plan kind, whose rules
+    the bodies do not read for x."""
+    from repro_torch.sharding import check_explicit_split
+    sizes, B, S, refused = case
+    axes = ("pod", "data", "model")
+    mesh = SimpleNamespace(mesh_dim_names=axes, shape=sizes)
+    cfg = REGISTRY["smollm-360m"]
+    plan = plan_for(cfg, ShapeConfig(kind, SEQ, B, kind), mesh,
+                    tp_mode="shard_map")
+    if refused is None:
+        check_explicit_split(plan, B, S)
+    else:
+        n = B if refused == "batch" else S
+        with pytest.raises(ValueError,
+                           match=f"a {refused} of {n} does not split"):
+            check_explicit_split(plan, B, S)
+
 
 def _stand_in(sizes, rank):
     """A mesh stand-in of ``sizes`` seen from ``rank`` (row-major)."""
