@@ -299,7 +299,13 @@ Phases (any failure exits nonzero; there is no CPU path):
              scan launches counted; the quickstart's loss falling over
              its 200 steps, two checkpoints kept; the serving example's
              8 requests of 16 tokens; the elastic example's crash at
-             step 15, replan and resume.
+             step 15, replan and resume;
+18. dry run — (started with the launcher, joined after phase 17) python
+             -m repro_torch.launch.dryrun of DRYRUN_CELL on both
+             production meshes, a subprocess on the host CPU with the
+             GPU hidden: one rank of 256 and of 512 over a fake process
+             group under FakeTensorMode, both records "ok" with dot
+             FLOPs; one "dryrun ..." line a record (no kernel runs).
 
 Every kernel's device time over its own path's launches (torch.profiler
 over one run of the path: phases 4, 7, 9 and 11) goes into its JSON
@@ -2311,6 +2317,66 @@ def examples_start():
     return state
 
 
+# phase 18: the dry run (repro_torch.launch.dryrun) of one cell on both
+# production meshes, a subprocess on the host CPU with the GPU hidden (it
+# needs none), beside everything up to phase 17's join: the only run of
+# the fake process group, FakeTensorMode and the step analysis on the
+# card's host's torch
+DRYRUN_CELL = ("smollm-360m", "decode_32k")
+
+
+def dryrun_start():
+    """Start phase 18 in the background; returns its state for
+    ``dryrun_check``."""
+    import os
+    import tempfile
+    root = Path(__file__).resolve().parent
+    tmp = tempfile.TemporaryDirectory()
+    arch, shape = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", "both", "--out", tmp.name]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="", PYTHONUNBUFFERED="1")
+    state, run = background(env, root)
+    state.update(tmp=tmp, thread=threading.Thread(
+        target=run, args=("dryrun", cmd), daemon=True))
+    state["thread"].start()
+    return state
+
+
+def dryrun_check(state) -> None:
+    """Phase 18, joined: exit 0, both records "ok" with dot FLOPs; one
+    ``dryrun ...`` line a record."""
+    import torch
+    state["thread"].join()
+    arch, shape = DRYRUN_CELL
+    try:
+        check("dryrun" in state, "phase 18: the dry run did not finish")
+        proc, secs = state["dryrun"]
+        check(proc.returncode == 0, f"phase 18: the dry run exit "
+              f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+              f"{proc.stderr[-3000:]}")
+        for mesh in ("single", "multi"):
+            with open(f"{state['tmp'].name}/{arch}__{shape}__{mesh}.json") \
+                    as f:
+                rec = json.load(f)
+            hlo = rec.get("hlo", {})
+            check(rec["status"] == "ok" and
+                  hlo.get("dot_flops_per_device", 0) > 0,
+                  f"phase 18: {arch} x {shape} x {mesh}: {rec}")
+            print(f"dryrun {arch} {shape} {mesh} ({rec['chips']} devices, "
+                  f"rank 0 on the host CPU, torch {torch.__version__}): dot "
+                  f"FLOPs a device {hlo['dot_flops_per_device']:.6e}, "
+                  f"collective bytes {hlo['collective_bytes_per_device']}, "
+                  f"counts {hlo['collective_counts']}, build "
+                  f"{rec['lower_s']} s, step {rec['compile_s']} s",
+                  flush=True)
+        print(f"wall phase 18 dry run (in the background): {secs:.1f} s",
+              flush=True)
+    finally:
+        state["tmp"].cleanup()
+
+
 def examples_check(state) -> dict:
     """Phase 17 (``examples_start``'s runs), joined: each exits 0; the
     planning example's lines on the card equal its lines on the kernels'
@@ -4120,6 +4186,7 @@ def main() -> int:
         build.load_library(name)
     launcher = launcher_start()
     examples = examples_start()
+    dry = dryrun_start()
     w = lap("phases 1-2 (device, build of plan_scan and flash_attention)",
             t_start)
 
@@ -4304,6 +4371,8 @@ def main() -> int:
     example_launches = examples_check(examples)
     w = lap("phase 17 (the examples, beside the build, phases 3 and 6, "
             "the untimed checks and the launcher's wait)", w)
+    dryrun_check(dry)
+    w = lap("phase 18 (the dry run's wait, beside phases 2-17)", w)
 
     # 4. main path --------------------------------------------------------- #
     schema = random_schema(10, seed=0)

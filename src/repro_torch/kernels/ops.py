@@ -18,12 +18,14 @@ loop already does causal_skip's work (``kernels/flash_attention.py``).
 
 Under a multi-device plan the attention's q, k and v are DTensors:
 ``flash_attention`` then runs K7 on each rank's shard through
-``torch.distributed.tensor.experimental.local_map`` (the kernel takes
-raw pointers, so it never sees a DTensor): q sharded on its heads (over
-"model") and its batch (over the data axes), k and v on the batch only,
-replicated over the heads' axis as the reference keeps them, and each
-rank hands the kernel the KV heads its own q heads read
-(``local_kv_heads``); positions, when given, enter ("batch", None): the
+``sharding.map_local`` (the kernel takes raw pointers, so it never sees
+a DTensor): q sharded on its heads (over "model") and its batch (over
+the data axes), k and v on the batch only, replicated over the heads'
+axis as the reference keeps them, and each rank hands the kernel the KV
+heads its own q heads read (``local_kv_heads``; the q heads cut as
+DTensor cuts a dim, ``sharding.chunk_range``, so a head count the axis
+does not divide runs, and a rank that holds none launches nothing);
+positions, when given, enter ("batch", None): the
 batch's shards, replicated over the heads' axis, as the reference
 constrains them.  Their gradients come back partial sums over the
 heads' axis, which the autograd of the redistributions before reduces.
@@ -42,8 +44,8 @@ from repro_torch.kernels import hash_join as _hj
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import merge_join as _mj
 from repro_torch.kernels import ref
-from repro_torch.sharding import (is_dtensor, map_channels, map_local,
-                                  placements_like)
+from repro_torch.sharding import (chunk_range, is_dtensor, map_channels,
+                                  map_local, placements_like)
 
 IMPLS = ("cuda", "ref")
 # the reference's flash block schedules (``repro.models.attention``)
@@ -83,18 +85,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def local_kv_heads(H: int, KV: int, tp: int, m: int):
-    """The KV heads rank ``m`` of ``tp`` (holding q heads ``m * H / tp``
-    .. ``(m + 1) * H / tp - 1``) needs, so that the kernel's own grouping
-    of its local q heads onto them is the model's ``h // (H / KV)``: a
-    ``slice`` when the local heads cover whole groups or lie inside one,
-    else a list with one KV head per local q head (group size 1)."""
-    if H % tp:
-        raise NotImplementedError(
-            f"{H} q heads do not split over a tensor-parallel degree of "
-            f"{tp}: pick a tp that divides the head count")
-    Hl, G = H // tp, H // KV
-    h0 = m * Hl
-    if Hl % G == 0 or G % Hl == 0:
+    """The KV heads rank ``m`` of ``tp`` needs for its q heads (cut as
+    DTensor cuts a dim, ``sharding.chunk_range``), so that the kernel's
+    own grouping of its local q heads onto them is the model's ``h // (H
+    / KV)``: a ``slice`` when the local heads cover whole groups or lie
+    inside one, else a list with one KV head per local q head (group size
+    1); an empty slice for a rank that holds no heads."""
+    h0, Hl = chunk_range(H, tp, m)
+    G = H // KV
+    if Hl == 0:
+        return slice(0, 0)
+    if h0 % G == 0 and Hl % G == 0 or h0 // G == (h0 + Hl - 1) // G:
         return slice(h0 // G, (h0 + Hl - 1) // G + 1)
     return [(h0 + j) // G for j in range(Hl)]
 
@@ -121,6 +122,9 @@ def _flash_attention_sharded(q, k, v, causal, window, attn_softcap,
     pos_pl = [Shard(0) if p == Shard(0) else Replicate() for p in q_pl]
 
     def attend(ql, kl, vl, *pl):
+        if not ql.shape[2]:
+            # a rank beyond the last chunk of heads holds none: no launch
+            return (ql.clone(),)
         kl, vl = kl[:, :, pick], vl[:, :, pick]
         qp, kvp = (t.contiguous() for t in pl) if pl else (None, None)
         return (flash_attention(ql.contiguous(), kl.contiguous(),
@@ -131,7 +135,7 @@ def _flash_attention_sharded(q, k, v, causal, window, attn_softcap,
 
     return map_local(attend, (q, k, v) + pos,
                      (q_pl, kv_pl, kv_pl) + (pos_pl,) * len(pos), (q_pl,),
-                     mesh)[0]
+                     mesh, None if q.shape[2] % tp == 0 else (q.shape,))[0]
 
 
 def _selective_scan_sharded(u, dt, A, Bmat, Cmat, h0, impl, chunk):

@@ -4,9 +4,13 @@ scans over (the port of ``repro.launch.mesh``).
 ``make_mesh`` builds a ``DeviceMesh`` with named dims (the reference's
 ``("pod", "data", "model")``) over the ranks of the default process
 group, one process per device (``torchrun``); ``mesh_axes`` and
-``data_parallel_size`` read one.  The reference's production meshes
-(16 x 16 chips a pod) have no counterpart: a GPU host has no such
-slice.
+``data_parallel_size`` read one.  ``make_production_mesh`` builds the
+reference's production meshes, (16, 16) ("data", "model") a pod and (2,
+16, 16) ("pod", "data", "model") for two, over the default group.  No
+GPU host holds such a slice: the dry run (``launch.dryrun``) builds them
+in one process over ``fake_world``, a "fake" process group of 256 or 512
+ranks whose collectives move nothing.  Nothing here initialises a
+process group at import.
 
 ``plan_device_count`` / ``plan_devices`` serve the planning backend's
 sharded scans.  ``REPRO_PLAN_DEVICES`` caps how many visible GPUs
@@ -16,6 +20,7 @@ ordered device list whose order is the flat-row order of the shards.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import math
 from typing import List, Optional, Tuple
@@ -75,6 +80,33 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(n).reshape(shape),
                       mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 = 256 devices a pod; 2 pods = 512 devices multi-pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """The default process group as rank ``rank`` of a "fake" world of
+    ``world_size`` (``torch.testing._internal.distributed.fake_pg``: every
+    collective returns at once and moves nothing), destroyed on exit, so
+    one process can trace a rank of a 256-device mesh and then of a
+    512-device one.  Raises if a process group is already initialised."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def data_parallel_size(mesh) -> int:

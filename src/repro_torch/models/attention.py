@@ -168,10 +168,13 @@ def _cross_attention_sharded(q, k, v):
         mesh.get_local_rank(heads[0]))
 
     def attend(ql, kl, vl):
+        if not ql.shape[2]:         # a rank that holds no heads
+            return (ql.clone(),)
         return (cross_attention(ql, kl[:, :, pick], vl[:, :, pick]),)
 
+    uneven = bool(heads) and q.shape[2] % mesh.size(heads[0])
     return map_local(attend, (q, k, v), (q_pl, kv_pl, kv_pl), (q_pl,),
-                     mesh)[0]
+                     mesh, (q.shape,) if uneven else None)[0]
 
 
 # ------------------------------ cache utils ------------------------------- #
@@ -224,10 +227,13 @@ def write_chunk(cache_k, cache_v, slot_pos, k_new, v_new, positions,
     holds global slots ``offset`` .. ``offset + S - 1`` of ``total``.  A
     slot is clamped on the global length, as on one device, and written
     only by the chunk that holds it, in place.  One position a row (a
-    decode step) writes through ``where``, with no host sync; several
-    (prefill) write only the entries this chunk holds (``nonzero``: a
-    ``where`` over clamped local slots would let an entry of another
-    chunk land on a held slot)."""
+    decode step) writes through ``where``; several (prefill) scatter each
+    held entry's index into a (B, S + 1) map of the chunk's slots, the
+    entries of other chunks and the invalid ones into the last column, so
+    a ``where`` over clamped local slots never lets an entry of another
+    chunk land on a held slot; where two entries hold one slot the later
+    one wins, as the one-device write's.  No data-dependent shape and no
+    host sync."""
     B, S = cache_k.shape[:2]
     if not S:                                   # an empty chunk
         return cache_k, cache_v, slot_pos
@@ -245,11 +251,23 @@ def write_chunk(cache_k, cache_v, slot_pos, k_new, v_new, positions,
         slot_pos[b_idx, loc] = torch.where(
             own, positions.to(slot_pos.dtype), slot_pos[b_idx, loc])
         return cache_k, cache_v, slot_pos
-    b, t = own.nonzero(as_tuple=True)
-    loc = slots[b, t]
-    cache_k[b, loc] = k_new[b, t].to(cache_k.dtype)
-    cache_v[b, loc] = v_new[b, t].to(cache_v.dtype)
-    slot_pos[b, loc] = positions[b, t].to(slot_pos.dtype)
+    T = positions.shape[1]
+    t = torch.arange(T, device=positions.device).expand(B, T)
+    src = torch.full((B, S + 1), -1, dtype=torch.int64,
+                     device=positions.device)
+    src.scatter_reduce_(1, torch.where(own, slots, S).to(torch.int64),
+                        torch.where(own, t, -1), "amax")
+    src = src[:, :S]
+    held = src >= 0
+    src = src.clamp(min=0)
+    rows = src[..., None, None].expand(-1, -1, *k_new.shape[2:])
+    sel = held[..., None, None]
+    cache_k.copy_(torch.where(sel, k_new.gather(1, rows).to(cache_k.dtype),
+                              cache_k))
+    cache_v.copy_(torch.where(sel, v_new.gather(1, rows).to(cache_v.dtype),
+                              cache_v))
+    slot_pos.copy_(torch.where(held, positions.gather(1, src).to(
+        slot_pos.dtype), slot_pos))
     return cache_k, cache_v, slot_pos
 
 

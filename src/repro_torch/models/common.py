@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding import is_dtensor, replicate
+from repro_torch.sharding import (is_dtensor, map_local, replicate,
+                                  shard_range)
 
 
 def _sharded_last(x) -> bool:
@@ -101,6 +102,35 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _picked(logits, lab):
+    """``logits[b, c, lab[b, c]]``.  On logits sharded along the vocab
+    (DTensors) each rank gathers within its own vocab shard and masks the
+    labels it does not hold, and the partial results are summed over the
+    vocab's mesh dims (what DTensor's ``MaskPartial`` means to do).
+    torch.gather's DTensor rule does not serve: on torch 2.13 at a (16,
+    16) mesh its ``MaskPartial`` reduced onto a shard raises "IndexError:
+    too many indices for tensor of dimension 2"
+    (``_ops/_mask_buffer.py`` ``apply_mask``)."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, lab.unsqueeze(-1)).squeeze(-1)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, pl = logits.device_mesh, logits.placements
+    vdim = logits.ndim - 1
+    on_vocab = [isinstance(p, Shard) and p.dim == vdim for p in pl]
+    offset, _ = shard_range(logits.shape[-1], mesh, pl, vdim)
+    lab_pl = [Replicate() if v else p for p, v in zip(pl, on_vocab)]
+    out_pl = [Partial() if v else p for p, v in zip(pl, on_vocab)]
+
+    def pick(ll, labl):
+        i = labl - offset
+        inside = (i >= 0) & (i < ll.shape[-1])
+        g = ll.gather(-1, i.clamp(0, max(ll.shape[-1] - 1, 0)).unsqueeze(-1))
+        return (torch.where(inside, g.squeeze(-1), 0.0),)
+
+    return replicate(map_local(pick, (logits, lab), (pl, lab_pl), (out_pl,),
+                               mesh)[0])
+
+
 def _chunk_nll(h, head, lab, m, *, vocab: int, cap, plan=None):
     """(sum of masked NLL, mask count) of one sequence chunk, logits in
     float32 (h.dtype operands, float32 products and sums)."""
@@ -111,8 +141,7 @@ def _chunk_nll(h, head, lab, m, *, vocab: int, cap, plan=None):
         logits = plan.constrain(logits, ("batch", None, "vocab"))
     logits = softcap(logits, cap)
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          lab.clamp(0, vocab - 1).unsqueeze(-1)).squeeze(-1)
+    picked = _picked(logits, lab.clamp(0, vocab - 1))
     mf = m.float()
     return ((lse - picked) * mf).sum(), mf.sum()
 

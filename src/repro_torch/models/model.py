@@ -212,12 +212,10 @@ def _check_plan(cfg: ModelConfig, plan: ParallelPlan) -> None:
                          f"(launch.specs.plan_for sets it)")
     names = tuple(plan.mesh.mesh_dim_names)
     tp = plan.mesh.size(names.index("model")) if "model" in names else 1
+    # the q heads (a vlm's cross q heads too) are cut as DTensor cuts a
+    # dim, ceil-sized chunks, as jax tiles them (sharding.chunk_range): no
+    # count of heads is refused
     split = []              # (what, count) the model axis must divide
-    if cfg.family == "vlm":
-        # the cross blocks' q heads are the self blocks' n_heads too
-        split.append(("attention heads (self and cross)", cfg.n_heads))
-    elif cfg.family != "ssm":
-        split.append(("attention heads", cfg.n_heads))
     if cfg.family in ("ssm", "hybrid"):
         split.append(("Mamba channels (d_inner)", cfg.d_inner))
         if cfg.ssm_version == 2:

@@ -222,13 +222,38 @@ def model_defs(cfg) -> Dict[str, Any]:
 
 # ============================ block forwards =============================== #
 
+def split_heads(y, n: int, hd: int, plan):
+    """(B, S, n * hd) -> (B, S, n, hd).  Where the model axis does not
+    divide the n heads, the columns' shards are gathered first: DTensor
+    cannot unflatten a dim whose shards cut a head (torch 2.13: "Cannot
+    unflatten unevenly sharded tensor"), and the heads are then cut by
+    the plan's rule (``sharding.chunk_range``), as GSPMD reshards the
+    reference's padded tiles."""
+    B, S = y.shape[:2]
+    if not plan.divides("heads", n):
+        y = plan.constrain(y, ("batch", None, None))
+    return y.reshape(B, S, n, hd)
+
+
+def merge_heads(o, plan):
+    """(B, S, n, hd) -> (B, S, n * hd); heads that the model axis does
+    not divide are gathered first (``split_heads``), and the gradient
+    that flows back into the merge is gathered too (the row-parallel
+    product's backward gives it column shards that cut a head)."""
+    B, S, n, hd = o.shape
+    if plan.divides("heads", n):
+        return o.reshape(B, S, n * hd)
+    o = plan.constrain(o, ("batch", None, None, None))
+    return plan.constrain(o.reshape(B, S, n * hd), ("batch", None, None))
+
+
 def _qkv(p, x, cfg, plan, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = x                       # sequence-sharded, as explicit q takes it
     x = plan.constrain(x, ("batch", None, None))      # the sequence whole
-    q = plan.col_parallel_project(h if plan.tp_mode == "shard_map" else x,
-                                  p["wq"]).reshape(B, S, H, hd)
+    q = split_heads(plan.col_parallel_project(
+        h if plan.tp_mode == "shard_map" else x, p["wq"]), H, hd, plan)
     # K/V gathered over the model axis before they split into heads (KV
     # need not divide the TP degree)
     k = plan.constrain(x @ p["wk"].to(x.dtype), ("batch", None, None)
@@ -264,9 +289,7 @@ def self_attention_block(p, x, cfg, positions, *, window=None,
                             attn_softcap=cfg.attn_softcap, schedule=sched,
                             impl=impl, q_positions=attn_positions,
                             kv_positions=attn_positions)
-    B, S = x.shape[:2]
-    o = plan.row_parallel_project(
-        o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["attn"]["wo"])
+    o = plan.row_parallel_project(merge_heads(o, plan), p["attn"]["wo"])
     if cfg.post_norms:
         o = rms_norm(o, p["ln1p"], cfg.norm_eps)
     return o, (k, v)
@@ -324,14 +347,14 @@ def cross_attn_block(p, x, media_kv, cfg, plan=_SINGLE, *,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = plan.col_parallel_project(h, p["attn"]["wq"], tp_mode="gspmd"
-                                  ).reshape(B, S, H, hd)
+    q = split_heads(plan.col_parallel_project(h, p["attn"]["wq"],
+                                              tp_mode="gspmd"), H, hd, plan)
     if "q_norm" in p["attn"]:
         q = rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
     q = plan.constrain(q, ("batch", None, "heads", None))
     k, v = media_kv
     o = attn.cross_attention(q, k, v, media_valid)
-    o = plan.row_parallel_project(o.reshape(B, S, H * hd), p["attn"]["wo"],
+    o = plan.row_parallel_project(merge_heads(o, plan), p["attn"]["wo"],
                                   tp_mode="gspmd")
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
     y = mlp_block(p, x, cfg, plan)

@@ -15,11 +15,12 @@ assigned a tuple of axes is ``Shard`` on each of them, in mesh order, as
 GSPMD nests them major to minor), and ``constrain`` redistributes a
 DTensor to them (the identity on a plain tensor or under a disabled
 plan, so one device runs exactly as before).  ``map_local`` runs a
-function on each rank's local shards (``local_map``, for the kernels,
-which take raw pointers, and the moe FFN's per-group work), giving each
-input's gradient ``Partial()`` where the ranks computed different parts;
-``map_channels`` places a per-channel function's arguments by a
-(batch, sequence, channels) DTensor's shards.
+function on each rank's local shards (as torch's ``local_map`` does,
+for the kernels, which take raw pointers, and the moe FFN's per-group
+work), giving each input's gradient ``Partial()`` where the ranks
+computed different parts; ``map_channels`` places a per-channel
+function's arguments by a (batch, sequence, channels) DTensor's
+shards.
 
 The tensor-parallel projections run in the plan's ``tp_mode``:
 ``"gspmd"`` is a matmul of DTensors and a constraint (DTensor picks the
@@ -527,24 +528,44 @@ def placements_like(like, keep: Sequence[int], dims: Sequence[Optional[int]]):
     return out
 
 
-def map_local(fn, args, in_placements, out_placements, mesh):
+def map_local(fn, args, in_placements, out_placements, mesh,
+              out_shapes=None):
     """``fn`` (returning a tuple) on each rank's local shards of the
     DTensors ``args``, redistributed to ``in_placements``, its outputs
-    DTensors of ``out_placements`` (``local_map``: a kernel that takes
-    raw pointers never sees a DTensor).  An input's gradient takes its
-    placements, except ``Partial()`` on each mesh dim over which the input
-    is replicated and an output is not: the ranks computed different parts
-    there, so each holds a part of the gradient."""
-    from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    DTensors of ``out_placements`` (torch's ``local_map`` does the same
+    where every shard is even: a kernel that takes raw pointers never
+    sees a DTensor).  An input's gradient takes its placements, except
+    ``Partial()`` on each mesh dim over which the input is replicated and
+    an output is not: the ranks computed different parts there, so each
+    holds a part of the gradient.  ``out_shapes`` gives the outputs'
+    global shapes where a shard is uneven (heads the model axis does not
+    divide); by default a rank's local size times the mesh's."""
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     split = {i for pl in out_placements for i, p in enumerate(pl)
              if not isinstance(p, Replicate)}
-    grads = tuple([Partial() if i in split and isinstance(p, Replicate)
-                   else p for i, p in enumerate(pl)] for pl in in_placements)
-    return local_map(fn, out_placements=tuple(out_placements),
-                     in_placements=tuple(in_placements),
-                     in_grad_placements=grads, device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+    local = []
+    for a, pl in zip(args, in_placements):
+        if is_dtensor(a):
+            pl = tuple(pl)
+            grad = tuple(Partial() if i in split and isinstance(p, Replicate)
+                         else p for i, p in enumerate(pl))
+            if a.placements != pl:
+                a = a.redistribute(mesh, pl)
+            a = a.to_local(grad_placements=grad)
+            if isinstance(a, AsyncCollectiveTensor):
+                a = a.wait()
+        local.append(a)
+    outs = fn(*local)
+    shapes = out_shapes or (None,) * len(outs)
+    return tuple(DTensor.from_local(
+        o, mesh, tuple(pl), run_check=False,
+        shape=None if shp is None else torch.Size(shp),
+        stride=None if shp is None else
+        tuple(math.prod(shp[d + 1:]) for d in range(len(shp))))
+        if isinstance(o, torch.Tensor) else o
+        for o, pl, shp in zip(outs, out_placements, shapes))
 
 
 def map_channels(fn, args, dims, out_dims, like):
@@ -573,23 +594,31 @@ def contiguous_shards(t):
                               stride=t.stride())
 
 
+def chunk_range(length: int, n: int, i: int) -> Tuple[int, int]:
+    """(offset, length) of piece ``i`` of ``length`` elements cut into
+    ``n`` as ``torch.chunk`` cuts them: ceil-sized pieces, the last short,
+    the pieces beyond it empty.  That is how DTensor's ``Shard`` lays out
+    a dim over one mesh dim, and jax's padded split tiles it the same."""
+    size = -(-length // n)
+    start = min(i * size, length)
+    return start, min(size, length - start)
+
+
 def shard_range(length: int, mesh, placements, dim: int) -> Tuple[int, int]:
     """(global offset, length) of this rank's chunk of a tensor dim of
     ``length`` elements that ``placements`` on ``mesh`` shard: over each
     mesh dim in order on which it is ``Shard(dim)``, the chunk so far is
-    cut as ``torch.chunk`` cuts it (ceil-sized pieces, the last short or
-    empty), which is how DTensor lays out its local shards.  On one mesh
-    dim that is jax's split too; over two, DTensor nests the cuts (22
-    over 2 x 2: 6, 5, 6, 5) where jax cuts once (6, 6, 6, 4)."""
+    cut by ``chunk_range``, which is how DTensor lays out its local
+    shards.  On one mesh dim that is jax's split too; over two, DTensor
+    nests the cuts (22 over 2 x 2: 6, 5, 6, 5) where jax cuts once (6, 6,
+    6, 4)."""
     from torch.distributed.tensor import Shard
     coord = mesh.get_coordinate()
     offset = 0
     for i, p in enumerate(placements):
         if isinstance(p, Shard) and p.dim == dim:
-            n = mesh.size(i)
-            size = -(-length // n)
-            start = min(coord[i] * size, length)
-            offset, length = offset + start, min(size, length - start)
+            start, length = chunk_range(length, mesh.size(i), coord[i])
+            offset += start
     return offset, length
 
 

@@ -73,7 +73,10 @@ def unflatten(flat):
 # wherever these fixtures take one
 VARIANTS = {"smollm-360m-leftpad": ("smollm-360m", {}, 5),
             "gemma2-9b-leftpad": ("gemma2-9b", {}, 7),
-            "zamba2-2.7b-mamba1": ("zamba2-2.7b", {"ssm_version": 1}, None)}
+            "zamba2-2.7b-mamba1": ("zamba2-2.7b", {"ssm_version": 1}, None),
+            # 3 q heads over 1 KV head: a model axis of 2 cuts them 2, 1
+            "smollm-360m-3heads": ("smollm-360m",
+                                   {"n_heads": 3, "n_kv_heads": 1}, None)}
 
 
 def variant(arch: str):

@@ -63,10 +63,11 @@ def run_id(run):
 
 
 def trained(d, runs, seed: int = 0, grads: bool = False, replay=(),
-            probe: bool = False):
+            probe: bool = False, shape=(B, S)):
     """Each run (arch, config overrides, mesh[, plan overrides for
     plan_for]) of ``runs`` from the reference's parameters drawn from
-    ``seed`` on ``fx.batch``'s batch of seed 1 + ``seed``: {run_id(run):
+    ``seed`` on ``fx.batch``'s (B, S) = ``shape`` batch of seed 1 +
+    ``seed``: {run_id(run):
     (the reference's trajectory [{loss, grad_norm, moe metrics, params,
     grads: the gradients the step takes}] and its first step's gradients
     {name: array}, the world's results: with ``grads`` each step's
@@ -83,7 +84,8 @@ def trained(d, runs, seed: int = 0, grads: bool = False, replay=(),
         key = (arch, tuple(sorted((over or {}).items())), world)
         tag = run_id((arch, over, (world,)))
         if key not in refs:
-            refs[key] = _reference(d, tag, arch, over or {}, world, seed)
+            refs[key] = _reference(d, tag, arch, over or {}, world, seed,
+                                   shape)
         path = d / f"{run_id(run)}.npz"
         fx.spawn(fx.train_worker, world, mesh, str(d / f"{tag}_params.npz"),
                  str(d / f"{tag}_batch.npz"), str(path), 1, arch, over,
@@ -109,14 +111,14 @@ def rsmoke(arch, **over):
                                **{**vover, **over})
 
 
-def _reference(d, tag, arch, over, groups, seed=0):
+def _reference(d, tag, arch, over, groups, seed=0, shape=(B, S)):
     rcfg = rsmoke(arch, **over)
     cfg = fx.smoke_cfg(arch, **over)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
     rmodel = rbuild(rcfg, rsingle_device_plan().with_(
         moe_target_groups=groups))
     params = _open_gates(rmodel.init(jax.random.PRNGKey(seed)), cfg)
-    batch = fx.with_positions(arch, fx.batch(cfg, B, S, seed=1 + seed))
+    batch = fx.with_positions(arch, fx.batch(cfg, *shape, seed=1 + seed))
     np.savez(d / f"{tag}_params.npz", **_flat_tree(params))
     np.savez(d / f"{tag}_batch.npz", **batch)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}

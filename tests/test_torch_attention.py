@@ -38,6 +38,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attention_ref
 from repro_torch.models import attention as A
 from repro_torch.models.model import build_model
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 TOL = 2e-5
 

@@ -51,6 +51,7 @@ from repro_torch.models.model import (build_model, cache_layout,
 from test_torch_positions import (B, S, _batch, _pair, padded, positions,
                                   serve_against_reference)
 from test_torch_positions_train import train_against_reference
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 ARCH = "zamba2-2.7b"
 MAMBA1 = {"ssm_version": 1}

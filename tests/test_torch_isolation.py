@@ -71,7 +71,9 @@ def test_port_import_loads_no_jax():
             "repro_torch.core.roofline, repro_torch.core.sharding_planner, "
             "repro_torch.core.decision_tree, repro_torch.optim, "
             "repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.launch.train, repro_torch.launch.elastic; "
+            "repro_torch.launch.train, repro_torch.launch.elastic, "
+            "repro_torch.launch.dryrun, repro_torch.launch.step_analysis, "
+            "repro_torch.launch.shape_only; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba_scan as tms
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 ATTN_CASES = {          # B, S, H, KV, hd
     "mha": (1, 128, 4, 4, 64),

@@ -48,6 +48,7 @@ from repro_torch.models.model import (_flatten, build_model, check_supported,
 from repro_torch.models.transformer import model_defs
 
 from fixtures_torch_media import gate_values, inputs, open_gates
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 VLM, AUDIO = "llama-3.2-vision-11b", "musicgen-medium"
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",

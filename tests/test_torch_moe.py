@@ -29,6 +29,7 @@ from repro_torch.configs import REGISTRY
 from repro_torch.models.moe import _capacity, moe_aux_total, moe_ffn, route
 from repro_torch.models.transformer import model_defs
 from repro_torch.sharding import init_from_defs, single_device_plan
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 ARCH = "qwen3-moe-30b-a3b"
 Y_TOL = 1e-5

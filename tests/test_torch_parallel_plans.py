@@ -184,21 +184,33 @@ def test_active_mesh(shape, want):
 
 @pytest.mark.parametrize("H,KV,tp", [(4, 2, 1), (4, 2, 2), (4, 2, 4),
                                      (15, 5, 3), (15, 5, 5), (15, 5, 15),
-                                     (32, 8, 16), (8, 8, 4)])
+                                     (32, 8, 16), (8, 8, 4), (15, 5, 2),
+                                     (15, 5, 16), (24, 24, 16), (3, 1, 2)])
 def test_local_kv_heads(H, KV, tp):
     """Each rank's local q head j, read through the kernel's own grouping
     of its local heads onto the KV heads it is handed, reads the model's
-    KV head (h0 + j) // (H / KV)."""
+    KV head (h0 + j) // (H / KV).  The q heads are cut as DTensor cuts a
+    dim (``sharding.chunk_range``: ceil-sized chunks, the last short, the
+    ranks beyond the last chunk empty), also where tp does not divide
+    H."""
+    from repro_torch.sharding import chunk_range
     G = H // KV
+    size = -(-H // tp)
+    held = []
     for m in range(tp):
-        Hl = H // tp
+        h0, Hl = chunk_range(H, tp, m)
+        assert (h0, Hl) == (min(m * size, H), len(range(H)[m * size:
+                                                          (m + 1) * size]))
+        held += range(h0, h0 + Hl)
         pick = np.arange(KV)[local_kv_heads(H, KV, tp, m)]
+        if not Hl:
+            assert len(pick) == 0
+            continue
         assert Hl % len(pick) == 0
         local_group = Hl // len(pick)
         for j in range(Hl):
-            assert pick[j // local_group] == (m * Hl + j) // G
-    with pytest.raises(NotImplementedError, match="head"):
-        local_kv_heads(15, 5, 2, 0)
+            assert pick[j // local_group] == (h0 + j) // G
+    assert held == list(range(H))
 
 
 class _DeviceMesh(SimpleNamespace):
@@ -256,9 +268,10 @@ def test_dense_full_archs():
 def test_dense_plans_refuse_what_is_not_ported():
     """smollm-360m under a plan admits the local_global schedule (and
     swa), the causal_skip block schedule, tp_mode="shard_map" and
-    pipeline stages, and refuses only a head count the model axis does
-    not divide."""
-    from repro_torch.models.model import build_model, check_supported
+    pipeline stages, and a head count the model axis does not divide
+    (15 heads over 2: cut as DTensor cuts a dim, ``sharding.chunk_range``):
+    nothing of it is refused."""
+    from repro_torch.models.model import check_supported
     cfg = REGISTRY["smollm-360m"]
     for schedule in ("local_global", "swa"):
         admitted = dataclasses.replace(cfg.smoke(), attention=schedule)
@@ -267,9 +280,8 @@ def test_dense_plans_refuse_what_is_not_ported():
     for kw in (dict(attention_schedule="causal_skip"),
                dict(tp_mode="shard_map"), dict(pipeline_stages=2)):
         check_supported(small, _train_plan_on(small).with_(**kw))
-    # 15 heads do not split over a model axis of 2
-    with pytest.raises(NotImplementedError, match="head"):
-        build_model(cfg, _train_plan_on(cfg), device="cpu")
+    check_supported(cfg, _train_plan_on(cfg))
+    check_supported(cfg, _train_plan_on(cfg, (1, 16, 16)))
 
 
 def test_launcher_refuses_many_gpus_without_torchrun(monkeypatch):

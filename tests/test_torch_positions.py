@@ -56,6 +56,7 @@ from repro_torch.models.model import build_model
 from fixtures_torch_media import inputs
 from fixtures_torch_multidevice_ref import flat_cache
 from test_torch_models import _open_gates
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 VLM, AUDIO = "llama-3.2-vision-11b", "musicgen-medium"
 ARCHS = ["smollm-360m", "mixtral-8x7b", "gemma2-9b", "zamba2-2.7b", VLM,

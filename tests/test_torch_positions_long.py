@@ -54,6 +54,7 @@ from repro.models import attention as RA
 from repro.models import build_model as rbuild
 from repro_torch.configs import REGISTRY
 from repro_torch.models.model import build_model
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 ARCHS = ["zamba2-2.7b", "qwen3-moe-30b-a3b"]
 B, S, PADS, STEPS = 2, 600, 40, 2

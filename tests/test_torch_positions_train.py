@@ -19,6 +19,7 @@ from repro_torch.models.model import load_jax_params
 from repro_torch.runtime.steps import make_loss_fn
 
 from test_torch_positions import ARCHS, B, CASES, S, _batch, _jx, _pair
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 GRAD_TOL = 1e-5
 

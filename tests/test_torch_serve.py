@@ -38,6 +38,7 @@ from repro_torch.models.model import (CACHE_BATCH_AXIS, build_model,
                                       load_jax_params)
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 from test_torch_models import _open_gates, inputs, jx, open_gates, prefix
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
          "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b"]

@@ -29,6 +29,7 @@ from repro.sharding import single_device_plan as rsingle_device_plan
 from repro_torch.configs import REGISTRY
 from repro_torch.models import ssm
 from repro_torch.sharding import single_device_plan
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 SSD_TOL = 1e-5
 STEP_TOL = 1e-4

@@ -68,6 +68,7 @@ from repro_torch.runtime.steps import (init_train_state, make_loss_fn,
                                        make_train_step)
 from repro_torch.sharding import single_device_plan
 from test_torch_models import _open_gates, inputs, open_gates
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 ARCHS = ["smollm-360m", "qwen3-moe-30b-a3b", "falcon-mamba-7b",
          "zamba2-2.7b", "mixtral-8x7b", "gemma2-9b", "llama-3.2-vision-11b",

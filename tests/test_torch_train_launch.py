@@ -10,8 +10,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
+# two threads a launcher process: the suite's workers share the host
+# (fixtures_torch_threads)
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-       "PYTHONUNBUFFERED": "1"}
+       "PYTHONUNBUFFERED": "1", "OMP_NUM_THREADS": "2"}
 SMOKE = ["--arch", "smollm-360m", "--smoke", "--device", "cpu"]
 
 

@@ -15,6 +15,7 @@ from repro_torch.optim import AdamW
 from repro_torch.runtime.steps import init_train_state, make_train_step
 from test_torch_models import open_gates
 from test_torch_train import ARCHS, _batch
+from fixtures_torch_threads import few_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
